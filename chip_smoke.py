@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render path on one CUDA card and check it.
+"""Drive the PyTorch port's render and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -7,21 +8,35 @@ Phases, each printed as one JSON line; any failed check raises, so the
 script exits non-zero:
 
 1. device — the card's name and power limit (nvidia-smi) and PyTorch's view.
-2. build  — every CUDA kernel of the path, built from the repository's
-   sources (`omnigs_torch/cuda_build.py`), with nvcc's register and
-   shared-memory report.
+2. build  — every CUDA kernel of the paths, built from the repository's
+   sources in parallel (`omnigs_torch/cuda_build.py`), with nvcc's register
+   and shared-memory report.
 3. kernel — at full width (1920×960 lonlat, P = 131,072 at SH degree 3):
    the instance slab of one pose through the port's preprocess, binning
-   and re-lay; the CUDA kernel against its plain PyTorch version on it
-   (max |Δ| ≤ 1e-4, 99.9th percentile ≤ 1e-5 over image and final_T); both
-   timed with CUDA events; the work this slab needs, for the bound. Then
-   the device time of each stage of that render (CUDA events).
-4. render — four serving requests through `render_model` with the
+   and re-lay; the forward CUDA kernel against its plain PyTorch version on
+   it (max |Δ| ≤ 1e-4, 99.9th percentile ≤ 1e-5 over image and final_T);
+   both timed with CUDA events; the work this slab needs, for the bound.
+   Then the device time of each stage of that render (CUDA events).
+4. grad   — the backward CUDA kernel on the same slab, with a seeded
+   dL/dcolor, against its plain version (rows 0..8 over the segment lanes,
+   max |Δ| ≤ 1e-4 and 99.9th percentile ≤ 1e-5, each relative to the row's
+   max |plain|); both timed; its work counts and bound; kernel + reduction
+   run twice must give bitwise-equal Gaussian gradients.
+5. render — four serving requests through `render_model` with the
    production config of cfg/lonlat/360roam_lonlat.yaml under
    `torch.inference_mode()`, with the launch counters set to 0 just before
    and read just after: every kernel of the path must have launched, no
    instance may be truncated, every image must be finite.
-5. ply    — save → load → render one pose again: bit-identical image.
+6. ply    — save → load → render one pose again: bit-identical image.
+7. train  — a `Scene` of the four poses, each ground truth the port's own
+   render of the model; `Trainer.init_from_sfm` from the noisy means and dc
+   colors (knn at N = 131,072, capacity 524,288); iterations 3001–3012 at
+   SH degree 3 with densify every 4 (at 3004, 3008, 3012). One line per
+   iteration (host ms, loss, live Gaussians, truncated, launches); the
+   launch counters set to 0 just before and read just after: the backward
+   kernel once per iteration, the forward at least once, densify three
+   times, finite losses and parameters, nothing truncated. Then the
+   `train_stages` line: device ms per stage of non-densify steps.
 
 Then the `kernels` line, nvidia-smi's line, and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -30,6 +45,7 @@ package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -47,14 +63,28 @@ CONFIG = REPO / "cfg" / "lonlat" / "360roam_lonlat.yaml"
 # H100 SXM published peaks (dense): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# fp32 operations per pixel-instance pair in the kernel: every visited
-# pair (dx, dy, quadratic form, clamp, exp, opacity, clamp, two tests) and
-# every live pair on top (log1p, exp of the log-T, test, weight, 3 color
-# multiply-adds, 2 log sums); a transcendental counts as one operation
+# fp32 operations per pixel-instance pair in the forward kernel: every
+# visited pair (dx, dy, quadratic form, clamp, exp, opacity, clamp, two
+# tests) and every live pair on top (log1p, exp of the log-T, test, weight,
+# 3 color multiply-adds, 2 log sums); a transcendental counts as one
 OPS_PER_VISITED_PAIR = 17
 OPS_PER_LIVE_PAIR = 13
+# the backward kernel: the forward's 17 per visited pair; per live
+# (contributing) pair log1p, exp, the stop test (3), weight, u (5), the w·u
+# prefix (2), dL·B, dL/dα (3, one division), V, the nine partials (10) and
+# the log-T sum = 30, plus ~9 adds of the nine pixel reductions = 39; per
+# instance the eight warp partials of nine rows (63 adds) and the row
+# combination (9)
+BWD_OPS_PER_LIVE_PAIR = 39
+BWD_OPS_PER_INSTANCE = 72
 MAX_ERR_BAR = 1e-4
 P999_ERR_BAR = 1e-5
+# the training phase: iterations 3001..3012 (SH degree 3 from 3000 on),
+# densify every 4th iteration
+TRAIN_START = 3000
+TRAIN_ITERS = 12
+DENSIFY_EVERY = 4
+INIT_NOISE = 0.02
 
 
 def emit(obj) -> None:
@@ -238,6 +268,7 @@ def kernel_phase(torch, model, camera, pose, cfg):
         "phase": "kernel",
         "name": "composite_seg_fwd",
         "tiles": num_tiles,
+        "gx": gx,
         "emitted_instances": int(inst.num_instances),
         "segment_instances": instances,
         "live8": int(seg.live8),
@@ -260,6 +291,99 @@ def kernel_phase(torch, model, camera, pose, cfg):
             f"kernel disagrees with its plain version: max {max_err:.3g} "
             f"(bar {MAX_ERR_BAR}), p99.9 {p999:.3g} (bar {P999_ERR_BAR})"
         )
+    return result, (slab, seg, inst, kc, kt)
+
+
+def segment_lanes(torch, seg, r8):
+    """(R8,) bool: the lanes inside some tile's segment."""
+    dev = seg.starts8.device
+    delta = torch.zeros(r8 + 1, dtype=torch.int32, device=dev)
+    ones = torch.ones_like(seg.counts)
+    delta.index_add_(0, seg.starts8.to(torch.int64), ones)
+    delta.index_add_(0, (seg.starts8 + seg.counts).to(torch.int64), -ones)
+    return torch.cumsum(delta, 0, dtype=torch.int32)[:r8] > 0
+
+
+def grad_phase(torch, kres, slab_data):
+    """The backward kernel on the kernel phase's slab against its plain
+    version; timings; work counts and bound; a bitwise repeat of kernel +
+    reduction."""
+    from omnigs_torch.ops import composite_seg as cs
+
+    slab, seg, inst, kc, kt = slab_data
+    num_tiles, gx = kres["tiles"], kres["gx"]
+    dev = slab.device
+    with torch.inference_mode():
+        color_full = kc.contiguous()  # bg = 0: color_full is the color
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        dcolor = torch.randn(color_full.shape, generator=gen, device=dev)
+        args = (slab, seg.starts8, seg.counts, seg.live8, color_full, dcolor,
+                num_tiles, gx)
+        got = cs.composite_seg_bwd(*args)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        ref = cs.composite_seg_bwd_plain(
+            slab, seg.starts8, seg.counts, color_full, dcolor, num_tiles, gx
+        )
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)  # the plain version runs once
+        lanes = segment_lanes(torch, seg, slab.shape[1])
+        scale = ref[: cs.NGRAD].abs().amax(dim=1, keepdim=True)
+        rel = ((got[: cs.NGRAD] - ref[: cs.NGRAD]).abs() / scale)[:, lanes]
+        max_rel = float(rel.max())
+        p999 = float(torch.sort(rel.flatten()).values[int(0.999 * (rel.numel() - 1))])
+        max_abs = float((got[: cs.NGRAD] - ref[: cs.NGRAD]).abs().max())
+        outside_zero = bool((got[:, ~lanes] == 0).all() and (got[cs.NGRAD:] == 0).all())
+        finite = bool(torch.isfinite(got).all())
+        del ref, rel
+        kernel_ms = time_ms(torch, lambda: cs.composite_seg_bwd(*args), reps=20)
+        repeat = []
+        for _ in range(2):
+            acc = cs._reduce_rows(cs.composite_seg_bwd(*args), seg.sorted_g8, P)
+            repeat.append(acc[inst.inv_perm.to(torch.int64)])
+        bitwise = bool(torch.equal(repeat[0], repeat[1]))
+        reduce_ms = time_ms(
+            torch, lambda: cs._reduce_rows(got, seg.sorted_g8, P), reps=10
+        )
+    instances = kres["segment_instances"]
+    live = kres["live_pairs"]
+    ops = (kres["visited_pairs"] * OPS_PER_VISITED_PAIR
+           + live * BWD_OPS_PER_LIVE_PAIR + instances * BWD_OPS_PER_INSTANCE)
+    nbytes = (18 * 4 * instances + 2 * 4 * num_tiles + 6 * 4 * 256 * num_tiles
+              + slab.numel() * 4)  # + the zero fill of the (16, R8) output
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    result = {
+        "phase": "grad",
+        "name": "composite_seg_bwd",
+        "tiles": num_tiles,
+        "segment_instances": instances,
+        "visited_pairs": kres["visited_pairs"],
+        "live_pairs": live,
+        "ops": ops,
+        "bytes": nbytes,
+        "max_abs_err": max_abs,
+        "max_rel_err": max_rel,
+        "p999_rel_err": p999,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "reduce_ms": reduce_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bitwise_repeat": bitwise,
+    }
+    emit(result)
+    if not finite or not outside_zero:
+        raise RuntimeError("backward kernel: non-finite rows or nonzero lanes "
+                           "outside the segments")
+    if max_rel > MAX_ERR_BAR or p999 > P999_ERR_BAR:
+        raise RuntimeError(
+            f"backward kernel disagrees with its plain version: max {max_rel:.3g} "
+            f"(bar {MAX_ERR_BAR}), p99.9 {p999:.3g} (bar {P999_ERR_BAR}), relative"
+        )
+    if not bitwise:
+        raise RuntimeError("kernel + reduction is not bitwise repeatable")
     return result
 
 
@@ -337,6 +461,221 @@ def ply_phase(torch, model, camera, pose, cfg, image0):
         raise RuntimeError(f"PLY round trip changed the render (max |Δ| {diff})")
 
 
+class Probe:
+    """Wraps module functions so each call records a CUDA event on entry
+    (``<label>:in``) and exit (``<label>:out``); restores them on exit.
+    Used only to split a training step into stages."""
+
+    def __init__(self, torch, targets):
+        self.torch = torch
+        self.targets = targets  # [(module, attribute, label)]
+        self.events = {}
+        self.saved = []
+
+    def mark(self, label):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events[label] = ev
+
+    def _wrap(self, fn, label):
+        # functools.wraps also copies a kernel wrapper's launch counter, so
+        # the wrapped function's own `+= 1` finds it
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            self.mark(label + ":in")
+            out = fn(*args, **kwargs)
+            self.mark(label + ":out")
+            return out
+
+        return wrapped
+
+    def __enter__(self):
+        for mod, attr, label in self.targets:
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(fn, label))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+        self.saved = []
+
+    def ms(self, a, b):
+        return self.events[a].elapsed_time(self.events[b])
+
+
+def train_scene(torch, np, model, camera, pose_list, cfg):
+    """Four keyframes at the poses, each ground truth the port's render of
+    ``model``; the SfM cloud is the model's means plus N(0, INIT_NOISE)
+    noise with the dc colors."""
+    from omnigs_torch.ops.sh import sh2rgb
+    from omnigs_torch.scene.keyframe import Keyframe
+    from omnigs_torch.scene.scene import Scene
+    from omnigs_torch.train.renderer import render_model
+
+    scene = Scene()
+    bg = torch.zeros(3, device=model.xyz.device)
+    for fid, (vm, campos) in enumerate(pose_list):
+        with torch.inference_mode():
+            res = render_model(model, camera, vm, campos, bg, SH_DEGREE, cfg)
+        vm_np = vm.cpu().numpy()
+        scene.add_keyframe(Keyframe(
+            fid, camera, vm_np[:3, :3].copy(), vm_np[:3, 3].copy(),
+            image=res.image.permute(1, 2, 0).cpu().numpy(),
+        ))
+    rng = np.random.default_rng(SEED + 1)
+    xyz = model.xyz.detach().cpu().numpy()
+    scene.points = (xyz + rng.normal(size=xyz.shape) * INIT_NOISE).astype(np.float32)
+    dc = model.features_dc.detach()[:, 0]
+    scene.colors = torch.clamp(sh2rgb(dc), 0.0, 1.0).cpu().numpy()
+    return scene
+
+
+def train_phase(torch, np, model, camera, pose_list, render_cfg):
+    from omnigs_torch.config import load_config
+    from omnigs_torch.model import densify as densify_ops
+    from omnigs_torch.ops import composite_seg as cs
+    from omnigs_torch.train.trainer import Trainer
+
+    cfg = load_config(CONFIG)
+    # compressed schedule: densify at 3004, 3008 and 3012, no opacity reset
+    cfg.opt.densification_interval = DENSIFY_EVERY
+    cfg.opt.densify_until_iter = 4000
+    cfg.opt.opacity_reset_interval = 0
+    # the four poses lie within 0.1 of each other, so the world-size prune
+    # (max scale > 0.1·extent ≈ 0.01) would remove nearly every Gaussian of
+    # this cloud at the first densify; keep it off so densify grows the model
+    cfg.opt.prune_big_point_after_iter = 4000
+    scene = train_scene(torch, np, model, camera, pose_list, render_cfg)
+    t0 = time.perf_counter()
+    tr = Trainer(scene, cfg, seed=SEED, device=str(model.xyz.device))
+    tr.init_from_sfm()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tr.iteration = TRAIN_START  # SH degree 3 from iteration 3000 on
+    if tr.sh_degree != SH_DEGREE:
+        raise RuntimeError(f"sh_degree {tr.sh_degree} at iteration {tr.iteration}")
+
+    densified = []
+    densify = densify_ops.densify_and_prune
+
+    def counting_densify(*args, **kwargs):
+        stats = densify(*args, **kwargs)
+        densified.append({k: int(v) for k, v in stats._asdict().items()})
+        return stats
+
+    densify_ops.densify_and_prune = counting_densify
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    try:
+        cs.composite_seg_fwd.launches = 0
+        cs.composite_seg_bwd.launches = 0
+        for _ in range(TRAIN_ITERS):
+            fwd0, bwd0 = cs.composite_seg_fwd.launches, cs.composite_seg_bwd.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = tr.train_iteration()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            line = {
+                "phase": "train",
+                "iteration": tr.iteration,
+                "host_ms": host_ms,
+                "loss": float(aux["loss"]),
+                "num_active": int(tr.model.num_active),
+                "truncated": int(aux["truncated"]),
+                "fwd_launches": cs.composite_seg_fwd.launches - fwd0,
+                "bwd_launches": cs.composite_seg_bwd.launches - bwd0,
+                "densified": densified[-1] if tr.iteration % DENSIFY_EVERY == 0
+                and densified else None,
+            }
+            emit(line)
+            lines.append(line)
+        launches = {"composite_seg_fwd": cs.composite_seg_fwd.launches,
+                    "composite_seg_bwd": cs.composite_seg_bwd.launches}
+    finally:
+        densify_ops.densify_and_prune = densify
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finite = all(bool(torch.isfinite(p).all()) for p in tr.model.params().values())
+    summary = {
+        "phase": "train_summary",
+        "iterations": TRAIN_ITERS,
+        "init_from_sfm_s": init_s,
+        "capacity": tr.model.capacity,
+        "raster_max_instances": tr.raster_cfg.max_instances,
+        "launches": launches,
+        "densify_calls": len(densified),
+        "peak_mem_gib": peak_gib,
+        "params_finite": finite,
+        "drained_loss": tr.drain_losses(),
+        "total_truncated": tr.total_truncated,
+    }
+    emit(summary)
+    if not finite or not all(math.isfinite(x["loss"]) for x in lines):
+        raise RuntimeError("training produced a non-finite loss or parameter")
+    if any(x["truncated"] for x in lines) or tr.total_truncated:
+        raise RuntimeError("training truncated instances")
+    if any(x["bwd_launches"] != 1 or x["fwd_launches"] < 1 for x in lines):
+        raise RuntimeError("a training iteration skipped a kernel")
+    if launches["composite_seg_bwd"] != TRAIN_ITERS or len(densified) != 3:
+        raise RuntimeError(f"launches {launches}, densify ran {len(densified)} times")
+    return tr, launches
+
+
+def train_stages(torch, tr, reps=3):
+    """Device ms of each stage of ``reps`` non-densify training iterations
+    (CUDA events at the entry and exit of each stage's function)."""
+    from omnigs_torch.model import densify as densify_ops
+    from omnigs_torch.model import optimizer as opt_ops
+    from omnigs_torch.ops import composite_seg as cs
+    from omnigs_torch.ops import loss as loss_ops
+    from omnigs_torch.ops import rasterize as rz
+
+    targets = [
+        (rz, "preprocess", "preprocess"), (rz, "bin_instances_packed", "binning"),
+        (rz, "segment_relay", "relay"), (cs, "_build_inst_seg", "slab"),
+        (cs, "composite_seg_fwd", "fwd"), (loss_ops, "l1_loss", "l1"),
+        (loss_ops, "ssim", "ssim"), (cs, "composite_seg_bwd", "bwd"),
+        (cs, "_reduce_rows", "reduce"),
+        (densify_ops, "add_densification_stats", "stats"),
+        (opt_ops, "adam_step", "adam"),
+    ]
+    totals = {}
+    done = 0
+    while done < reps:
+        if (tr.iteration + 1) % DENSIFY_EVERY == 0:
+            tr.train_iteration()  # a densify step: not measured
+            continue
+        with Probe(torch, targets) as pr:
+            pr.mark("start")
+            tr.train_iteration()
+            pr.mark("end")
+            torch.cuda.synchronize()
+            stages = {
+                "preprocess": pr.ms("preprocess:in", "preprocess:out"),
+                "binning": pr.ms("binning:in", "binning:out"),
+                "relay": pr.ms("relay:in", "relay:out"),
+                "slab": pr.ms("slab:in", "slab:out"),
+                "fwd_kernel": pr.ms("fwd:in", "fwd:out"),
+                "blend": pr.ms("fwd:out", "l1:in"),
+                "loss": pr.ms("l1:in", "ssim:out"),
+                "bwd_kernel": pr.ms("bwd:in", "bwd:out"),
+                "reduction": pr.ms("reduce:in", "reduce:out"),
+                "autograd_rest": pr.ms("ssim:out", "bwd:in")
+                + pr.ms("reduce:out", "stats:in"),
+                "stats": pr.ms("stats:in", "stats:out"),
+                "adam": pr.ms("adam:in", "adam:out"),
+            }
+            stages["other"] = pr.ms("start", "end") - sum(stages.values())
+        for k, v in stages.items():
+            totals[k] = totals.get(k, 0.0) + v / reps
+        done += 1
+    emit({"phase": "train_stages", "steps": reps, "stage_ms": totals,
+          "sum_ms": sum(totals.values())})
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -365,9 +704,9 @@ def main() -> int:
         "cuda": torch.version.cuda,
     })
 
-    kernels = ["composite_seg_fwd"]
+    kernels = ["composite_seg_fwd", "composite_seg_bwd"]
     t0 = time.perf_counter()
-    cuda_build.build(kernels)
+    cuda_build.build(kernels)  # one nvcc per source, all in parallel
     emit({
         "phase": "build",
         "seconds": time.perf_counter() - t0,
@@ -379,27 +718,51 @@ def main() -> int:
     model = synthetic_model(np, "cuda")
     pose_list = poses(torch, "cuda")
 
-    kres = kernel_phase(torch, model, camera, pose_list[0], cfg)
+    kres, slab_data = kernel_phase(torch, model, camera, pose_list[0], cfg)
+    gres = grad_phase(torch, kres, slab_data)
+    del slab_data
     stage_phase(torch, model, camera, pose_list[0], cfg)
-    images, launches = render_phase(torch, model, camera, pose_list, cfg)
+    images, render_launches = render_phase(torch, model, camera, pose_list, cfg)
     ply_phase(torch, model, camera, pose_list[0], cfg, images[0])
+    tr, train_launches = train_phase(torch, np, model, camera, pose_list, cfg)
+    train_stages(torch, tr)
 
-    emit({"kernels": [{
-        "name": "composite_seg_fwd",
-        "route": "cuda",
-        "source": "omnigs_torch/csrc/composite_seg_fwd.cu",
-        "replaces": "omnigs_tpu/ops/pallas_seg.py:237",
-        "tpu_kernel": "omnigs_tpu/ops/pallas_seg.py::_fwd_seg_kernel",
-        "launches": launches,
-        "max_abs_err": kres["max_abs_err"],
-        "ms": kres["kernel_ms"],
-        "kernel_ms": kres["kernel_ms"],
-        "plain_ms": kres["plain_ms"],
-        "bound_ms": kres["bound_ms"],
-        "bound_by": kres["bound_by"],
-        # no single PyTorch call composites depth-sorted splats per tile
-        "library_ms": None,
-    }]})
+    emit({"kernels": [
+        {
+            "name": "composite_seg_fwd",
+            "route": "cuda",
+            "source": "omnigs_torch/csrc/composite_seg_fwd.cu",
+            "replaces": "omnigs_tpu/ops/pallas_seg.py:237",
+            "tpu_kernel": "omnigs_tpu/ops/pallas_seg.py::_fwd_seg_kernel",
+            # render path (4 requests) + training path (12 iterations)
+            "launches": render_launches + train_launches["composite_seg_fwd"],
+            "launches_render": render_launches,
+            "launches_train": train_launches["composite_seg_fwd"],
+            "max_abs_err": kres["max_abs_err"],
+            "ms": kres["kernel_ms"],
+            "plain_ms": kres["plain_ms"],
+            "bound_ms": kres["bound_ms"],
+            "bound_by": kres["bound_by"],
+            # no single PyTorch call composites depth-sorted splats per tile
+            "library_ms": None,
+        },
+        {
+            "name": "composite_seg_bwd",
+            "route": "cuda",
+            "source": "omnigs_torch/csrc/composite_seg_bwd.cu",
+            "replaces": "omnigs_tpu/ops/pallas_seg.py:400",
+            "tpu_kernel": "omnigs_tpu/ops/pallas_seg.py::_bwd_seg_kernel",
+            "launches": train_launches["composite_seg_bwd"],
+            "max_abs_err": gres["max_abs_err"],
+            "max_rel_err": gres["max_rel_err"],
+            "ms": gres["kernel_ms"],
+            "plain_ms": gres["plain_ms"],
+            "bound_ms": gres["bound_ms"],
+            "bound_by": gres["bound_by"],
+            # no single PyTorch call computes the splat backward per tile
+            "library_ms": None,
+        },
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -13,7 +13,9 @@ bookkeeping fields are buffers:
   * ``opacity``        (P, 1)    logits (activation: sigmoid)
 
 `from_numpy` / `to_numpy` carry the eleven fields over from and to the JAX
-model (``{k: np.asarray(getattr(m, k))}``).
+model (``{k: np.asarray(getattr(m, k))}``). Training updates the fields in
+place (`model/optimizer.py`, `model/densify.py`), where the JAX package
+returns new arrays; the capacity never changes, so nothing is reallocated.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from omnigs_torch.ops import sh as sh_ops
 
 MAX_SH_DEGREE = 3
 SH_REST = (MAX_SH_DEGREE + 1) ** 2 - 1  # 15
@@ -106,6 +110,11 @@ class GaussianModel(nn.Module):
     def capacity(self) -> int:
         return self.xyz.shape[0]
 
+    @property
+    def num_active(self) -> torch.Tensor:
+        """() int64 count of live slots (a tensor: reading it syncs)."""
+        return torch.sum(self.active)
+
     def get_scaling(self) -> torch.Tensor:
         return torch.exp(self.scaling)
 
@@ -122,3 +131,33 @@ class GaussianModel(nn.Module):
     def params(self) -> Dict[str, torch.Tensor]:
         """The learnable fields handed to the optimizer."""
         return {k: getattr(self, k) for k in PARAM_NAMES}
+
+
+def from_pcd(
+    points: torch.Tensor,
+    colors: torch.Tensor,
+    capacity: int,
+    mean_sq_nn_dist: torch.Tensor,
+) -> GaussianModel:
+    """SfM points → model on the points' device (`createFromPcd`).
+
+    Args:
+      points: (N, 3) positions (N ≤ capacity).
+      colors: (N, 3) RGB in [0, 1].
+      mean_sq_nn_dist: (N,) mean squared 3-NN distance (`ops/knn.py`),
+        clamped ≥ 1e-7 before the log-sqrt.
+    """
+    n = points.shape[0]
+    if n > capacity:
+        raise ValueError(f"{n} points exceed the capacity {capacity}")
+    m = GaussianModel.empty(capacity, device=points.device, dtype=points.dtype)
+    scale = torch.log(torch.sqrt(torch.clamp_min(mean_sq_nn_dist, 1e-7)))
+    logit = inverse_sigmoid(torch.tensor(0.1, dtype=points.dtype))
+    with torch.no_grad():
+        m.xyz[:n] = points
+        m.features_dc[:n, 0] = sh_ops.rgb2sh(colors)
+        m.scaling[:n] = scale[:, None]
+        m.rotation[:n] = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=points.dtype)
+        m.opacity[:n] = logit
+    m.active[:n] = True
+    return m

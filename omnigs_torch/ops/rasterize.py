@@ -7,9 +7,12 @@ one chain:
   preprocess → bin_instances_packed → segment_relay → _build_inst_seg →
   composite_seg_fwd (Hopper kernel) → _tiles_to_image
 
-Every other `RasterConfig` raises `NotImplementedError` naming the ROADMAP
-item that ports it. Forward only: rendering under grad mode with inputs
-that require grad raises (`composite_seg.composite_instances_seg`).
+and its gradient: autograd back through `_tiles_to_image`, the segmented
+backward (`composite_seg_bwd`, Hopper kernel), the instance → Gaussian
+reduction and ``inv_perm`` gather (`composite_seg.composite_instances_seg`),
+then back through `preprocess`. Binning reads detached inputs, as the JAX
+path stops their gradient. Every other `RasterConfig` raises
+`NotImplementedError` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -116,11 +119,12 @@ def rasterize(
     active_mask: Optional[torch.Tensor] = None,
     features_override: Optional[torch.Tensor] = None,
 ) -> RenderResult:
-    """Render one view (forward).
+    """Differentiable render of one view.
 
     Args:
-      means2d_ndc: optional (P, 2) NDC offsets added to the projected means
-        (the densification-statistics input of the training path).
+      means2d_ndc: optional (P, 2) zeros whose gradient receives the
+        NDC-convention screen-space gradients of the densification
+        statistics (the training path).
       features_override: optional (P,) or (P, 3) per-Gaussian features to
         composite instead of RGB (depth rendering).
     """
@@ -197,6 +201,7 @@ def rasterize(
         seg.ride_d,
         seg.ride_t,
         inst.perm,
+        inst.inv_perm,
         gx * gy,
         gx,
     )

@@ -74,7 +74,10 @@ def sh_to_rgb(
     """SH → clamped RGB as the rasterizer preprocess does."""
     d = means - campos
     d = d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + 1.0e-12)
-    return torch.clamp_min(eval_sh(degree, sh, d) + 0.5, 0.0)
+    rgb = eval_sh(degree, sh, d) + 0.5
+    # torch.maximum, not clamp_min: at rgb == 0 its gradient splits in half
+    # like jnp.maximum's (clamp_min would pass all of it)
+    return torch.maximum(rgb, torch.zeros_like(rgb))
 
 
 def rgb2sh(rgb: torch.Tensor) -> torch.Tensor:

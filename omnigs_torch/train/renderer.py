@@ -1,8 +1,9 @@
 """High-level render entry point — the `GaussianRenderer` analog.
 
 Counterpart of `omnigs_tpu/train/renderer.py`: gathers the model's
-activations and renders it from a pose. Serving callers render under
-``torch.inference_mode()`` (this slice has no backward).
+activations and renders it from a pose. The render is differentiable in
+the model's parameters (the training step); serving callers render under
+``torch.inference_mode()``.
 """
 
 from __future__ import annotations

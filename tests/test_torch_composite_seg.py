@@ -6,7 +6,8 @@ tensors) is held against `pallas_seg.composite_seg_fwd` in Pallas
 interpret mode at atol 1e-5 (2e-5 with multi-chunk tiles, as
 tests/test_pallas_seg.py holds the segmented kernels to the tile-major
 ones): the log-domain transmittance differs only in summation order. The
-CUDA kernel is held against the plain version on the card in
+backward is held against JAX in tests/test_torch_composite_seg_bwd.py; the
+CUDA kernels against the plain versions on the card in
 tests/test_torch_kernels_gpu.py."""
 
 import jax.numpy as jnp
@@ -119,32 +120,42 @@ def test_tile_window_offsets_pixels():
     np.testing.assert_array_equal(win_t.numpy(), full_t[8:].numpy())
 
 
-def test_forward_only_guard_and_cpu_launch_count():
+def test_cpu_backprop_and_launch_count():
+    """With inputs that require grad, the call records a gradient and
+    back-propagates on the CPU through the plain versions (no kernel
+    launch); the forward equals the plain compositor's."""
     lay, g = _slab_case(31, 24)
     tg = {k: torch.from_numpy(v) for k, v in g.items()}
     args = [torch.from_numpy(np.asarray(lay[k])) for k in
             ("sorted_g8", "starts8", "counts", "live8", "ride_d", "ride_t", "perm")]
     sorted_g8, starts8, counts, live8, ride_d, ride_t, perm = args
+    inv_perm = torch.argsort(perm).to(torch.int32)
     bg = torch.full((3,), 0.2)
 
     def run(means2d):
         return tcs.composite_instances_seg(
             means2d, tg["conic"], tg["rgb"], tg["opacity"], bg, sorted_g8,
-            starts8, counts, live8, ride_d, ride_t, perm, lay["num_tiles"], lay["gx"],
+            starts8, counts, live8, ride_d, ride_t, perm, inv_perm,
+            lay["num_tiles"], lay["gx"],
         )
 
-    with pytest.raises(RuntimeError, match="inference_mode"):
-        run(tg["means2d"].clone().requires_grad_(True))
-    before = tcs.composite_seg_fwd.launches
-    with torch.no_grad():
-        color, final_t, ncontrib = run(tg["means2d"].clone().requires_grad_(True))
-    assert tcs.composite_seg_fwd.launches == before  # plain version, no kernel
+    fwd, bwd = tcs.composite_seg_fwd.launches, tcs.composite_seg_bwd.launches
+    means2d = tg["means2d"].clone().requires_grad_(True)
+    color, final_t, ncontrib = run(means2d)
+    assert color.requires_grad
+    (color * torch.linspace(0.5, 1.5, color.numel()).reshape(color.shape)).sum().backward()
+    assert means2d.grad is not None and bool(torch.isfinite(means2d.grad).all())
+    assert float(means2d.grad.abs().max()) > 0
+    # plain versions, no kernel
+    assert tcs.composite_seg_fwd.launches == fwd
+    assert tcs.composite_seg_bwd.launches == bwd
     plain_c, plain_t, _, _ = tcs.composite_seg_fwd_plain(
         tcs._build_inst_seg(tg["means2d"], tg["conic"], tg["rgb"], tg["opacity"],
                             sorted_g8, perm, ride_d, ride_t),
         starts8, counts, lay["num_tiles"], lay["gx"],
     )
     np.testing.assert_allclose(
-        color.numpy(), (plain_c + plain_t[:, None, :] * 0.2).numpy(), atol=1e-7
+        color.detach().numpy(), (plain_c + plain_t[:, None, :] * 0.2).numpy(),
+        atol=1e-7,
     )
     assert (ncontrib == 0).all()

@@ -5,8 +5,13 @@ imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest
 
 Inputs come from the port's own CPU pipeline on numpy-seeded clouds.
-Bars: atol 1e-5 (the kernel sums the log-transmittance sequentially, the
-plain version per 32-instance step — summation order only)."""
+Bars: forward atol 1e-5 (the kernel sums the log-transmittance
+sequentially, the plain version per 32-instance step — summation order
+only); backward rows max |Δ| ≤ 1e-4·max|plain| per row (the same relative
+bar as `chip_smoke.py`; the kernel sums the pixel partials by warp
+shuffles, the plain version with torch.sum); the training step on the card
+against the same step on the CPU at the gradient bars of
+tests/test_torch_trainer.py."""
 
 import numpy as np
 import pytest
@@ -14,11 +19,13 @@ import torch
 
 from omnigs_torch.cameras import Camera, CameraType
 from omnigs_torch.model.gaussians import GaussianModel
+from omnigs_torch.model.optimizer import LRConfig, init_adam
 from omnigs_torch.ops import composite_seg as tcs
 from omnigs_torch.ops.binning import bin_instances_packed, segment_relay
 from omnigs_torch.ops.preprocess import preprocess
 from omnigs_torch.ops.rasterize import RasterConfig, _tiles_to_image
 from omnigs_torch.train.renderer import render_model
+from omnigs_torch.train.trainer import train_step
 
 from torch_helpers import PROD_KW, random_cloud_np, random_model_np, to_torch
 
@@ -139,3 +146,98 @@ def test_render_on_card_matches_plain():
         atol=1e-5,
     )
     assert int(res.truncated) == 0
+
+
+def _bwd_inputs(dev, seed, n, squeeze):
+    slab, seg, gx, num_tiles = _slab(seed, n, 256, 128, squeeze, 1 << 14)
+    args = [t.to(dev) for t in (slab, seg.starts8, seg.counts, seg.live8)]
+    color, final_t = tcs.composite_seg_fwd(*args, num_tiles, gx)
+    color_full = (color + final_t[:, None, :] * 0.2).contiguous()
+    rng = np.random.default_rng(seed)
+    dcolor = torch.from_numpy(
+        rng.normal(size=(num_tiles, 3, 256)).astype(np.float32)
+    ).to(dev)
+    return args, color_full, dcolor, seg, gx, num_tiles
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "seed,n,squeeze",
+    [(41, 24, (1.0, 1.0, 1.0)), (42, 512, (0.2, 0.2, 1.0))],
+    ids=["sparse", "multichunk"],
+)
+def test_composite_seg_bwd_kernel_matches_plain(seed, n, squeeze):
+    dev = _cuda()
+    args, color_full, dcolor, seg, gx, num_tiles = _bwd_inputs(dev, seed, n, squeeze)
+    before = tcs.composite_seg_bwd.launches
+    got = tcs.composite_seg_bwd(*args, color_full, dcolor, num_tiles, gx)
+    torch.cuda.synchronize()
+    assert tcs.composite_seg_bwd.launches == before + 1
+    ref = tcs.composite_seg_bwd_plain(
+        args[0], args[1], args[2], color_full, dcolor, num_tiles, gx
+    )
+    for r in range(tcs.NGRAD):
+        scale = float(ref[r].abs().max())
+        assert scale > 0
+        assert float((got[r] - ref[r]).abs().max()) <= 1e-4 * scale, r
+    assert bool((got[tcs.NGRAD:] == 0).all())
+    if n == 512:
+        assert int(seg.counts.max()) > tcs.CHUNK
+
+
+@pytest.mark.gpu
+def test_bwd_kernel_and_reduction_are_bitwise_repeatable():
+    dev = _cuda()
+    args, color_full, dcolor, seg, gx, num_tiles = _bwd_inputs(
+        dev, 42, 512, (0.2, 0.2, 1.0)
+    )
+    outs = []
+    for _ in range(2):
+        dinst = tcs.composite_seg_bwd(*args, color_full, dcolor, num_tiles, gx)
+        outs.append(tcs._reduce_rows(dinst, seg.sorted_g8.to(dev), 512))
+    assert torch.equal(outs[0], outs[1])
+    assert float(outs[0].abs().max()) > 0
+
+
+def _step(device, fields, gt, cfg):
+    m = GaussianModel.from_numpy(fields, device=device)
+    st = init_adam(m.params())
+    aux = train_step(
+        m, st, torch.eye(4, device=device), torch.zeros(3, device=device),
+        gt.to(device), 5, camera=Camera(CameraType.LONLAT, 256, 128),
+        sh_degree=3, raster_cfg=cfg, lr_cfg=LRConfig(), spatial_lr_scale=2.0,
+        bg=torch.zeros(3, device=device), skip_bottom_px=8,
+    )
+    return m, st, aux
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu():
+    """One `train_step` through both kernels on the card against the same
+    step of the port on the CPU (plain versions)."""
+    dev = _cuda()
+    fields = random_model_np(45, 512, 400, scale_mu=-2.5)
+    cfg = RasterConfig(max_instances=1 << 14, **PROD_KW)
+    gt = torch.from_numpy(
+        np.random.default_rng(45).uniform(size=(3, 128, 256)).astype(np.float32)
+    )
+    fwd, bwd = tcs.composite_seg_fwd.launches, tcs.composite_seg_bwd.launches
+    mc, stc, auxc = _step(dev, fields, gt, cfg)
+    torch.cuda.synchronize()
+    assert tcs.composite_seg_fwd.launches == fwd + 1
+    assert tcs.composite_seg_bwd.launches == bwd + 1
+    mp, stp, auxp = _step("cpu", fields, gt, cfg)
+    np.testing.assert_allclose(float(auxc["loss"]), float(auxp["loss"]), rtol=1e-5)
+    assert int(auxc["truncated"]) == 0
+    lrs = {"xyz": 1.6e-4 * 2.0, "features_dc": 2.5e-3, "features_rest": 2.5e-3 / 20,
+           "opacity": 5e-2, "scaling": 5e-3, "rotation": 1e-3}
+    for name in lrs:
+        mu_c, mu_p = stc.mu[name].cpu().numpy(), stp.mu[name].numpy()
+        scale = float(np.abs(mu_p).max())
+        np.testing.assert_allclose(mu_c, mu_p, rtol=2e-3, atol=1e-4 * scale + 1e-12,
+                                   err_msg=name)
+        # Adam's first step is lr·sign(g): near-zero gradients may step apart
+        small = np.abs(mu_p) <= 2e-3 * np.abs(mu_p) + 1e-4 * scale
+        diff = np.abs(getattr(mc, name).detach().cpu().numpy()
+                      - getattr(mp, name).detach().numpy())
+        assert (diff <= np.where(small, 2.0 * lrs[name] + 1e-6, 1e-6)).all(), name

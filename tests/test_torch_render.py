@@ -280,6 +280,14 @@ def test_port_imports_no_jax():
         "    r = render_model(m, Camera(CameraType.LONLAT, 64, 32), torch.eye(4),\n"
         "                     torch.zeros(3), torch.zeros(3), 3, cfg)\n"
         "assert r.image.shape == (3, 32, 64) and bool(torch.isfinite(r.image).all())\n"
+        "from omnigs_torch.model.optimizer import LRConfig, init_adam\n"
+        "from omnigs_torch.train.trainer import train_step\n"
+        "st = init_adam(m.params())\n"
+        "aux = train_step(m, st, torch.eye(4), torch.zeros(3), r.image * 0.5, 1,\n"
+        "                 camera=Camera(CameraType.LONLAT, 64, 32), sh_degree=3,\n"
+        "                 raster_cfg=cfg, lr_cfg=LRConfig(), spatial_lr_scale=1.0,\n"
+        "                 bg=torch.zeros(3))\n"
+        "assert bool(torch.isfinite(aux['loss'])) and int(st.count) == 1\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'omnigs_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
