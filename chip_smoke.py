@@ -15,13 +15,16 @@ script exits non-zero:
    the instance slab of one pose through the port's preprocess, binning
    and re-lay; the forward CUDA kernel against its plain PyTorch version on
    it (max |Δ| ≤ 1e-4, 99.9th percentile ≤ 1e-5 over image and final_T);
-   both timed with CUDA events; the work this slab needs, for the bound.
+   both timed with CUDA events; the work this slab needs, for the bound;
+   a digest of the kernel's output bytes (the same seed gives the same
+   slab, so two builds of the kernel can be compared bit for bit).
    Then the device time of each stage of that render (CUDA events).
 4. grad   — the backward CUDA kernel on the same slab, with a seeded
    dL/dcolor, against its plain version (rows 0..8 over the segment lanes,
    max |Δ| ≤ 1e-4 and 99.9th percentile ≤ 1e-5, each relative to the row's
-   max |plain|); both timed; its work counts and bound; kernel + reduction
-   run twice must give bitwise-equal Gaussian gradients.
+   max |plain|); both timed; its work counts and bound; a digest of its
+   output; kernel + reduction run twice must give bitwise-equal Gaussian
+   gradients.
 5. render — four serving requests through `render_model` with the
    production config of cfg/lonlat/360roam_lonlat.yaml under
    `torch.inference_mode()`, with the launch counters set to 0 just before
@@ -38,6 +41,46 @@ script exits non-zero:
    times, finite losses and parameters, nothing truncated. Then the
    `train_stages` line: device ms per stage of non-densify steps.
 
+8. tile_kernel — the tile-major path (`Tpu.want_ncontrib: 1` on the same
+   YAML): the compact slab of pose 0 through the port's preprocess, binning
+   (with the survivor-rank payload) and `_build_inst`; the tile-major
+   forward kernel against its plain version (max |Δ| ≤ 1e-4, 99.9th
+   percentile ≤ 1e-5 over image and final_T, n_contrib bitwise), one
+   launch without n_contrib (zeros, the same image bit for bit), times,
+   work counts and bound.
+9. tile_grad — the tile-major backward kernel on that slab against its
+   plain version (the relative bars of `grad`); kernel + scatter reduction
+   bitwise repeatable; the fused backward kernel against its plain version
+   (plain backward + scatter reduction) and against backward kernel +
+   scatter reduction, the gather reduction against the scatter reduction,
+   and all three reductions against the float64 sum of the same rows
+   (rtol 2e-3, atol 1e-4 of each row's max |ref|); times and bounds.
+   Then `tile_stages`: the device time of each stage of that render.
+10. tile_render — four `render_model` requests through the tile-major
+   config: the tile-major forward kernel once each (the segmented one never),
+   truncated 0, n_contrib's max and mean, image and final_T within 1e-5 of
+   the segmented render of the same pose.
+11. tile_train — a `Trainer` on the train phase's scene through the
+   tile-major config, iterations 3001–3006 with densify at 3004: each
+   iteration launches the tile-major forward and backward kernels once,
+   finite losses and parameters, nothing truncated, and the first loss
+   within 1e-5 relative of the segmented Trainer's at iteration 3001. Then
+   the `tile_train_stages` line.
+12. tile_fused — one `train_step` of the render model (P = 131,072, under
+   the fused route's limit) with `fused_reduce=True`: the fused backward
+   kernel launches once and the unfused one never; its Adam moments against
+   the same step through backward + scatter reduction (gradient bars).
+13. tile_gather — the gather reduction against the scatter reduction where
+   the routing rule takes the gather: `train_step` of the render model
+   (P = 131,072, the capacity of cfg/lonlat/synthetic_fullres.yaml) at
+   that config's instance cap 2^21, `gather_reduce` on and off, two copies
+   stepped in turn. One line per step pair with each reduction's device ms
+   and each step's host ms, and after the first step the two Adam moments'
+   distance in units of the gradient bar (reported: the gather's blocked
+   prefixes carry other Gaussians' rows, see `tile_grad`'s float64 line);
+   each copy takes its route every step, nothing is truncated, and the
+   losses agree within 1e-5 relative at every step.
+
 Then the `kernels` line, nvidia-smi's line, and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -45,7 +88,9 @@ package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import hashlib
 import json
 import math
 import subprocess
@@ -77,12 +122,27 @@ OPS_PER_LIVE_PAIR = 13
 # combination (9)
 BWD_OPS_PER_LIVE_PAIR = 39
 BWD_OPS_PER_INSTANCE = 72
+# the tile-major forward: one integer move per composited pair for n_contrib
+TILE_NC_OPS_PER_LIVE_PAIR = 1
+# the fused backward: nine atomic adds per instance
+FUSED_OPS_PER_INSTANCE = 9
 MAX_ERR_BAR = 1e-4
 P999_ERR_BAR = 1e-5
+# reductions of the same rows in another order (tests/test_gather_reduce.py)
+REDUCE_RTOL = 2e-3
+REDUCE_ATOL = 1e-4
+# the tile-major first training loss against the segmented one
+LOSS_RTOL = 1e-5
 # the training phase: iterations 3001..3012 (SH degree 3 from 3000 on),
 # densify every 4th iteration
 TRAIN_START = 3000
 TRAIN_ITERS = 12
+TILE_TRAIN_ITERS = 6
+# the gather phase: the cap under which the routing rule keeps the gather
+# reduction (GATHER_REDUCE_MAX_R; Tpu.max_instances of synthetic_fullres.yaml,
+# whose Tpu.capacity is the render model's P)
+GATHER_CAP = 1 << 21
+GATHER_ITERS = 5
 DENSIFY_EVERY = 4
 INIT_NOISE = 0.02
 
@@ -234,6 +294,21 @@ def time_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def _bound(ops, nbytes):
+    """(bound ms, what bounds it) of work of ``ops`` fp32 operations that
+    moves ``nbytes`` bytes."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _digest(*tensors):
+    """sha256 (16 hex digits) of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def kernel_phase(torch, model, camera, pose, cfg):
     from omnigs_torch.ops import composite_seg as cs
 
@@ -250,6 +325,7 @@ def kernel_phase(torch, model, camera, pose, cfg):
         max_err = float(diff.max())
         p999 = float(torch.sort(diff).values[int(0.999 * (diff.numel() - 1))])
         finite = bool(torch.isfinite(kc).all() and torch.isfinite(kt).all())
+        digest = _digest(kc, kt)
         kernel_ms = time_ms(torch, lambda: cs.composite_seg_fwd(*args), reps=20)
         plain_ms = time_ms(
             torch,
@@ -263,7 +339,7 @@ def kernel_phase(torch, model, camera, pose, cfg):
     instances = int(seg.counts.to(torch.int64).sum())
     ops = visited * OPS_PER_VISITED_PAIR + live * OPS_PER_LIVE_PAIR
     nbytes = 9 * 4 * instances + 2 * 4 * num_tiles + 4 * 4 * 256 * num_tiles
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by = _bound(ops, nbytes)
     result = {
         "phase": "kernel",
         "name": "composite_seg_fwd",
@@ -280,8 +356,9 @@ def kernel_phase(torch, model, camera, pose, cfg):
         "p999_abs_err": p999,
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "digest": digest,
     }
     emit(result)
     if not finite:
@@ -294,14 +371,14 @@ def kernel_phase(torch, model, camera, pose, cfg):
     return result, (slab, seg, inst, kc, kt)
 
 
-def segment_lanes(torch, seg, r8):
-    """(R8,) bool: the lanes inside some tile's segment."""
-    dev = seg.starts8.device
-    delta = torch.zeros(r8 + 1, dtype=torch.int32, device=dev)
-    ones = torch.ones_like(seg.counts)
-    delta.index_add_(0, seg.starts8.to(torch.int64), ones)
-    delta.index_add_(0, (seg.starts8 + seg.counts).to(torch.int64), -ones)
-    return torch.cumsum(delta, 0, dtype=torch.int32)[:r8] > 0
+def segment_lanes(torch, starts, counts, width):
+    """(width,) bool: the slab lanes inside some tile's segment."""
+    dev = starts.device
+    delta = torch.zeros(width + 1, dtype=torch.int32, device=dev)
+    ones = torch.ones_like(counts)
+    delta.index_add_(0, starts.to(torch.int64), ones)
+    delta.index_add_(0, (starts + counts).to(torch.int64), -ones)
+    return torch.cumsum(delta, 0, dtype=torch.int32)[:width] > 0
 
 
 def grad_phase(torch, kres, slab_data):
@@ -329,7 +406,7 @@ def grad_phase(torch, kres, slab_data):
         end.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)  # the plain version runs once
-        lanes = segment_lanes(torch, seg, slab.shape[1])
+        lanes = segment_lanes(torch, seg.starts8, seg.counts, slab.shape[1])
         scale = ref[: cs.NGRAD].abs().amax(dim=1, keepdim=True)
         rel = ((got[: cs.NGRAD] - ref[: cs.NGRAD]).abs() / scale)[:, lanes]
         max_rel = float(rel.max())
@@ -337,6 +414,7 @@ def grad_phase(torch, kres, slab_data):
         max_abs = float((got[: cs.NGRAD] - ref[: cs.NGRAD]).abs().max())
         outside_zero = bool((got[:, ~lanes] == 0).all() and (got[cs.NGRAD:] == 0).all())
         finite = bool(torch.isfinite(got).all())
+        digest = _digest(got)
         del ref, rel
         kernel_ms = time_ms(torch, lambda: cs.composite_seg_bwd(*args), reps=20)
         repeat = []
@@ -353,7 +431,7 @@ def grad_phase(torch, kres, slab_data):
            + live * BWD_OPS_PER_LIVE_PAIR + instances * BWD_OPS_PER_INSTANCE)
     nbytes = (18 * 4 * instances + 2 * 4 * num_tiles + 6 * 4 * 256 * num_tiles
               + slab.numel() * 4)  # + the zero fill of the (16, R8) output
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by = _bound(ops, nbytes)
     result = {
         "phase": "grad",
         "name": "composite_seg_bwd",
@@ -369,9 +447,10 @@ def grad_phase(torch, kres, slab_data):
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "reduce_ms": reduce_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "bitwise_repeat": bitwise,
+        "digest": digest,
     }
     emit(result)
     if not finite or not outside_zero:
@@ -428,7 +507,7 @@ def render_phase(torch, model, camera, pose_list, cfg):
             raise RuntimeError(f"request {k}: image is not finite")
         if tuple(img.shape) != (3, HEIGHT, WIDTH):
             raise RuntimeError(f"request {k}: image shape {tuple(img.shape)}")
-        images.append(img)
+        images.append(res)
     launches = cs.composite_seg_fwd.launches
     if launches != len(pose_list):
         raise RuntimeError(
@@ -532,7 +611,7 @@ def train_scene(torch, np, model, camera, pose_list, cfg):
     return scene
 
 
-def train_phase(torch, np, model, camera, pose_list, render_cfg):
+def train_phase(torch, scene, device):
     from omnigs_torch.config import load_config
     from omnigs_torch.model import densify as densify_ops
     from omnigs_torch.ops import composite_seg as cs
@@ -547,9 +626,8 @@ def train_phase(torch, np, model, camera, pose_list, render_cfg):
     # (max scale > 0.1·extent ≈ 0.01) would remove nearly every Gaussian of
     # this cloud at the first densify; keep it off so densify grows the model
     cfg.opt.prune_big_point_after_iter = 4000
-    scene = train_scene(torch, np, model, camera, pose_list, render_cfg)
     t0 = time.perf_counter()
-    tr = Trainer(scene, cfg, seed=SEED, device=str(model.xyz.device))
+    tr = Trainer(scene, cfg, seed=SEED, device=device)
     tr.init_from_sfm()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -620,7 +698,7 @@ def train_phase(torch, np, model, camera, pose_list, render_cfg):
         raise RuntimeError("a training iteration skipped a kernel")
     if launches["composite_seg_bwd"] != TRAIN_ITERS or len(densified) != 3:
         raise RuntimeError(f"launches {launches}, densify ran {len(densified)} times")
-    return tr, launches
+    return tr, launches, lines[0]["loss"]
 
 
 def train_stages(torch, tr, reps=3):
@@ -676,6 +754,648 @@ def train_stages(torch, tr, reps=3):
     return totals
 
 
+def tile_yaml():
+    """The production YAML with `Tpu.want_ncontrib: 1`: the tile-major path."""
+    from omnigs_torch.config import load_config
+
+    cfg = load_config(CONFIG)
+    cfg.tpu.want_ncontrib = True
+    return cfg
+
+
+def tile_slab_for(model, camera, vm, campos, cfg, with_emission=True, mark=None):
+    """The tile-major compositor's inputs for one pose, through the port's
+    chain (preprocess → bin_instances_packed, with the survivor-rank payload
+    of the gather reduction when asked → _build_inst); the config's cap keeps
+    every tile (no aligned_cap). ``mark(stage)`` is called after each
+    stage."""
+    import torch
+
+    from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.ops.binning import bin_instances_packed
+    from omnigs_torch.ops.preprocess import preprocess, tile_grid
+
+    if cfg.aligned_cap is not None:
+        raise RuntimeError("the tile phases expect an uncapped slab")
+    mark = mark or (lambda stage: None)
+    gx, gy = tile_grid(camera)
+    prep = preprocess(
+        model.xyz, model.get_scaling(), model.get_rotation(),
+        model.get_opacity(), model.get_features(), camera, vm, campos,
+        SH_DEGREE, active_mask=model.active, tight_culling=cfg.tight_culling,
+    )
+    mark("preprocess")
+    inst = bin_instances_packed(
+        prep, gx, gy, cfg.max_instances, tile_cull=cfg.tile_culling,
+        with_emission=with_emission,
+    )
+    mark("bin_instances_packed")
+    live = torch.amax(inst.starts + inst.counts)
+    slab = ct._build_inst(
+        prep.means2d, prep.conic, prep.rgb, prep.opacity, inst.sorted_g, live,
+        inst.perm,
+    )
+    x0, y0 = ct.tile_origins(gx, gy, slab.device)
+    mark("_build_inst")
+    torch.cuda.synchronize()
+    return dict(slab=slab, inst=inst, live=live, x0=x0, y0=y0, gx=gx,
+                num_tiles=gx * gy)
+
+
+def _plain_ms(torch, fn):
+    """(result, device ms) of one call of a plain version."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def tile_kernel_phase(torch, model, camera, pose, cfg):
+    """The tile-major forward kernel against its plain version on pose 0's
+    compact slab; n_contrib bitwise; a launch without n_contrib; times,
+    work counts and bound."""
+    from omnigs_torch.ops import composite_tile as ct
+
+    vm, campos = pose
+    with torch.inference_mode():
+        d = tile_slab_for(model, camera, vm, campos, cfg)
+        inst, num_tiles = d["inst"], d["num_tiles"]
+        args = (d["slab"], inst.starts, inst.counts, d["x0"], d["y0"], num_tiles)
+        kc, kt, kn = ct.composite_tile_fwd(*args, True)
+        k0c, k0t, k0n = ct.composite_tile_fwd(*args, False)
+        torch.cuda.synchronize()
+        (pc, pt, pn, n_used, n_live), plain_ms = _plain_ms(
+            torch, lambda: ct.composite_tile_fwd_plain(*args, True)
+        )
+        diff = torch.cat([(kc - pc).abs().flatten(), (kt - pt).abs().flatten()])
+        max_err = float(diff.max())
+        p999 = float(torch.sort(diff).values[int(0.999 * (diff.numel() - 1))])
+        nc_equal = bool(torch.equal(kn, pn))
+        nc_off_ok = bool(
+            not k0n.any() and torch.equal(k0c, kc) and torch.equal(k0t, kt)
+        )
+        finite = bool(torch.isfinite(kc).all() and torch.isfinite(kt).all())
+        kernel_ms = time_ms(torch, lambda: ct.composite_tile_fwd(*args, True), reps=3)
+        kernel_ms_off = time_ms(torch, lambda: ct.composite_tile_fwd(*args, False), reps=3)
+    visited = int(n_used.to(torch.int64).sum())
+    live = int(n_live.to(torch.int64).sum())
+    instances = int(inst.counts.to(torch.int64).sum())
+    ops = (visited * OPS_PER_VISITED_PAIR
+           + live * (OPS_PER_LIVE_PAIR + TILE_NC_OPS_PER_LIVE_PAIR))
+    nbytes = 9 * 4 * instances + 4 * 4 * num_tiles + 5 * 4 * 256 * num_tiles
+    bound_ms, bound_by = _bound(ops, nbytes)
+    result = {
+        "phase": "tile_kernel",
+        "name": "composite_tile_fwd",
+        "tiles": num_tiles,
+        "emitted_instances": int(inst.num_instances),
+        "segment_instances": instances,
+        "live": int(d["live"]),
+        "max_count": int(inst.counts.max()),
+        "visited_pairs": visited,
+        "live_pairs": live,
+        "ops": ops,
+        "bytes": nbytes,
+        "max_abs_err": max_err,
+        "p999_abs_err": p999,
+        "n_contrib_bitwise": nc_equal,
+        "n_contrib_max": int(kn.max()),
+        "no_ncontrib_zeros_and_same_image": nc_off_ok,
+        "kernel_ms": kernel_ms,
+        "kernel_ms_no_ncontrib": kernel_ms_off,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+    emit(result)
+    if not finite:
+        raise RuntimeError("tile-major kernel output is not finite")
+    if max_err > MAX_ERR_BAR or p999 > P999_ERR_BAR:
+        raise RuntimeError(
+            f"tile-major kernel disagrees with its plain version: max {max_err:.3g} "
+            f"(bar {MAX_ERR_BAR}), p99.9 {p999:.3g} (bar {P999_ERR_BAR})"
+        )
+    if not nc_equal or not nc_off_ok:
+        raise RuntimeError("n_contrib differs from the plain version's, or the "
+                           "launch without it is not zeros with the same image")
+    d["color"] = kc
+    return result, d
+
+
+def _reduce_close(torch, got, ref):
+    """Max over the rows of max |got − ref| / (atol·max|ref| + rtol·|ref|)
+    per column: ≤ 1 passes the gradient bars."""
+    scale = ref.abs().amax(dim=0, keepdim=True)
+    tol = REDUCE_ATOL * scale + REDUCE_RTOL * ref.abs()
+    err = (got - ref).abs()
+    # an all-zero column has a zero bar: equal entries pass, others fail
+    return float(torch.where(err == 0, 0.0, err / tol).max())
+
+
+def tile_grad_phase(torch, kres, d):
+    """The tile-major backward kernel against its plain version; kernel +
+    scatter reduction bitwise repeatable; the fused kernel against its plain
+    version and against kernel + scatter reduction; the gather reduction
+    against the scatter reduction; all three reductions against the float64
+    sum of the same rows; times and bounds."""
+    from omnigs_torch.ops import composite_tile as ct
+
+    slab, inst, num_tiles = d["slab"], d["inst"], d["num_tiles"]
+    dev = slab.device
+    base = (inst.starts, inst.counts, d["x0"], d["y0"])
+    with torch.inference_mode():
+        color_full = d["color"].contiguous()  # bg = 0: color_full is the color
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+        dcolor = torch.randn(color_full.shape, generator=gen, device=dev)
+        args = (slab, *base, color_full, dcolor, num_tiles)
+        got = ct.composite_tile_bwd(*args)
+        torch.cuda.synchronize()
+        ref, plain_ms = _plain_ms(torch, lambda: ct.composite_tile_bwd_plain(*args))
+        lanes = segment_lanes(torch, inst.starts, inst.counts, slab.shape[1])
+        scale = ref[: ct.NGRAD].abs().amax(dim=1, keepdim=True)
+        rel = ((got[: ct.NGRAD] - ref[: ct.NGRAD]).abs() / scale)[:, lanes]
+        max_rel = float(rel.max())
+        p999 = float(torch.sort(rel.flatten()).values[int(0.999 * (rel.numel() - 1))])
+        max_abs = float((got[: ct.NGRAD] - ref[: ct.NGRAD]).abs().max())
+        outside_zero = bool((got[:, ~lanes] == 0).all() and (got[ct.NGRAD:] == 0).all())
+        finite = bool(torch.isfinite(got).all())
+        del ref, rel
+        kernel_ms = time_ms(torch, lambda: ct.composite_tile_bwd(*args), reps=3)
+
+        def scatter(dinst):
+            return ct._scatter_reduce(dinst, inst.sorted_g, d["live"], P)
+
+        repeat = [scatter(ct.composite_tile_bwd(*args))[inst.inv_perm.to(torch.int64)]
+                  for _ in range(2)]
+        bitwise = bool(torch.equal(repeat[0], repeat[1]))
+        acc = scatter(got)
+        rows = got[: ct.NGRAD, : inst.sorted_g.shape[0]].T
+        gathered = ct.gather_reduce_rows(rows, inst.sorted_e, inst.seg_lo, inst.seg_hi)
+        fargs = (slab, inst.sorted_g, *base, color_full, dcolor, num_tiles, P)
+        fused = ct.composite_tile_bwd_fused(*fargs)
+        fplain, fused_plain_ms = _plain_ms(
+            torch, lambda: ct.composite_tile_bwd_fused_plain(*fargs)
+        )
+        gather_err = _reduce_close(torch, gathered, acc)
+        # each reduction against the float64 sum of the same rows (#5
+        # computes #4's rows bit for bit and sums them in its own order)
+        lane = torch.arange(rows.shape[0], device=dev)
+        exact = torch.zeros(P, ct.NGRAD, dtype=torch.float64, device=dev)
+        exact.index_add_(0, inst.sorted_g[lane < d["live"]].to(torch.int64),
+                         rows[lane < d["live"]].to(torch.float64))
+        exact = exact.to(torch.float32)
+        vs_f64 = {name: _reduce_close(torch, x, exact)
+                  for name, x in (("scatter", acc), ("gather", gathered), ("fused", fused))}
+        del exact
+        fused_plain_err = _reduce_close(torch, fused, fplain)
+        fused_err = _reduce_close(torch, fused, acc)
+        fused_max_abs = float((fused - fplain).abs().max())
+        fused_finite = bool(torch.isfinite(fused).all())
+        del fplain
+        reduce_ms = time_ms(torch, lambda: scatter(got), reps=3)
+        gather_ms = time_ms(
+            torch,
+            lambda: ct.gather_reduce_rows(rows, inst.sorted_e, inst.seg_lo, inst.seg_hi),
+            reps=3,
+        )
+        fused_ms = time_ms(torch, lambda: ct.composite_tile_bwd_fused(*fargs), reps=3)
+    instances = kres["segment_instances"]
+    pair_ops = (kres["visited_pairs"] * OPS_PER_VISITED_PAIR
+                + kres["live_pairs"] * BWD_OPS_PER_LIVE_PAIR
+                + instances * BWD_OPS_PER_INSTANCE)
+    pix_bytes = 4 * 4 * num_tiles + 6 * 4 * 256 * num_tiles
+    bwd_bytes = 18 * 4 * instances + pix_bytes + slab.numel() * 4  # + zero fill
+    fused_ops = pair_ops + instances * FUSED_OPS_PER_INSTANCE
+    fused_bytes = (9 + 1) * 4 * instances + pix_bytes + 2 * P * 9 * 4  # + zero fill
+    bound_ms, bound_by = _bound(pair_ops, bwd_bytes)
+    fbound_ms, fbound_by = _bound(fused_ops, fused_bytes)
+    result = {
+        "phase": "tile_grad",
+        "name": "composite_tile_bwd",
+        "tiles": num_tiles,
+        "segment_instances": instances,
+        "ops": pair_ops,
+        "bytes": bwd_bytes,
+        "max_abs_err": max_abs,
+        "max_rel_err": max_rel,
+        "p999_rel_err": p999,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bitwise_repeat": bitwise,
+        "scatter_reduce_ms": reduce_ms,
+        "gather_reduce_ms": gather_ms,
+        "gather_vs_scatter_tol_ratio": gather_err,
+        "vs_float64_tol_ratio": vs_f64,
+        "fused": {
+            "name": "composite_tile_bwd_fused",
+            "ops": fused_ops,
+            "bytes": fused_bytes,
+            "vs_plain_tol_ratio": fused_plain_err,
+            "max_abs_err": fused_max_abs,
+            "vs_bwd_scatter_tol_ratio": fused_err,
+            "vs_bwd_scatter_max_abs": float((fused - acc).abs().max()),
+            "kernel_ms": fused_ms,
+            "plain_ms": fused_plain_ms,
+            "bound_ms": fbound_ms,
+            "bound_by": fbound_by,
+        },
+    }
+    emit(result)
+    if not finite or not outside_zero or not fused_finite:
+        raise RuntimeError("tile-major backward: non-finite rows or nonzero lanes "
+                           "outside the segments")
+    if max_rel > MAX_ERR_BAR or p999 > P999_ERR_BAR:
+        raise RuntimeError(
+            f"tile-major backward disagrees with its plain version: max {max_rel:.3g} "
+            f"(bar {MAX_ERR_BAR}), p99.9 {p999:.3g} (bar {P999_ERR_BAR}), relative"
+        )
+    if not bitwise:
+        raise RuntimeError("tile-major kernel + reduction is not bitwise repeatable")
+    if gather_err > 1.0 or fused_plain_err > 1.0 or fused_err > 1.0 or max(
+            vs_f64.values()) > 1.0:
+        raise RuntimeError(
+            f"reductions disagree: gather {gather_err:.3g}, fused vs plain "
+            f"{fused_plain_err:.3g}, fused vs kernel + scatter {fused_err:.3g}, vs "
+            f"float64 {vs_f64} of the bar (rtol {REDUCE_RTOL}, atol {REDUCE_ATOL}·max)"
+        )
+    return result
+
+
+def tile_stage_phase(torch, model, camera, pose, cfg, reps=3):
+    """Device time of each stage of one tile-major render, as `stage_phase`
+    (the 2^22 cap demotes the gather reduction: no emission payload)."""
+    from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.ops.rasterize import _tiles_to_image
+
+    vm, campos = pose
+    bg = torch.zeros(3, device=vm.device)
+    totals = {}
+    for rep in range(reps + 1):
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+        events[0][1].record()
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((stage, ev))
+
+        with torch.inference_mode():
+            d = tile_slab_for(model, camera, vm, campos, cfg, False, mark)
+            mark("sync")
+            inst, num_tiles, gx = d["inst"], d["num_tiles"], d["gx"]
+            color, final_t, ncontrib = ct.composite_tile_fwd(
+                d["slab"], inst.starts, inst.counts, d["x0"], d["y0"], num_tiles,
+                cfg.want_ncontrib,
+            )
+            mark("composite_tile_fwd")
+            color = color + final_t[:, None, :] * bg[None, :, None]
+            for t in (color, final_t, ncontrib):
+                _tiles_to_image(t, gx, num_tiles // gx, WIDTH, HEIGHT)
+            mark("blend+_tiles_to_image")
+        torch.cuda.synchronize()
+        if rep == 0:
+            continue
+        for (_, a), (stage, b) in zip(events, events[1:]):
+            if stage != "sync":
+                totals[stage] = totals.get(stage, 0.0) + a.elapsed_time(b) / reps
+    emit({"phase": "tile_stages", "pose": 0, "stage_ms": totals,
+          "sum_ms": sum(totals.values())})
+    return totals
+
+
+def tile_render_phase(torch, model, camera, pose_list, cfg, seg_renders):
+    """Four requests through the tile-major config, each against the
+    segmented render of the same pose."""
+    from omnigs_torch.ops import composite_seg as cs
+    from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.train.renderer import render_model
+
+    bg = torch.zeros(3, device=model.xyz.device)
+    cs.composite_seg_fwd.launches = 0
+    ct.composite_tile_fwd.launches = 0
+    for k, (vm, campos) in enumerate(pose_list):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            res = render_model(model, camera, vm, campos, bg, SH_DEGREE, cfg)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        seg = seg_renders[k]
+        d_img = float((res.image - seg.image).abs().max())
+        d_t = float((res.final_T - seg.final_T).abs().max())
+        nc = res.n_contrib.to(torch.float64)
+        emit({
+            "phase": "tile_render",
+            "request": k,
+            "host_ms": host_ms,
+            "truncated": int(res.truncated),
+            "n_contrib_max": int(res.n_contrib.max()),
+            "n_contrib_mean": float(nc.mean()),
+            "vs_segmented_max_abs_image": d_img,
+            "vs_segmented_max_abs_final_T": d_t,
+            "bitwise_equal_segmented": bool(
+                torch.equal(res.image, seg.image) and torch.equal(res.final_T, seg.final_T)
+            ),
+        })
+        if int(res.truncated) != 0:
+            raise RuntimeError(f"tile request {k}: {int(res.truncated)} instances truncated")
+        if not bool(torch.isfinite(res.image).all()) or tuple(res.image.shape) != (3, HEIGHT, WIDTH):
+            raise RuntimeError(f"tile request {k}: image not finite or shape {tuple(res.image.shape)}")
+        if d_img > P999_ERR_BAR or d_t > P999_ERR_BAR or int(res.n_contrib.max()) <= 0:
+            raise RuntimeError(
+                f"tile request {k}: {d_img:.3g} / {d_t:.3g} from the segmented render "
+                f"(bar {P999_ERR_BAR}) or no n_contrib"
+            )
+    launches = ct.composite_tile_fwd.launches
+    if launches != len(pose_list) or cs.composite_seg_fwd.launches != 0:
+        raise RuntimeError(
+            f"tile requests launched composite_tile_fwd {launches} and "
+            f"composite_seg_fwd {cs.composite_seg_fwd.launches} times"
+        )
+    return launches
+
+
+def tile_train_phase(torch, scene, device, seg_loss):
+    """A Trainer on the train phase's scene through the tile-major config."""
+    from omnigs_torch.model import densify as densify_ops
+    from omnigs_torch.ops import composite_seg as cs
+    from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.train.trainer import Trainer
+
+    cfg = tile_yaml()
+    cfg.opt.densification_interval = DENSIFY_EVERY
+    cfg.opt.densify_until_iter = 4000
+    cfg.opt.opacity_reset_interval = 0
+    cfg.opt.prune_big_point_after_iter = 4000  # as in train_phase
+    tr = Trainer(scene, cfg, seed=SEED, device=device)
+    tr.init_from_sfm()
+    tr.iteration = TRAIN_START
+    if tr.raster_cfg.segmented or not tr.raster_cfg.want_ncontrib:
+        raise RuntimeError(f"the Trainer did not take the tile-major path: {tr.raster_cfg}")
+    densified = []
+    densify = densify_ops.densify_and_prune
+
+    def counting_densify(*args, **kwargs):
+        densified.append(densify(*args, **kwargs))
+        return densified[-1]
+
+    densify_ops.densify_and_prune = counting_densify
+    counters = (ct.composite_tile_fwd, ct.composite_tile_bwd,
+                ct.composite_tile_bwd_fused, cs.composite_seg_fwd, cs.composite_seg_bwd)
+    lines = []
+    try:
+        for c in counters:
+            c.launches = 0
+        for _ in range(TILE_TRAIN_ITERS):
+            before = [c.launches for c in counters]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = tr.train_iteration()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            delta = [c.launches - b for c, b in zip(counters, before)]
+            line = {
+                "phase": "tile_train",
+                "iteration": tr.iteration,
+                "host_ms": host_ms,
+                "loss": float(aux["loss"]),
+                "num_active": int(tr.model.num_active),
+                "truncated": int(aux["truncated"]),
+                "fwd_launches": delta[0],
+                "bwd_launches": delta[1],
+                "densified": tr.iteration % DENSIFY_EVERY == 0,
+            }
+            emit(line)
+            lines.append((line, delta))
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        densify_ops.densify_and_prune = densify
+    finite = all(bool(torch.isfinite(p).all()) for p in tr.model.params().values())
+    first = lines[0][0]["loss"]
+    loss_rel = abs(first - seg_loss) / abs(seg_loss)
+    emit({"phase": "tile_train_summary", "iterations": TILE_TRAIN_ITERS,
+          "launches": launches, "densify_calls": len(densified),
+          "params_finite": finite, "first_loss": first, "segmented_first_loss": seg_loss,
+          "first_loss_rel_diff": loss_rel, "total_truncated": tr.total_truncated})
+    if not finite or not all(math.isfinite(x["loss"]) for x, _ in lines):
+        raise RuntimeError("tile-major training produced a non-finite loss or parameter")
+    if any(x["truncated"] for x, _ in lines) or tr.total_truncated:
+        raise RuntimeError("tile-major training truncated instances")
+    if any(dl[:2] != [1, 1] or any(dl[2:]) for _, dl in lines) or len(densified) != 1:
+        raise RuntimeError(f"tile-major training launches {[dl for _, dl in lines]}, "
+                           f"densify ran {len(densified)} times")
+    if loss_rel > LOSS_RTOL:
+        raise RuntimeError(f"first tile-major loss {first} vs segmented {seg_loss}")
+    return tr, launches
+
+
+def tile_train_stages(torch, tr, reps=2):
+    """Device ms of each stage of ``reps`` non-densify tile-major steps."""
+    from omnigs_torch.model import densify as densify_ops
+    from omnigs_torch.model import optimizer as opt_ops
+    from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.ops import loss as loss_ops
+    from omnigs_torch.ops import rasterize as rz
+
+    targets = [
+        (rz, "preprocess", "preprocess"), (rz, "bin_instances_packed", "binning"),
+        (ct, "_build_inst", "slab"), (ct, "composite_tile_fwd", "fwd"),
+        (loss_ops, "l1_loss", "l1"), (loss_ops, "ssim", "ssim"),
+        (ct, "composite_tile_bwd", "bwd"),
+        # whichever reduction the config routes to (the scatter at 2^22)
+        (ct, "_scatter_reduce", "reduce"), (ct, "gather_reduce_rows", "reduce"),
+        (densify_ops, "add_densification_stats", "stats"),
+        (opt_ops, "adam_step", "adam"),
+    ]
+    totals = {}
+    done = 0
+    while done < reps:
+        if (tr.iteration + 1) % DENSIFY_EVERY == 0:
+            tr.train_iteration()  # a densify step: not measured
+            continue
+        with Probe(torch, targets) as pr:
+            pr.mark("start")
+            tr.train_iteration()
+            pr.mark("end")
+            torch.cuda.synchronize()
+            stages = {
+                "preprocess": pr.ms("preprocess:in", "preprocess:out"),
+                "binning": pr.ms("binning:in", "binning:out"),
+                "slab": pr.ms("slab:in", "slab:out"),
+                "fwd_kernel": pr.ms("fwd:in", "fwd:out"),
+                "blend": pr.ms("fwd:out", "l1:in"),
+                "loss": pr.ms("l1:in", "ssim:out"),
+                "bwd_kernel": pr.ms("bwd:in", "bwd:out"),
+                "reduction": pr.ms("reduce:in", "reduce:out"),
+                "autograd_rest": pr.ms("ssim:out", "bwd:in")
+                + pr.ms("reduce:out", "stats:in"),
+                "stats": pr.ms("stats:in", "stats:out"),
+                "adam": pr.ms("adam:in", "adam:out"),
+            }
+            stages["other"] = pr.ms("start", "end") - sum(stages.values())
+        for k, v in stages.items():
+            totals[k] = totals.get(k, 0.0) + v / reps
+        done += 1
+    emit({"phase": "tile_train_stages", "steps": reps, "stage_ms": totals,
+          "sum_ms": sum(totals.values())})
+    return totals
+
+
+def tile_fused_phase(torch, model, camera, pose_list, cfg):
+    """One `train_step` of the render model (P = 131,072) with
+    fused_reduce=True through the fused backward kernel, against the same
+    step through the backward kernel + scatter reduction."""
+    from omnigs_torch.model.gaussians import GaussianModel
+    from omnigs_torch.model.optimizer import LRConfig, init_adam
+    from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.train.renderer import render_model
+    from omnigs_torch.train.trainer import train_step
+
+    if P > ct.FUSED_REDUCE_MAX_P:
+        raise RuntimeError("the render model is above the fused route's limit")
+    fields = model.to_numpy()
+    dev = model.xyz.device
+    vm, campos = pose_list[0]
+    vm1, campos1 = pose_list[1]
+    with torch.no_grad():
+        # ground truth: the model seen from the next pose, so the step has
+        # a real gradient (no_grad, not inference mode: the loss saves it)
+        gt = render_model(
+            model, camera, vm1, campos1, torch.zeros(3, device=dev), SH_DEGREE, cfg
+        ).image
+    steps = {}
+    for fused in (True, False):
+        m = GaussianModel.from_numpy(fields, device=dev)
+        st = init_adam(m.params())
+        kernels = (ct.composite_tile_bwd_fused, ct.composite_tile_bwd, ct.composite_tile_fwd)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = train_step(
+            m, st, vm, campos, gt, TRAIN_START + 1, camera=camera,
+            sh_degree=SH_DEGREE,
+            # no emission payload: the fused route's condition (the 2^22
+            # cap demotes the gather reduction anyway)
+            raster_cfg=dataclasses.replace(cfg, fused_reduce=fused, gather_reduce=False),
+            lr_cfg=LRConfig(), spatial_lr_scale=1.0,
+            bg=torch.zeros(3, device=dev),
+        )
+        torch.cuda.synchronize()
+        steps[fused] = dict(
+            host_ms=(time.perf_counter() - t0) * 1e3, loss=float(aux["loss"]),
+            launches=tuple(k.launches for k in kernels),
+            mu=st.mu,
+        )
+    ratios = {
+        k: _reduce_close(torch, steps[True]["mu"][k].reshape(P, -1),
+                         steps[False]["mu"][k].reshape(P, -1))
+        for k in steps[True]["mu"]
+    }
+    emit({"phase": "tile_fused", "host_ms": steps[True]["host_ms"],
+          "unfused_host_ms": steps[False]["host_ms"], "loss": steps[True]["loss"],
+          "launches_fused_bwd_fwd": steps[True]["launches"],
+          "mu_vs_unfused_tol_ratio": ratios})
+    if steps[True]["launches"] != (1, 0, 1) or steps[False]["launches"] != (0, 1, 1):
+        raise RuntimeError(f"fused step launches {steps[True]['launches']}, "
+                           f"unfused {steps[False]['launches']}")
+    if max(ratios.values()) > 1.0 or not math.isfinite(steps[True]["loss"]):
+        raise RuntimeError(f"fused step disagrees with the unfused one: {ratios}")
+    fused_bwd, _, fwd = steps[True]["launches"]
+    return {"composite_tile_bwd_fused": fused_bwd, "composite_tile_fwd": fwd}
+
+
+def tile_gather_phase(torch, model, camera, pose_list, cfg):
+    """The gather reduction against the scatter reduction where the routing
+    rule takes the gather: `train_step` of the render model (P = 131,072,
+    the capacity of cfg/lonlat/synthetic_fullres.yaml) at that config's
+    instance cap GATHER_CAP, ``gather_reduce`` on and off, on two copies of
+    the model stepped in turn (the order alternating)."""
+    from omnigs_torch.model.gaussians import GaussianModel
+    from omnigs_torch.model.optimizer import LRConfig, init_adam
+    from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.ops.rasterize import GATHER_REDUCE_MAX_R
+    from omnigs_torch.train.renderer import render_model
+    from omnigs_torch.train.trainer import train_step
+
+    if GATHER_CAP > GATHER_REDUCE_MAX_R:
+        raise RuntimeError("the gather phase's cap is above the gather route's limit")
+    dev = model.xyz.device
+    bg = torch.zeros(3, device=dev)
+    vm, campos = pose_list[0]
+    vm1, campos1 = pose_list[1]
+    with torch.no_grad():
+        # ground truth: the model seen from the next pose, as in tile_fused
+        gt = render_model(model, camera, vm1, campos1, bg, SH_DEGREE, cfg).image
+    fields = model.to_numpy()
+    runs = {}
+    for route, gather in (("gather", True), ("scatter", False)):
+        m = GaussianModel.from_numpy(fields, device=dev)
+        rcfg = dataclasses.replace(cfg, max_instances=GATHER_CAP, gather_reduce=gather)
+        runs[route] = (m, init_adam(m.params()), rcfg)
+    targets = [(ct, "gather_reduce_rows", "gather"), (ct, "_scatter_reduce", "scatter")]
+    lines, ratios = [], {}
+    for i in range(GATHER_ITERS):
+        line = {"phase": "tile_gather", "step": i + 1}
+        order = ("gather", "scatter") if i % 2 == 0 else ("scatter", "gather")
+        for route in order:
+            m, st, rcfg = runs[route]
+            with Probe(torch, targets) as pr:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                aux = train_step(
+                    m, st, vm, campos, gt, TRAIN_START + i + 1, camera=camera,
+                    sh_degree=SH_DEGREE, raster_cfg=rcfg, lr_cfg=LRConfig(),
+                    spatial_lr_scale=1.0, bg=bg,
+                )
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3
+            taken = [r for r in ("gather", "scatter") if f"{r}:in" in pr.events]
+            line[route] = {
+                "host_ms": host_ms,
+                "reduce_ms": pr.ms(f"{route}:in", f"{route}:out")
+                if taken == [route] else None,
+                "routes": taken,
+                "loss": float(aux["loss"]),
+                "truncated": int(aux["truncated"]),
+            }
+        if i == 0:
+            mu_g, mu_s = runs["gather"][1].mu, runs["scatter"][1].mu
+            ratios = {
+                k: _reduce_close(torch, mu_g[k].reshape(P, -1), mu_s[k].reshape(P, -1))
+                for k in mu_g
+            }
+            line["mu_gather_vs_scatter_tol_ratio"] = ratios
+        emit(line)
+        lines.append(line)
+    summary = {"phase": "tile_gather_summary", "cap": GATHER_CAP,
+               "steps_averaged": GATHER_ITERS - 1}
+    for route in ("gather", "scatter"):
+        later = [x[route] for x in lines[1:]]
+        summary[route] = {
+            "reduce_ms_mean": sum(x["reduce_ms"] or 0.0 for x in later) / len(later),
+            "host_ms_mean": sum(x["host_ms"] for x in later) / len(later),
+        }
+    for x in lines:
+        for route in ("gather", "scatter"):
+            r = x[route]
+            if r["routes"] != [route] or r["truncated"] or not math.isfinite(r["loss"]):
+                raise RuntimeError(f"gather phase, step {x['step']}: {route} step took "
+                                   f"{r['routes']}, truncated {r['truncated']}, "
+                                   f"loss {r['loss']}")
+    loss_rel = max(abs(x["gather"]["loss"] - x["scatter"]["loss"]) / abs(x["scatter"]["loss"])
+                   for x in lines)
+    summary["max_loss_rel_diff"] = loss_rel
+    emit(summary)
+    if loss_rel > LOSS_RTOL:
+        raise RuntimeError(f"gather and scatter steps disagree: loss {loss_rel:.3g} "
+                           f"relative (bar {LOSS_RTOL})")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -704,13 +1424,14 @@ def main() -> int:
         "cuda": torch.version.cuda,
     })
 
-    kernels = ["composite_seg_fwd", "composite_seg_bwd"]
+    sources = ["composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
+               "composite_tile_bwd"]
     t0 = time.perf_counter()
-    cuda_build.build(kernels)  # one nvcc per source, all in parallel
+    cuda_build.build(sources)  # one nvcc per source, all in parallel
     emit({
         "phase": "build",
         "seconds": time.perf_counter() - t0,
-        "report": {k: cuda_build.BUILD_REPORT.get(k, "cached") for k in kernels},
+        "report": {k: cuda_build.BUILD_REPORT.get(k, "cached") for k in sources},
     })
 
     cfg = raster_config_from(load_config(CONFIG))
@@ -722,10 +1443,28 @@ def main() -> int:
     gres = grad_phase(torch, kres, slab_data)
     del slab_data
     stage_phase(torch, model, camera, pose_list[0], cfg)
-    images, render_launches = render_phase(torch, model, camera, pose_list, cfg)
-    ply_phase(torch, model, camera, pose_list[0], cfg, images[0])
-    tr, train_launches = train_phase(torch, np, model, camera, pose_list, cfg)
+    renders, render_launches = render_phase(torch, model, camera, pose_list, cfg)
+    ply_phase(torch, model, camera, pose_list[0], cfg, renders[0].image)
+    scene = train_scene(torch, np, model, camera, pose_list, cfg)
+    tr, train_launches, seg_loss = train_phase(torch, scene, "cuda")
     train_stages(torch, tr)
+    del tr
+
+    # the tile-major path (n_contrib on)
+    tcfg = raster_config_from(tile_yaml())
+    if tcfg.segmented or not tcfg.want_ncontrib:
+        raise RuntimeError(f"Tpu.want_ncontrib: 1 did not select the tile-major path: {tcfg}")
+    tk, tdata = tile_kernel_phase(torch, model, camera, pose_list[0], tcfg)
+    tg = tile_grad_phase(torch, tk, tdata)
+    del tdata
+    tile_stage_phase(torch, model, camera, pose_list[0], tcfg)
+    tile_launches = tile_render_phase(torch, model, camera, pose_list, tcfg, renders)
+    del renders
+    ttr, tile_train_launches = tile_train_phase(torch, scene, "cuda", seg_loss)
+    tile_train_stages(torch, ttr)
+    del ttr
+    fused_launches = tile_fused_phase(torch, model, camera, pose_list, tcfg)
+    tile_gather_phase(torch, model, camera, pose_list, tcfg)
 
     emit({"kernels": [
         {
@@ -760,6 +1499,59 @@ def main() -> int:
             "bound_ms": gres["bound_ms"],
             "bound_by": gres["bound_by"],
             # no single PyTorch call computes the splat backward per tile
+            "library_ms": None,
+        },
+        {
+            "name": "composite_tile_fwd",
+            "route": "cuda",
+            "source": "omnigs_torch/csrc/composite_tile_fwd.cu",
+            "replaces": "omnigs_tpu/ops/pallas_raster.py:192",
+            "tpu_kernel": "omnigs_tpu/ops/pallas_raster.py::_fwd_kernel",
+            # tile-major render (4 requests), training (6 iterations) and
+            # the fused training step (1)
+            "launches": tile_launches + tile_train_launches["composite_tile_fwd"]
+            + fused_launches["composite_tile_fwd"],
+            "launches_render": tile_launches,
+            "launches_train": tile_train_launches["composite_tile_fwd"],
+            "launches_fused_step": fused_launches["composite_tile_fwd"],
+            "max_abs_err": tk["max_abs_err"],
+            "ms": tk["kernel_ms"],
+            "plain_ms": tk["plain_ms"],
+            "bound_ms": tk["bound_ms"],
+            "bound_by": tk["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "composite_tile_bwd",
+            "route": "cuda",
+            "source": "omnigs_torch/csrc/composite_tile_bwd.cu",
+            "replaces": "omnigs_tpu/ops/pallas_raster.py:313",
+            "tpu_kernel": "omnigs_tpu/ops/pallas_raster.py::_bwd_kernel",
+            "launches": tile_train_launches["composite_tile_bwd"],
+            "max_abs_err": tg["max_abs_err"],
+            "max_rel_err": tg["max_rel_err"],
+            "ms": tg["kernel_ms"],
+            "plain_ms": tg["plain_ms"],
+            "bound_ms": tg["bound_ms"],
+            "bound_by": tg["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "composite_tile_bwd_fused",
+            "route": "cuda",
+            "source": "omnigs_torch/csrc/composite_tile_bwd.cu",
+            "replaces": "omnigs_tpu/ops/pallas_raster.py:573",
+            "tpu_kernel": "omnigs_tpu/ops/pallas_raster.py::_bwd_kernel_fused",
+            # the opt-in route (fused_reduce=True, P ≤ 163,840): one step
+            "launches": fused_launches["composite_tile_bwd_fused"],
+            "max_abs_err": tg["fused"]["max_abs_err"],
+            "tol_ratio": tg["fused"]["vs_plain_tol_ratio"],
+            "ms": tg["fused"]["kernel_ms"],
+            "plain_ms": tg["fused"]["plain_ms"],
+            "bound_ms": tg["fused"]["bound_ms"],
+            "bound_by": tg["fused"]["bound_by"],
+            # index_add_ would do the reduction, but no single call does the
+            # splat backward with it
             "library_ms": None,
         },
     ]})

@@ -1,10 +1,11 @@
-"""Static-shape tile binning for the segmented render path.
+"""Static-shape tile binning for the segmented and tile-major render paths.
 
 Counterpart of the main-path subset of `omnigs_tpu/ops/binning.py`:
 superblock pre-culling (`_precull_masks`), the depth-presorted packed-key
-binning (`bin_instances_packed`) and the 8-granular slab re-lay
+binning (`bin_instances_packed`, with the survivor-rank payload of the
+gather reduction, `_emission_segments`) and the 8-granular slab re-lay
 (`segment_relay`). Every integer output is bitwise identical to the JAX
-functions' (tests/test_torch_binning.py).
+functions' (tests/test_torch_binning.py, tests/test_torch_composite_tile.py).
 
 Port notes, where PyTorch differs from `jax.lax`:
 
@@ -30,7 +31,7 @@ to the same sentinels, so the outputs match bit for bit.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,6 +42,9 @@ RANK_BITS = 19  # depth-rank bits in the packed sort key (P ≤ 2^19)
 SEG_GRAN = 8  # segment granularity of the segmented-chunk slab layout
 # lanes per chunk of the JAX functions' live-bound loops (see module doc)
 _LIVE_CHUNK = 1 << 16
+# sorted_e payload of slab slots that carry no survivor: sorts after every
+# real survivor rank (< 2^24) in the gradient reduction's inversion sort
+E_SENTINEL = 1 << 30
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -57,6 +61,11 @@ class BinnedInstances(NamedTuple):
     perm: torch.Tensor  # (P,) int32 depth order: gaussian id = perm[rank]
     inv_perm: torch.Tensor  # (P,) int32 rank of each id
     sorted_key: torch.Tensor  # (R,) int64 sorted (tile << RANK_BITS | rank)
+    # with_emission only: slab position → survivor rank (E_SENTINEL where
+    # none), and each depth rank's survivor segment [seg_lo, seg_hi)
+    sorted_e: Optional[torch.Tensor] = None  # (R,) int32
+    seg_lo: Optional[torch.Tensor] = None  # (P,) int32
+    seg_hi: Optional[torch.Tensor] = None  # (P,) int32
 
 
 class SegLayout(NamedTuple):
@@ -206,6 +215,19 @@ def _hier_decode(x0, y0, x1, y1, sx, sy, wb, lo_m, hi_m, local):
     return tx, ty, (tx < x1) & (ty < y1)
 
 
+def _emission_segments(keep, offsets, tiles, max_instances: int):
+    """Survivor-rank bookkeeping of the gather reduction: each emission
+    slot's survivor rank ``e`` (cumsum(keep) − 1; E_SENTINEL where the slot
+    is dropped) and each Gaussian's survivor segment [ksum[first slot],
+    ksum[end slot]) — its survivors are contiguous in rank."""
+    ks = _cumsum32(keep.to(_I32))
+    e = torch.where(keep, ks - 1, torch.full_like(ks, E_SENTINEL))
+    ksum = torch.cat([ks.new_zeros(1), ks])
+    lo = torch.clamp_max(offsets, max_instances).to(_I64)
+    hi = torch.clamp_max(offsets + tiles, max_instances).to(_I64)
+    return e, ksum[lo], ksum[hi]
+
+
 def _live_chunk_bound(n_slots: int, total: torch.Tensor):
     """Slot count the JAX functions' live-bound chunk loops visit, as a
     tensor; None where they run one full-width pass (a ragged or single
@@ -223,6 +245,7 @@ def bin_instances_packed(
     grid_y: int,
     max_instances: int,
     tile_cull: bool = False,
+    with_emission: bool = False,
 ) -> BinnedInstances:
     """Compact binning with a depth presort and a single packed sort key.
 
@@ -233,7 +256,9 @@ def bin_instances_packed(
     2^RANK_BITS and num_tiles < 2^(32−RANK_BITS) − 1.
 
     When emission exceeds ``max_instances`` the tail is dropped in depth
-    order and counted in ``truncated``.
+    order and counted in ``truncated``. ``with_emission`` also returns the
+    survivor-rank payload ``sorted_e`` and the per-rank ``seg_lo`` /
+    ``seg_hi`` of the gather reduction.
     """
     num_tiles = grid_x * grid_y
     P = prep.depths.shape[0]
@@ -301,7 +326,15 @@ def bin_instances_packed(
         dead_key = num_tiles << RANK_BITS
         key = torch.where(j < bound, key, torch.full_like(key, dead_key))
 
-    skey = torch.sort(key).values
+    skey, order = torch.sort(key)
+    sorted_e = seg_lo = seg_hi = None
+    if with_emission:
+        keep = (key >> RANK_BITS) < num_tiles
+        e, seg_lo, seg_hi = _emission_segments(keep, offsets_d, tiles_d, max_instances)
+        # live keys are unique and every dead key carries the sentinel
+        # payload, so the payload gathered by an unstable sort's indices is
+        # the JAX (key, e) sort's, whatever order the dead keys take
+        sorted_e = e[order]
     sorted_g = (skey & ((1 << RANK_BITS) - 1)).to(_I32)
     sorted_tile = (skey >> RANK_BITS).to(_I32)
 
@@ -319,6 +352,9 @@ def bin_instances_packed(
         perm=perm,
         inv_perm=inv_perm,
         sorted_key=skey,
+        sorted_e=sorted_e,
+        seg_lo=seg_lo,
+        seg_hi=seg_hi,
     )
 
 

@@ -10,6 +10,10 @@
   launch in ``composite_seg_fwd.launches``; on a CPU tensor it runs the
   plain PyTorch version `composite_seg_fwd_plain`, which computes the same
   function with the same operation order.
+* `_walk_fwd_plain` / `_walk_bwd_plain` are the per-tile walk of the
+  kernels' shared `csrc/composite.cuh` in plain PyTorch, one instance at a
+  time; the segmented and the tile-major (`composite_tile.py`) plain
+  versions both run them, at their own pixel coordinates.
 * `composite_seg_bwd` is its backward: nine gradient rows per instance
   lane. On a CUDA tensor it launches `csrc/composite_seg_bwd.cu` (which
   replaces `pallas_seg.py::_bwd_seg_kernel`) and counts the launch in
@@ -61,10 +65,6 @@ _BWD_ARGTYPES = [
 # discarded accumulator rows that take the pad lanes in `_reduce_rows`
 _PAD_ROWS = 1 << 14
 
-# instances per step of the plain version's loop (bounds its temporaries
-# at T × PX × _PLAIN_CHUNK floats)
-_PLAIN_CHUNK = 32
-
 
 def _build_inst_seg(
     means2d: torch.Tensor,
@@ -108,6 +108,72 @@ def _pixel_coords(num_tiles: int, gx: int, tile_lo: int, device):
     return px.to(torch.float32), py.to(torch.float32)
 
 
+# the plain walks check every this many instances whether all pixels have
+# stopped (a host read), and end the walk early if so
+_PLAIN_CHECK = 32
+
+
+def _gather_step(inst_T, starts, counts, k):
+    """Instance k of every tile's segment: (lane_ok (T,), idx (T,), the
+    nine rows (9, T, 1))."""
+    lane_ok = k < counts
+    idx = torch.where(lane_ok, starts.to(torch.int64) + k, 0)
+    return lane_ok, idx, inst_T[:NGRAD, idx][:, :, None]
+
+
+def _walk_fwd_plain(
+    inst_T: torch.Tensor,
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    px: torch.Tensor,
+    py: torch.Tensor,
+    want_ncontrib: bool,
+):
+    """The kernels' forward walk (`csrc/composite.cuh`) in plain PyTorch:
+    every tile's segment [starts, starts + counts) of ``inst_T`` one
+    instance at a time, all tiles and pixels (at ``px``, ``py`` (T, PX))
+    at once, with the kernels' per-pair operations in their order
+    (sequential log-transmittance), so the stop decisions equal the
+    kernels'. Returns (color (T, 3, PX), final_T (T, PX), n_contrib (T, PX)
+    int32 — zeros unless ``want_ncontrib`` —, n_used, n_live): the last two
+    (T, PX) int32 counts of the work each pixel needs, the instances it
+    visits up to its transmittance stop and of those the live ones it
+    composites."""
+    dev = inst_T.device
+    num_tiles = counts.shape[0]
+    s = torch.zeros(num_tiles, PX, device=dev)  # log-T before the next instance
+    color = torch.zeros(num_tiles, 3, PX, device=dev)
+    ncontrib = torch.zeros(num_tiles, PX, dtype=torch.int32, device=dev)
+    done = torch.zeros(num_tiles, PX, dtype=torch.bool, device=dev)
+    n_used = counts[:, None].expand(-1, PX).clone()
+    n_live = torch.zeros_like(n_used)
+    k_max = int(counts.max()) if num_tiles else 0
+    for k in range(k_max):
+        if k % _PLAIN_CHECK == 0 and k and bool((done | (k >= counts)[:, None]).all()):
+            break
+        lane_ok, _, d = _gather_step(inst_T, starts, counts, k)
+        dx = d[0] - px
+        dy = d[1] - py
+        power = -0.5 * (d[2] * dx * dx + d[4] * dy * dy) - d[3] * dx * dy
+        alpha = torch.clamp_max(d[5] * torch.exp(torch.clamp_max(power, 0.0)), ALPHA_MAX)
+        live = lane_ok[:, None] & ~done & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        l = torch.log1p(-alpha)
+        n_excl = torch.exp(s)
+        ok = n_excl * (1.0 - alpha) >= T_STOP
+        gate = live & ok
+        stop = live & ~ok
+        n_used = torch.where(stop, k + 1, n_used)
+        done = done | stop
+        w = alpha * n_excl
+        for c in range(3):
+            color[:, c] = torch.where(gate, color[:, c] + d[6 + c] * w, color[:, c])
+        s = torch.where(gate, s + l, s)
+        n_live += gate.to(n_live.dtype)
+        if want_ncontrib:
+            ncontrib = torch.where(gate, k + 1, ncontrib).to(torch.int32)
+    return color, torch.exp(s), ncontrib, n_used, n_live
+
+
 def composite_seg_fwd_plain(
     inst_T8: torch.Tensor,
     starts8: torch.Tensor,
@@ -116,54 +182,18 @@ def composite_seg_fwd_plain(
     gx: int,
     tile_lo: int = 0,
 ):
-    """Plain PyTorch version of the segmented forward kernel.
-
-    Walks every tile's segment in steps of ``_PLAIN_CHUNK`` instances, all
-    tiles and pixels at once, with the kernel's per-pair math. Returns
-    (color (T, 3, PX), finalT (T, PX), n_used, n_live), the last two
-    (T, PX) int32 counts of the work each pixel needs: the instances it
-    visits before its transmittance stop (what the kernel's early exit
-    leaves) and, of those, the live ones it composites.
+    """Plain PyTorch version of the segmented forward kernel: the kernels'
+    walk (`_walk_fwd_plain`) at the tiles' pixels. Returns (color (T, 3,
+    PX), finalT (T, PX), n_used, n_live), the last two (T, PX) int32 counts
+    of the work each pixel needs: the instances it visits before its
+    transmittance stop (what the kernel's early exit leaves) and, of those,
+    the live ones it composites.
     """
-    dev = inst_T8.device
-    px, py = _pixel_coords(num_tiles, gx, tile_lo, dev)
-    s = torch.zeros(num_tiles, PX, device=dev)  # log-T before next instance
-    log_t = torch.zeros(num_tiles, PX, device=dev)
-    color = torch.zeros(num_tiles, 3, PX, device=dev)
-    n_used = counts[:, None].expand(-1, PX).clone()
-    n_live = torch.zeros_like(n_used)
-    starts = starts8.to(torch.int64)
-    k_max = int(counts.max()) if num_tiles else 0
-    for k0 in range(0, k_max, _PLAIN_CHUNK):
-        k = k0 + torch.arange(_PLAIN_CHUNK, device=dev)
-        lane_ok = k[None, :] < counts[:, None]  # (T, K)
-        idx = torch.where(lane_ok, starts[:, None] + k[None, :], 0)
-        data = inst_T8[:9, idx]  # (9, T, K)
-        x, y, A, B, C, op = (data[i][:, None, :] for i in range(6))
-        dx = x - px[:, :, None]  # (T, PX, K)
-        dy = y - py[:, :, None]
-        power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
-        alpha = torch.clamp_max(
-            op * torch.exp(torch.clamp_max(power, 0.0)), ALPHA_MAX
-        )
-        live = lane_ok[:, None, :] & (power <= 0.0) & (alpha >= ALPHA_MIN)
-        a = torch.where(live, alpha, torch.zeros_like(alpha))
-        l = torch.log1p(-a)
-        incl = torch.cumsum(l, dim=-1)
-        s_excl = s[:, :, None] + torch.cat(
-            [torch.zeros_like(incl[..., :1]), incl[..., :-1]], dim=-1
-        )
-        n_excl = torch.exp(s_excl)
-        contrib = n_excl * (1.0 - a) >= T_STOP
-        w = torch.where(contrib, a * n_excl, torch.zeros_like(a))
-        color += torch.bmm(data[6:9].permute(1, 0, 2), w.transpose(1, 2))
-        log_t += torch.sum(torch.where(contrib, l, torch.zeros_like(l)), -1)
-        s = s_excl[..., -1] + l[..., -1]
-        n_live += torch.sum(live & contrib, -1, dtype=n_live.dtype)
-        stop = live & ~contrib
-        first = torch.where(stop, k[None, None, :] + 1, k_max + 1).amin(-1)
-        n_used = torch.minimum(n_used, first.to(n_used.dtype))
-    return color, torch.exp(log_t), n_used, n_live
+    px, py = _pixel_coords(num_tiles, gx, tile_lo, inst_T8.device)
+    color, final_t, _, n_used, n_live = _walk_fwd_plain(
+        inst_T8, starts8, counts, px, py, False
+    )
+    return color, final_t, n_used, n_live
 
 
 def composite_seg_fwd(
@@ -229,6 +259,75 @@ def _check_inputs(inst_T8, starts8, counts, num_tiles):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _walk_bwd_plain(
+    inst_T: torch.Tensor,
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    px: torch.Tensor,
+    py: torch.Tensor,
+    color_full: torch.Tensor,
+    dcolor: torch.Tensor,
+) -> torch.Tensor:
+    """The kernels' backward walk (`csrc/composite.cuh`) in plain PyTorch:
+    one instance at a time like `_walk_fwd_plain`, recomputing the
+    forward's transmittances and stop decisions with the kernels' per-pair
+    operations in their order; each instance's nine partials are summed
+    over the tile's pixels (in another order than the kernels' warp sums)
+    and written at its lane of a zero array shaped like ``inst_T``."""
+    dev = inst_T.device
+    num_tiles = counts.shape[0]
+    dinst = torch.zeros_like(inst_T)
+    dlr, dlg, dlb = dcolor[:, 0], dcolor[:, 1], dcolor[:, 2]
+    dl_cf = dlr * color_full[:, 0] + dlg * color_full[:, 1] + dlb * color_full[:, 2]
+    s = torch.zeros(num_tiles, PX, device=dev)  # log-T before the next instance
+    wu_acc = torch.zeros(num_tiles, PX, device=dev)  # Σ w·u so far
+    done = torch.zeros(num_tiles, PX, dtype=torch.bool, device=dev)
+    zero = torch.zeros((), device=dev)
+    k_max = int(counts.max()) if num_tiles else 0
+    for k in range(k_max):
+        if k % _PLAIN_CHECK == 0 and k and bool((done | (k >= counts)[:, None]).all()):
+            break
+        lane_ok, idx, d = _gather_step(inst_T, starts, counts, k)
+        dx = d[0] - px
+        dy = d[1] - py
+        power = -0.5 * (d[2] * dx * dx + d[4] * dy * dy) - d[3] * dx * dy
+        gauss = torch.exp(torch.clamp_max(power, 0.0))
+        op_g = d[5] * gauss
+        alpha = torch.clamp_max(op_g, ALPHA_MAX)
+        live = lane_ok[:, None] & ~done & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        l = torch.log1p(-alpha)
+        n_excl = torch.exp(s)
+        one_m = 1.0 - alpha
+        ok = n_excl * one_m >= T_STOP
+        gate = live & ok
+        done = done | (live & ~ok)
+        w = alpha * n_excl
+        u = dlr * d[6] + dlg * d[7] + dlb * d[8]
+        wu_acc = torch.where(gate, wu_acc + w * u, wu_acc)
+        dl_da = n_excl * u - (dl_cf - wu_acc) / one_m
+        v = dl_da * op_g  # the 0.99 clamp is ignored, as in the reference
+        vdx, vdy = v * dx, v * dy
+        sums = [
+            torch.sum(torch.where(gate, t, zero), dim=1)  # over the pixels → (T,)
+            for t in (
+                vdx, vdy, vdx * dx, vdx * dy, vdy * dy, dl_da * gauss,
+                dlr * w, dlg * w, dlb * w,
+            )
+        ]
+        A, B, C = d[2, :, 0], d[3, :, 0], d[4, :, 0]
+        rows = torch.stack(
+            [
+                -(A * sums[0] + B * sums[1]),
+                -(C * sums[1] + B * sums[0]),
+                -0.5 * sums[2],
+                -sums[3],
+                -0.5 * sums[4],
+                *sums[5:],
+            ]
+        )
+        dinst[:NGRAD, idx[lane_ok]] = rows[:, lane_ok]
+        s = torch.where(gate, s + l, s)
+    return dinst
 
 
 def composite_seg_bwd_plain(
@@ -241,81 +340,12 @@ def composite_seg_bwd_plain(
     gx: int,
     tile_lo: int = 0,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the segmented backward kernel.
-
-    Walks every tile's segment in steps of ``_PLAIN_CHUNK`` instances like
-    `composite_seg_fwd_plain`, recomputing the forward's transmittances and
-    stop decisions, with the kernel's per-pair math; each instance's nine
-    partials are summed over the tile's pixels and written at its lane of a
-    zero (NROWS, R8) array (see `composite_seg_bwd`).
+    """Plain PyTorch version of the segmented backward kernel: the kernels'
+    walk (`_walk_bwd_plain`) at the tiles' pixels, written into a zero
+    (NROWS, R8) array (see `composite_seg_bwd`).
     """
-    dev = inst_T8.device
-    px, py = _pixel_coords(num_tiles, gx, tile_lo, dev)
-    dinst = torch.zeros_like(inst_T8)
-    dlr, dlg, dlb = (dcolor[:, c, :, None] for c in range(3))  # (T, PX, 1)
-    dl_cf = (
-        dcolor[:, 0] * color_full[:, 0]
-        + dcolor[:, 1] * color_full[:, 1]
-        + dcolor[:, 2] * color_full[:, 2]
-    )
-    s = torch.zeros(num_tiles, PX, device=dev)  # log-T before next instance
-    wu_acc = torch.zeros(num_tiles, PX, device=dev)  # Σ w·u so far
-    starts = starts8.to(torch.int64)
-    k_max = int(counts.max()) if num_tiles else 0
-    for k0 in range(0, k_max, _PLAIN_CHUNK):
-        k = k0 + torch.arange(_PLAIN_CHUNK, device=dev)
-        lane_ok = k[None, :] < counts[:, None]  # (T, K)
-        idx = torch.where(lane_ok, starts[:, None] + k[None, :], 0)
-        data = inst_T8[:NGRAD, idx]  # (9, T, K)
-        x, y, A, B, C, op, r, g, b = (data[i][:, None, :] for i in range(NGRAD))
-        dx = x - px[:, :, None]  # (T, PX, K)
-        dy = y - py[:, :, None]
-        power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
-        gauss = torch.exp(torch.clamp_max(power, 0.0))
-        op_g = op * gauss
-        alpha = torch.clamp_max(op_g, ALPHA_MAX)
-        live = lane_ok[:, None, :] & (power <= 0.0) & (alpha >= ALPHA_MIN)
-        a = torch.where(live, alpha, torch.zeros_like(alpha))
-        l = torch.log1p(-a)
-        incl = torch.cumsum(l, dim=-1)
-        s_excl = s[:, :, None] + torch.cat(
-            [torch.zeros_like(incl[..., :1]), incl[..., :-1]], dim=-1
-        )
-        n_excl = torch.exp(s_excl)
-        one_m = 1.0 - a
-        contrib = n_excl * one_m >= T_STOP
-        gate = live & contrib
-        w = torch.where(contrib, a * n_excl, torch.zeros_like(a))
-        u = dlr * r + dlg * g + dlb * b
-        wu_incl = wu_acc[:, :, None] + torch.cumsum(w * u, dim=-1)
-        dl_dot_b = dl_cf[:, :, None] - wu_incl
-        dl_da = torch.where(
-            gate, n_excl * u - dl_dot_b / one_m, torch.zeros_like(a)
-        )
-        v = dl_da * op_g  # the 0.99 clamp is ignored, as in the reference
-        vdx, vdy = v * dx, v * dy
-        s0, s1, s2, s3, s4, s5, s6, s7, s8 = (
-            torch.sum(t, dim=1)  # over the tile's pixels → (T, K)
-            for t in (
-                vdx, vdy, vdx * dx, vdx * dy, vdy * dy, dl_da * gauss,
-                dlr * w, dlg * w, dlb * w,
-            )
-        )
-        A, B, C = data[2], data[3], data[4]
-        rows = torch.stack(
-            [
-                -(A * s0 + B * s1),
-                -(C * s1 + B * s0),
-                -0.5 * s2,
-                -s3,
-                -0.5 * s4,
-                s5, s6, s7, s8,
-            ]
-        )
-        dinst[:NGRAD, idx[lane_ok]] = rows[:, lane_ok]
-        s = s_excl[..., -1] + l[..., -1]
-        wu_acc = wu_incl[..., -1]
-    return dinst
+    px, py = _pixel_coords(num_tiles, gx, tile_lo, inst_T8.device)
+    return _walk_bwd_plain(inst_T8, starts8, counts, px, py, color_full, dcolor)
 
 
 def composite_seg_bwd(

@@ -6,7 +6,9 @@ single-step `Trainer` loop):
 * per iteration: a random keyframe with a times-of-use budget, the SH
   degree raised every 1000 iterations, the log-lerp xyz LR, render →
   bottom-cropped 0.8·L1 + 0.2·(1−SSIM) → backward (the segmented backward
-  kernel, `ops/composite_seg.py`) → densification statistics → Adam;
+  kernel, `ops/composite_seg.py`, or under ``Tpu.want_ncontrib: 1`` the
+  tile-major one, `ops/composite_tile.py`) → densification statistics →
+  Adam;
 * densify/prune every ``densification_interval`` iterations inside
   (densify_from_iter, densify_until_iter), opacity reset every
   ``opacity_reset_interval``;

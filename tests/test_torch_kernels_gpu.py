@@ -9,8 +9,11 @@ Bars: forward atol 1e-5 (the kernel sums the log-transmittance
 sequentially, the plain version per 32-instance step — summation order
 only); backward rows max |Δ| ≤ 1e-4·max|plain| per row (the same relative
 bar as `chip_smoke.py`; the kernel sums the pixel partials by warp
-shuffles, the plain version with torch.sum); the training step on the card
-against the same step on the CPU at the gradient bars of
+shuffles, the plain version with torch.sum); the tile-major forward's
+n_contrib bitwise (the plain version walks the instances in the kernel's
+order); the fused backward, whose atomics change its summation order, at
+the same relative bar against the plain backward + reduction; the training
+step on the card against the same step on the CPU at the gradient bars of
 tests/test_torch_trainer.py."""
 
 import numpy as np
@@ -21,6 +24,7 @@ from omnigs_torch.cameras import Camera, CameraType
 from omnigs_torch.model.gaussians import GaussianModel
 from omnigs_torch.model.optimizer import LRConfig, init_adam
 from omnigs_torch.ops import composite_seg as tcs
+from omnigs_torch.ops import composite_tile as tct
 from omnigs_torch.ops.binning import bin_instances_packed, segment_relay
 from omnigs_torch.ops.preprocess import preprocess
 from omnigs_torch.ops.rasterize import RasterConfig, _tiles_to_image
@@ -101,7 +105,7 @@ def test_binning_on_card_matches_cpu():
         seg = segment_relay(
             inst.sorted_g, inst.starts, inst.counts, 1 << 14, 400, inst.sorted_key
         )
-        out[str(d)] = [t.cpu() for t in (*inst, *seg)]
+        out[str(d)] = [t.cpu() for t in (*inst, *seg) if t is not None]
     for a, b in zip(out["cpu"], out[str(dev)]):
         assert torch.equal(a, b)
 
@@ -241,3 +245,95 @@ def test_train_step_on_card_matches_cpu():
         diff = np.abs(getattr(mc, name).detach().cpu().numpy()
                       - getattr(mp, name).detach().numpy())
         assert (diff <= np.where(small, 2.0 * lrs[name] + 1e-6, 1e-6)).all(), name
+
+
+def _tile_inputs(dev, seed, n, squeeze):
+    """The compact (tile-major) slab of a seeded cloud at 256×128 through
+    the port's CPU pipeline, moved to ``dev``, with a seeded dL/dcolor."""
+    c = to_torch(random_cloud_np(seed, n))
+    c["means3d"] = c["means3d"] * torch.tensor(squeeze)
+    prep = preprocess(
+        c["means3d"], c["scales"], c["quats"], c["opacities"], c["shs"],
+        Camera(CameraType.LONLAT, 256, 128), torch.eye(4), torch.zeros(3), 2,
+        tight_culling=True,
+    )
+    inst = bin_instances_packed(prep, 16, 8, 1 << 14, tile_cull=True)
+    slab = tct._build_inst(
+        prep.means2d, prep.conic, prep.rgb, prep.opacity, inst.sorted_g,
+        torch.amax(inst.starts + inst.counts), inst.perm,
+    )
+    x0, y0 = tct.tile_origins(16, 8)
+    args = [t.to(dev) for t in (slab, inst.starts, inst.counts, x0, y0)]
+    dcolor = torch.from_numpy(
+        np.random.default_rng(seed).normal(size=(128, 3, 256)).astype(np.float32)
+    ).to(dev)
+    return args, inst.sorted_g.to(dev), dcolor
+
+
+TILE_CASES = [(41, 24, (1.0, 1.0, 1.0)), (42, 512, (0.2, 0.2, 1.0))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,n,squeeze", TILE_CASES, ids=["sparse", "multichunk"])
+def test_composite_tile_fwd_kernel_matches_plain(seed, n, squeeze):
+    dev = _cuda()
+    args, _, _ = _tile_inputs(dev, seed, n, squeeze)
+    before = tct.composite_tile_fwd.launches
+    kc, kt, kn = tct.composite_tile_fwd(*args, 128)
+    k0 = tct.composite_tile_fwd(*args, 128, want_ncontrib=False)
+    torch.cuda.synchronize()
+    assert tct.composite_tile_fwd.launches == before + 2
+    pc, pt, pn, _, _ = tct.composite_tile_fwd_plain(*args, 128)
+    np.testing.assert_allclose(kc.cpu().numpy(), pc.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(kt.cpu().numpy(), pt.cpu().numpy(), atol=1e-5)
+    assert torch.equal(kn, pn) and int(kn.max()) > 0
+    assert torch.equal(k0[0], kc) and torch.equal(k0[1], kt)
+    assert not bool(k0[2].any())
+    if n == 512:
+        assert int(args[2].max()) > tct.CHUNK
+
+
+def _tile_bwd(dev, seed, n, squeeze):
+    args, ids, dcolor = _tile_inputs(dev, seed, n, squeeze)
+    color, final_t, _ = tct.composite_tile_fwd(*args, 128)
+    color_full = (color + final_t[:, None, :] * 0.2).contiguous()
+    return args, ids, color_full, dcolor
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,n,squeeze", TILE_CASES, ids=["sparse", "multichunk"])
+def test_composite_tile_bwd_kernels_match_plain(seed, n, squeeze):
+    """#4 and #5 against their plain versions (max |Δ| ≤ 1e-4·max|plain|
+    per row)."""
+    dev = _cuda()
+    args, ids, color_full, dcolor = _tile_bwd(dev, seed, n, squeeze)
+    before = (tct.composite_tile_bwd.launches, tct.composite_tile_bwd_fused.launches)
+    got = tct.composite_tile_bwd(*args, color_full, dcolor, 128)
+    fused = tct.composite_tile_bwd_fused(args[0], ids, *args[1:], color_full, dcolor, 128, n)
+    torch.cuda.synchronize()
+    assert (tct.composite_tile_bwd.launches, tct.composite_tile_bwd_fused.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = tct.composite_tile_bwd_plain(*args, color_full, dcolor, 128)
+    ref_fused = tct.composite_tile_bwd_fused_plain(
+        args[0], ids, *args[1:], color_full, dcolor, 128, n
+    )
+    for r in range(tct.NGRAD):
+        scale = float(ref[r].abs().max())
+        assert scale > 0
+        assert float((got[r] - ref[r]).abs().max()) <= 1e-4 * scale, r
+        scale = float(ref_fused[:, r].abs().max())
+        assert float((fused[:, r] - ref_fused[:, r]).abs().max()) <= 1e-4 * scale, r
+    assert bool((got[tct.NGRAD:] == 0).all())
+
+
+@pytest.mark.gpu
+def test_tile_bwd_kernel_and_reduction_are_bitwise_repeatable():
+    dev = _cuda()
+    args, ids, color_full, dcolor = _tile_bwd(dev, 42, 512, (0.2, 0.2, 1.0))
+    live = torch.amax(args[1] + args[2])
+    outs = [
+        tct._scatter_reduce(tct.composite_tile_bwd(*args, color_full, dcolor, 128), ids, live, 512)
+        for _ in range(2)
+    ]
+    assert torch.equal(outs[0], outs[1])
+    assert float(outs[0].abs().max()) > 0

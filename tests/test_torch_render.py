@@ -280,6 +280,14 @@ def test_port_imports_no_jax():
         "    r = render_model(m, Camera(CameraType.LONLAT, 64, 32), torch.eye(4),\n"
         "                     torch.zeros(3), torch.zeros(3), 3, cfg)\n"
         "assert r.image.shape == (3, 32, 64) and bool(torch.isfinite(r.image).all())\n"
+        "import dataclasses\n"
+        "from omnigs_torch.ops import composite_tile\n"
+        "tile = dataclasses.replace(cfg, want_ncontrib=True, segmented=False)\n"
+        "with torch.inference_mode():\n"
+        "    rt = render_model(m, Camera(CameraType.LONLAT, 64, 32), torch.eye(4),\n"
+        "                      torch.zeros(3), torch.zeros(3), 3, tile)\n"
+        "assert float((rt.image - r.image).abs().max()) <= 1e-5\n"
+        "assert int(rt.n_contrib.max()) > 0\n"
         "from omnigs_torch.model.optimizer import LRConfig, init_adam\n"
         "from omnigs_torch.train.trainer import train_step\n"
         "st = init_adam(m.params())\n"
