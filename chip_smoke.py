@@ -80,6 +80,24 @@ script exits non-zero:
    prefixes carry other Gaussians' rows, see `tile_grad`'s float64 line);
    each copy takes its route every step, nothing is truncated, and the
    losses agree within 1e-5 relative at every step.
+14. ghost — four requests through the ghost-aligned layout (no depth
+   presort, the tile-major kernels): image and final_T within 1e-5 of the
+   segmented renders, truncated 0; one `train_step` whose Adam moments lie
+   within 2e-3 of each parameter's max of the segmented step's.
+15. fallback_segmented / fallback_tile — the YAML with
+   `Tpu.depth_presort: 0` (the 2-key binning), without and with
+   `Tpu.want_ncontrib: 1`: four requests each within 1e-5 of the
+   packed-key renders, one launch of the path's forward kernel each.
+16. xla — `backend="xla"`: two requests within rtol 1e-5, atol 1e-5 of
+   the segmented renders, no kernel launched; one float32 step and the same
+   step in float64; both float32 steps (XLA and segmented) hold the float64
+   step's Adam moments at rtol 2e-3, atol 2e-4 of each parameter's max.
+17. reduce, emit, ablate — the port's copies of the benchmark scripts
+   (`omnigs_torch/scripts/`), each run through its `main` with the launch
+   counters set to 0 just before and read just after, then its kernel
+   against its plain version at the script's sizes (#6 against a float64
+   sum at the reduction bar, #7 bit for bit, #8 per mode at the forward
+   bars), times, bound and library call.
 
 Then the `kernels` line, nvidia-smi's line, and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -145,6 +163,28 @@ GATHER_CAP = 1 << 21
 GATHER_ITERS = 5
 DENSIFY_EVERY = 4
 INIT_NOISE = 0.02
+# the ghost-aligned phase: the instance cap of its RasterConfig and
+# check_jit_parity's gradient bar (max |Δ| ≤ 2e-3 of each parameter's max)
+GHOST_CAP = 1 << 22
+GHOST_GRAD_REL = 2e-3
+# the XLA phase: the JAX package's Pallas-vs-XLA gradient bars
+# (tests/test_pallas_raster.py:94) for the compositor's gradients; the Adam
+# moments after one step, of the XLA and of the kernel path, are held
+# against the same step in float64 at twice that bar, since at full size
+# float32 reaches only 1.40× (kernel path) and 1.64× (XLA) of it there
+# (PERF.md §6)
+XLA_GRAD_RTOL = 1e-3
+XLA_GRAD_ATOL = 1e-4
+XLA_STEP_RTOL = 2e-3
+XLA_STEP_ATOL = 2e-4
+# kernel #8: fp32 operations per visited lane-pixel pair of each mode (a
+# transcendental or a bf16 rounding counts as one): the α math (dx, dy, the
+# quadratic form 8, clamp, exp, opacity, clamp, three tests, select = 19),
+# then alpha +1 (the lane sum); notrans +11 (prefix, 1 + cs, N·, a·, three
+# multiply-adds 6, Σa); nocumsum +11 (log1p, Σl, exp, N·, a·, 6); lowprec
+# +17 (log1p, Σl, round, prefix, exp, N·, a·, round, three rgb rounds, 6);
+# full +16 (log1p, Σl, prefix, exp, N·, 1 − a, division, test, a·, mask, 6)
+ABLATE_OPS = {"alpha": 20, "notrans": 30, "nocumsum": 30, "lowprec": 36, "full": 35}
 
 
 def emit(obj) -> None:
@@ -282,16 +322,9 @@ def stage_phase(torch, model, camera, pose, cfg, reps=3):
 
 
 def time_ms(torch, fn, reps, warmup=2):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from omnigs_torch.utils.profiling import mean_ms
+
+    return mean_ms(fn, "cuda", reps=reps, warmup=warmup)
 
 
 def _bound(ops, nbytes):
@@ -1396,6 +1429,404 @@ def tile_gather_phase(torch, model, camera, pose_list, cfg):
     return summary
 
 
+def kernel_counters():
+    """Every kernel wrapper of the port, by name (each counts its launches
+    in ``.launches``)."""
+    from omnigs_torch.ops import composite_seg as cs
+    from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.scripts import bucket_emit_bench as be
+    from omnigs_torch.scripts import kernel_ablate as ka
+    from omnigs_torch.scripts import reduce_bench as rb
+
+    fns = (cs.composite_seg_fwd, cs.composite_seg_bwd, ct.composite_tile_fwd,
+           ct.composite_tile_bwd, ct.composite_tile_bwd_fused, rb.reduce_accum,
+           be.bucket_emit, ka.kernel_ablate)
+    return {f.__name__: f for f in fns}
+
+
+def reset_launches():
+    for f in kernel_counters().values():
+        f.launches = 0
+
+
+def read_launches():
+    return {name: f.launches for name, f in kernel_counters().items()}
+
+
+def _only(counts, expected):
+    """True when exactly the kernels of ``expected`` launched, that often."""
+    return all(counts[k] == expected.get(k, 0) for k in counts)
+
+
+def _requests(torch, model, camera, pose_list, cfg, seg_renders, phase, n=None):
+    """``n`` (all by default) `render_model` requests through ``cfg`` with
+    the launch counters set to 0 just before and read just after, each
+    against the segmented render of its pose → (lines, launches)."""
+    from omnigs_torch.train.renderer import render_model
+
+    bg = torch.zeros(3, device=model.xyz.device)
+    lines = []
+    poses_run = pose_list[: n or len(pose_list)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for k, (vm, campos) in enumerate(poses_run):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            res = render_model(model, camera, vm, campos, bg, SH_DEGREE, cfg)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        seg = seg_renders[k]
+        d_img = (res.image - seg.image).abs()
+        line = {
+            "phase": phase,
+            "request": k,
+            "host_ms": host_ms,
+            "truncated": int(res.truncated),
+            "overflow": int(res.overflow),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "vs_segmented_max_abs_image": float(d_img.max()),
+            "vs_segmented_max_abs_final_T": float((res.final_T - seg.final_T).abs().max()),
+            # the XLA backend's bar (tests/test_pallas_raster.py): atol + rtol
+            "vs_segmented_tol_ratio": float((d_img / (1e-5 + 1e-5 * seg.image.abs())).max()),
+            "bitwise_equal_segmented": bool(torch.equal(res.image, seg.image)),
+            "finite": bool(torch.isfinite(res.image).all()),
+        }
+        emit(line)
+        lines.append(line)
+        if line["truncated"] or not line["finite"] or tuple(res.image.shape) != (3, HEIGHT, WIDTH):
+            raise RuntimeError(f"{phase} request {k}: truncated {line['truncated']}, "
+                               f"finite {line['finite']}, shape {tuple(res.image.shape)}")
+    return lines, read_launches()
+
+
+def _step(torch, fields, camera, pose_list, gt, rcfg):
+    """One `train_step` of a fresh copy of the render model through
+    ``rcfg`` with the launch counters set to 0 just before and read just
+    after → dict(host ms, loss, Adam first moments, launches, peak GiB).
+    It runs in ``gt``'s dtype, with float64 ``fields`` for a float64 step."""
+    from omnigs_torch.model.gaussians import GaussianModel
+    from omnigs_torch.model.optimizer import LRConfig, init_adam
+    from omnigs_torch.train.trainer import train_step
+
+    dev = gt.device
+    vm, campos = pose_list[0]
+    vm, campos = vm.to(gt.dtype), campos.to(gt.dtype)
+    m = GaussianModel.from_numpy(fields, device=dev)
+    st = init_adam(m.params())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    aux = train_step(
+        m, st, vm, campos, gt, TRAIN_START + 1, camera=camera, sh_degree=SH_DEGREE,
+        raster_cfg=rcfg, lr_cfg=LRConfig(), spatial_lr_scale=1.0,
+        bg=torch.zeros(3, device=dev, dtype=gt.dtype),
+    )
+    torch.cuda.synchronize()
+    return dict(host_ms=(time.perf_counter() - t0) * 1e3, loss=float(aux["loss"]),
+                truncated=int(aux["truncated"]), mu=st.mu, launches=read_launches(),
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _mu_ratio(torch, got, ref, rtol, atol):
+    """Per parameter: max |got − ref| / (atol·max|ref| + rtol·|ref|) of the
+    Adam first moments (0.1·gradient after one step); ≤ 1 passes."""
+    out = {}
+    for k in ref:
+        r, g = ref[k].reshape(P, -1), got[k].reshape(P, -1)
+        tol = atol * r.abs().max() + rtol * r.abs()
+        err = (g - r).abs()
+        out[k] = float(torch.where(err == 0, 0.0, err / tol).max())
+    return out
+
+
+def layout_steps(torch, model, camera, pose_list, cfg):
+    """The segmented step that the ghost and XLA steps are held against, and
+    what they share: the model's fields and the ground truth (the model
+    seen from the next pose, as in tile_fused)."""
+    from omnigs_torch.train.renderer import render_model
+
+    vm1, campos1 = pose_list[1]
+    dev = model.xyz.device
+    with torch.no_grad():
+        gt = render_model(model, camera, vm1, campos1, torch.zeros(3, device=dev),
+                          SH_DEGREE, cfg).image
+    fields = model.to_numpy()
+    return fields, gt, _step(torch, fields, camera, pose_list, gt, cfg)
+
+
+def ghost_phase(torch, model, camera, pose_list, cfg, seg_renders, steps):
+    """The ghost-aligned layout through the tile-major kernels (the pairing
+    of scripts/check_jit_parity.py:196-205): four requests against the
+    segmented renders, one `train_step` against the segmented step."""
+    gcfg = dataclasses.replace(
+        cfg, ghost_align=True, depth_presort=False, segmented=False,
+        gather_reduce=False, want_ncontrib=False, aligned_cap=None,
+        max_instances=GHOST_CAP,
+    )
+    lines, launches = _requests(torch, model, camera, pose_list, gcfg, seg_renders, "ghost")
+    fields, gt, seg_step = steps
+    st = _step(torch, fields, camera, pose_list, gt, gcfg)
+    # check_jit_parity's bar: max |Δ| ≤ 2e-3 of each parameter's max
+    ratio = _mu_ratio(torch, st["mu"], seg_step["mu"], 0.0, GHOST_GRAD_REL)
+    summary = {
+        "phase": "ghost_summary", "requests": len(lines),
+        "host_ms": [x["host_ms"] for x in lines], "launches": launches,
+        "step_host_ms": st["host_ms"], "step_loss": st["loss"],
+        "segmented_step_loss": seg_step["loss"], "step_launches": st["launches"],
+        "mu_vs_segmented_rel_ratio": ratio,
+    }
+    emit(summary)
+    worst = max(max(x["vs_segmented_max_abs_image"], x["vs_segmented_max_abs_final_T"])
+                for x in lines)
+    if worst > P999_ERR_BAR:
+        raise RuntimeError(f"ghost renders {worst:.3g} from the segmented ones")
+    if not _only(launches, {"composite_tile_fwd": len(lines)}) or not _only(
+            st["launches"], {"composite_tile_fwd": 1, "composite_tile_bwd": 1}):
+        raise RuntimeError(f"ghost launches {launches}, step {st['launches']}")
+    if st["truncated"] or max(ratio.values()) > 1.0:
+        raise RuntimeError(f"ghost step: truncated {st['truncated']}, {ratio}")
+    return launches["composite_tile_fwd"] + st["launches"]["composite_tile_fwd"], st
+
+
+def fallback_phase(torch, model, camera, pose_list, seg_renders):
+    """The production YAML with `Tpu.depth_presort: 0` (the compact 2-key
+    binning), segmented and with `Tpu.want_ncontrib: 1`: four requests
+    each, against the packed-key segmented renders."""
+    from omnigs_torch.config import load_config, raster_config_from
+
+    out = {}
+    for name, ncontrib, kernel in (("segmented", False, "composite_seg_fwd"),
+                                   ("tile", True, "composite_tile_fwd")):
+        yaml = load_config(CONFIG)
+        yaml.tpu.depth_presort = False
+        yaml.tpu.want_ncontrib = ncontrib
+        fcfg = raster_config_from(yaml)
+        if fcfg.depth_presort or fcfg.segmented == ncontrib:
+            raise RuntimeError(f"Tpu.depth_presort: 0 gave {fcfg}")
+        lines, launches = _requests(torch, model, camera, pose_list, fcfg, seg_renders,
+                                    f"fallback_{name}")
+        worst = max(max(x["vs_segmented_max_abs_image"], x["vs_segmented_max_abs_final_T"])
+                    for x in lines)
+        if worst > P999_ERR_BAR or not _only(launches, {kernel: len(lines)}):
+            raise RuntimeError(f"fallback {name}: {worst:.3g} from the packed renders, "
+                               f"launches {launches}")
+        out[name] = launches[kernel]
+    emit({"phase": "fallback_summary", "launches": out})
+    return out
+
+
+def _screen_grads(torch, model, camera, pose, rcfg):
+    """Gradients of a seeded weighted sum of one render's per-tile colors
+    w.r.t. the compositor's inputs (means2d, conic, rgb, opacity), through
+    ``rcfg``'s binning and compositor: what the compositor itself
+    computes, before `preprocess`'s Jacobians."""
+    from omnigs_torch.ops import rasterize as rz
+    from omnigs_torch.ops.preprocess import preprocess, tile_grid
+
+    vm, campos = pose
+    gx, gy = tile_grid(camera)
+    with torch.no_grad():
+        prep = preprocess(
+            model.xyz, model.get_scaling(), model.get_rotation(),
+            model.get_opacity(), model.get_features(), camera, vm, campos,
+            SH_DEGREE, active_mask=model.active, tight_culling=rcfg.tight_culling,
+        )
+    names = ("means2d", "conic", "rgb", "opacity")
+    leaves = [getattr(prep, k).detach().clone().requires_grad_(True) for k in names]
+    prep = prep._replace(conic=leaves[1], opacity=leaves[3])
+    color = rz._composite(rcfg, prep, leaves[0], leaves[2], torch.zeros(3, device=vm.device),
+                          gx, gy)[0]
+    gen = torch.Generator(device=vm.device).manual_seed(SEED + 3)
+    w = torch.rand(color.shape, generator=gen, device=vm.device)
+    grads = torch.autograd.grad((color * w).sum(), leaves)
+    torch.cuda.synchronize()
+    return dict(zip(names, grads))
+
+
+def xla_phase(torch, np, model, camera, pose_list, cfg, seg_renders, steps):
+    """`backend="xla"` (the dense per-tile layout and the chunked plain
+    compositor, no kernel) at tile_cap 1024, chunk 32: two requests against
+    the segmented renders; one float32 `train_step` and the same step in
+    float64 (the XLA path is plain PyTorch, so it runs in float64 too):
+    the float32 XLA and segmented steps' Adam moments are each held against
+    the float64 step's at twice the JAX package's Pallas-vs-XLA bars, their
+    losses within 1e-5 of each other; and the compositor's own gradients
+    against the segmented compositor's at those bars."""
+    from omnigs_torch.ops.rasterize import RasterConfig
+
+    xcfg = RasterConfig(max_instances=cfg.max_instances, tile_cap=1024, chunk=32,
+                        backend="xla", tight_culling=cfg.tight_culling)
+    lines, launches = _requests(torch, model, camera, pose_list, xcfg, seg_renders, "xla", 2)
+    g_x = _screen_grads(torch, model, camera, pose_list[0], xcfg)
+    g_s = _screen_grads(torch, model, camera, pose_list[0], cfg)
+    grad_ratio = _mu_ratio(torch, g_x, g_s, XLA_GRAD_RTOL, XLA_GRAD_ATOL)
+    del g_x, g_s
+    fields, gt, seg_step = steps
+    st = _step(torch, fields, camera, pose_list, gt, xcfg)
+    wide = {k: v.astype(np.float64) if v.dtype == np.float32 else v for k, v in fields.items()}
+    exact = _step(torch, wide, camera, pose_list, gt.double(), xcfg)
+    vs_float64 = {
+        name: _mu_ratio(torch, got["mu"], exact["mu"], XLA_STEP_RTOL, XLA_STEP_ATOL)
+        for name, got in (("xla", st), ("segmented", seg_step))
+    }
+    ratio = _mu_ratio(torch, st["mu"], seg_step["mu"], XLA_STEP_RTOL, XLA_STEP_ATOL)
+    loss_rel = abs(st["loss"] - seg_step["loss"]) / abs(seg_step["loss"])
+    emit({"phase": "xla_summary", "step_host_ms": st["host_ms"],
+          "step_peak_mem_gib": st["peak_mem_gib"], "step_loss": st["loss"],
+          "segmented_step_loss": seg_step["loss"], "step_loss_rel_diff": loss_rel,
+          "float64_step_loss": exact["loss"], "float64_step_host_ms": exact["host_ms"],
+          "float64_step_peak_mem_gib": exact["peak_mem_gib"],
+          "launches": launches, "step_launches": st["launches"],
+          "mu_vs_float64_tol_ratio": vs_float64,
+          "mu_vs_segmented_tol_ratio": ratio,
+          "compositor_grads_vs_segmented_tol_ratio": grad_ratio})
+    if max(x["vs_segmented_tol_ratio"] for x in lines) > 1.0:
+        raise RuntimeError("xla renders off the segmented ones beyond the bar")
+    if any(launches.values()) or any(st["launches"].values()) or any(
+            exact["launches"].values()):
+        raise RuntimeError(f"the XLA backend launched kernels: {launches}, {st['launches']}")
+    if max(max(r.values()) for r in vs_float64.values()) > 1.0:
+        raise RuntimeError(f"float32 steps off the float64 step: {vs_float64}")
+    if max(grad_ratio.values()) > 1.0:
+        raise RuntimeError(f"xla compositor gradients off the segmented ones: {grad_ratio}")
+    if st["truncated"] or exact["truncated"] or loss_rel > LOSS_RTOL:
+        raise RuntimeError(f"xla step: truncated {st['truncated']}, loss {loss_rel:.3g} "
+                           f"relative from the segmented step")
+
+
+def _script_main(torch, mod, argv=()):
+    """The port's copy of a benchmark script, run through its `main` with
+    the launch counters set to 0 just before and read just after → (its
+    result, what it printed, launches)."""
+    import contextlib
+    import io
+
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = mod.main(list(argv))
+    torch.cuda.synchronize()
+    return result, buf.getvalue().splitlines(), read_launches()
+
+
+def reduce_phase(torch):
+    """Kernel #6: the script's run, then the kernel against the float64
+    sum at the script's sizes (its atomics sum in no fixed order), its
+    plain version (one index_add_, also the library call), times, bound."""
+    from omnigs_torch.scripts import reduce_bench as rb
+
+    result, printed, launches = _script_main(torch, rb)
+    dev = torch.device("cuda")
+    p = result["p"]
+    ids, rows, live = rb.make_inputs(result["r"], p, dev)
+    with torch.inference_mode():
+        got = rb.reduce_accum(ids[:live], rows, p)
+        plain, plain_ms = _plain_ms(torch, lambda: rb.reduce_accum_plain(ids[:live], rows, p))
+        exact = torch.zeros(rb.NROWS, p, dtype=torch.float64, device=dev)
+        exact.index_add_(1, ids[:live].to(torch.int64), rows[:, :live].to(torch.float64))
+        exact = exact.to(torch.float32)
+        ratio = _reduce_close(torch, got.T, exact.T)
+        plain_ratio = _reduce_close(torch, plain.T, exact.T)
+        max_abs = float((got - plain).abs().max())
+        kernel_ms = time_ms(torch, lambda: rb.reduce_accum(ids[:live], rows, p), reps=10)
+        ids64, cols = ids[:live].to(torch.int64), rows[:, :live].contiguous()
+        table = torch.zeros(rb.NROWS, p, device=dev)
+        library_ms = time_ms(torch, lambda: table.index_add_(1, ids64, cols), reps=10)
+    nbytes = live * (rb.NROWS * 4 + 4) + rb.NROWS * 4 * p
+    bound_ms, bound_by = _bound(rb.NROWS * live, nbytes)
+    res = {"phase": "reduce", "name": "reduce_accum", "script": result, "printed": printed,
+           "launches": launches, "live": live, "p": p, "ops": rb.NROWS * live,
+           "bytes": nbytes, "vs_float64_tol_ratio": ratio,
+           "plain_vs_float64_tol_ratio": plain_ratio, "max_abs_err": max_abs,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(res)
+    if launches["reduce_accum"] < 1 or ratio > 1.0 or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"reduce_accum: launches {launches['reduce_accum']}, "
+                           f"{ratio:.3g} of the reduction bar")
+    return res
+
+
+def emit_phase(torch):
+    """Kernel #7: the script's run, then the kernel against its plain
+    version bit for bit at the script's size; times, bound, and the
+    library call `index_copy_`."""
+    from omnigs_torch.scripts import bucket_emit_bench as be
+
+    result, printed, launches = _script_main(torch, be)
+    slots, data, _ = (torch.from_numpy(a).cuda() for a in be.make_inputs(result["rows"]))
+    r = data.shape[0]
+    with torch.inference_mode():
+        got = be.bucket_emit(slots, data)
+        plain, plain_ms = _plain_ms(torch, lambda: be.bucket_emit_plain(slots, data))
+        bitwise = bool(torch.equal(got, plain))
+        max_abs = float((got - plain).abs().max())
+        kernel_ms = time_ms(torch, lambda: be.bucket_emit(slots, data), reps=20)
+        idx, out = be.emit_index(slots), torch.empty_like(data)
+        library_ms = time_ms(torch, lambda: out.index_copy_(0, idx, data), reps=20)
+    nbytes = r * (be.NROWS * 4 * 2 + 4)
+    bound_ms, bound_by = _bound(0, nbytes)
+    res = {"phase": "emit", "name": "bucket_emit", "script": result, "printed": printed,
+           "launches": launches, "rows": r, "bytes": nbytes, "bitwise": bitwise,
+           "max_abs_err": max_abs, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(res)
+    if launches["bucket_emit"] < 1 or not bitwise:
+        raise RuntimeError(f"bucket_emit: launches {launches['bucket_emit']}, "
+                           f"bitwise {bitwise}")
+    return res
+
+
+def ablate_phase(torch):
+    """Kernel #8: the script's run (six modes, and full's color against
+    kernel #3's), then each mode against its plain version on the script's
+    slab (max |Δ| ≤ 1e-4, p99.9 ≤ 1e-5, both of max(1, max|plain|)), times,
+    the lane-pixel pairs each mode visits and its bound."""
+    from omnigs_torch.scripts import kernel_ablate as ka
+
+    result, printed, launches = _script_main(torch, ka)
+    s = ka.build_slab(torch.device("cuda"))
+    slab = (s["inst_T"], s["starts"], s["counts"], s["x0"], s["y0"])
+    t = s["num_tiles"]
+    modes = {}
+    for mode in ka.MODES:
+        with torch.inference_mode():
+            got = ka.kernel_ablate(mode, *slab)
+            (plain, visited), plain_ms = _plain_ms(
+                torch, lambda m=mode: ka.kernel_ablate_plain(m, *slab))
+            scale = max(1.0, float(plain.abs().max()))
+            diff = ((got - plain).abs() / scale).flatten()
+            kernel_ms = time_ms(torch, lambda m=mode: ka.kernel_ablate(m, *slab), reps=10)
+        chunks = int(visited.sum())
+        pairs = chunks * ka.CHUNK * 256
+        rows = 3 if mode == "dma" else ka.NSTAGE
+        # dma's work is its lane sums and plane adds, not per pair
+        ops = chunks * 3 * (ka.CHUNK + 256) if mode == "dma" else pairs * ABLATE_OPS[mode]
+        nbytes = rows * 4 * ka.CHUNK * chunks + 4 * 4 * t + 3 * 4 * 256 * t
+        bound_ms, bound_by = _bound(ops, nbytes)
+        modes[mode] = {
+            "max_abs_err": float(diff.max()) * scale,
+            "max_rel_err": float(diff.max()),
+            "p999_rel_err": float(torch.sort(diff).values[int(0.999 * (diff.numel() - 1))]),
+            "bitwise": bool(torch.equal(got, plain)),
+            "finite": bool(torch.isfinite(got).all()),
+            "visited_chunks": chunks, "pairs": pairs, "ops": ops, "bytes": nbytes,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    res = {"phase": "ablate", "name": "kernel_ablate", "script": result,
+           "printed": printed, "launches": launches, "tiles": t,
+           "instances": int(s["counts"].sum()), "modes": modes}
+    emit(res)
+    bad = {m: v for m, v in modes.items() if not v["finite"]
+           or v["max_rel_err"] > MAX_ERR_BAR or v["p999_rel_err"] > P999_ERR_BAR}
+    if launches["kernel_ablate"] < len(ka.MODES) or bad:
+        raise RuntimeError(f"kernel_ablate: launches {launches['kernel_ablate']}, "
+                           f"modes off their plain versions {sorted(bad)}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1425,7 +1856,7 @@ def main() -> int:
     })
 
     sources = ["composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
-               "composite_tile_bwd"]
+               "composite_tile_bwd", "reduce_accum", "bucket_emit", "kernel_ablate"]
     t0 = time.perf_counter()
     cuda_build.build(sources)  # one nvcc per source, all in parallel
     emit({
@@ -1459,12 +1890,23 @@ def main() -> int:
     del tdata
     tile_stage_phase(torch, model, camera, pose_list[0], tcfg)
     tile_launches = tile_render_phase(torch, model, camera, pose_list, tcfg, renders)
-    del renders
     ttr, tile_train_launches = tile_train_phase(torch, scene, "cuda", seg_loss)
     tile_train_stages(torch, ttr)
     del ttr
     fused_launches = tile_fused_phase(torch, model, camera, pose_list, tcfg)
     tile_gather_phase(torch, model, camera, pose_list, tcfg)
+
+    # the rest of the rasterizer: the ghost-aligned and the 2-key layouts
+    # through the kernels, and the XLA backend
+    steps = layout_steps(torch, model, camera, pose_list, cfg)
+    ghost_launches, ghost_step = ghost_phase(torch, model, camera, pose_list, cfg, renders, steps)
+    fallback_launches = fallback_phase(torch, model, camera, pose_list, renders)
+    xla_phase(torch, np, model, camera, pose_list, cfg, renders, steps)
+    del renders, steps
+    # the benchmark scripts' kernels, each through its script's main
+    red = reduce_phase(torch)
+    emi = emit_phase(torch)
+    abl = ablate_phase(torch)
 
     emit({"kernels": [
         {
@@ -1473,10 +1915,13 @@ def main() -> int:
             "source": "omnigs_torch/csrc/composite_seg_fwd.cu",
             "replaces": "omnigs_tpu/ops/pallas_seg.py:237",
             "tpu_kernel": "omnigs_tpu/ops/pallas_seg.py::_fwd_seg_kernel",
-            # render path (4 requests) + training path (12 iterations)
-            "launches": render_launches + train_launches["composite_seg_fwd"],
+            # render path (4 requests) + training path (12 iterations) + the
+            # no-presort segmented requests (4)
+            "launches": render_launches + train_launches["composite_seg_fwd"]
+            + fallback_launches["segmented"],
             "launches_render": render_launches,
             "launches_train": train_launches["composite_seg_fwd"],
+            "launches_fallback": fallback_launches["segmented"],
             "max_abs_err": kres["max_abs_err"],
             "ms": kres["kernel_ms"],
             "plain_ms": kres["plain_ms"],
@@ -1507,13 +1952,17 @@ def main() -> int:
             "source": "omnigs_torch/csrc/composite_tile_fwd.cu",
             "replaces": "omnigs_tpu/ops/pallas_raster.py:192",
             "tpu_kernel": "omnigs_tpu/ops/pallas_raster.py::_fwd_kernel",
-            # tile-major render (4 requests), training (6 iterations) and
-            # the fused training step (1)
+            # tile-major render (4 requests), training (6 iterations), the
+            # fused training step (1), the ghost-aligned requests and step
+            # and the no-presort tile-major requests
             "launches": tile_launches + tile_train_launches["composite_tile_fwd"]
-            + fused_launches["composite_tile_fwd"],
+            + fused_launches["composite_tile_fwd"] + ghost_launches
+            + fallback_launches["tile"],
             "launches_render": tile_launches,
             "launches_train": tile_train_launches["composite_tile_fwd"],
             "launches_fused_step": fused_launches["composite_tile_fwd"],
+            "launches_ghost": ghost_launches,
+            "launches_fallback": fallback_launches["tile"],
             "max_abs_err": tk["max_abs_err"],
             "ms": tk["kernel_ms"],
             "plain_ms": tk["plain_ms"],
@@ -1527,7 +1976,9 @@ def main() -> int:
             "source": "omnigs_torch/csrc/composite_tile_bwd.cu",
             "replaces": "omnigs_tpu/ops/pallas_raster.py:313",
             "tpu_kernel": "omnigs_tpu/ops/pallas_raster.py::_bwd_kernel",
-            "launches": tile_train_launches["composite_tile_bwd"],
+            # tile-major training (6 iterations) and the ghost-aligned step
+            "launches": tile_train_launches["composite_tile_bwd"]
+            + ghost_step["launches"]["composite_tile_bwd"],
             "max_abs_err": tg["max_abs_err"],
             "max_rel_err": tg["max_rel_err"],
             "ms": tg["kernel_ms"],
@@ -1552,6 +2003,55 @@ def main() -> int:
             "bound_by": tg["fused"]["bound_by"],
             # index_add_ would do the reduction, but no single call does the
             # splat backward with it
+            "library_ms": None,
+        },
+        {
+            "name": "reduce_accum",
+            "route": "cuda",
+            "source": "omnigs_torch/csrc/reduce_accum.cu",
+            "replaces": "scripts/reduce_bench.py:36",
+            "tpu_kernel": "scripts/reduce_bench.py::_reduce_kernel",
+            # the script's main (python -m omnigs_torch.scripts.reduce_bench)
+            "launches": red["launches"]["reduce_accum"],
+            "max_abs_err": red["max_abs_err"],
+            "tol_ratio": red["vs_float64_tol_ratio"],
+            "ms": red["kernel_ms"],
+            "plain_ms": red["plain_ms"],
+            "bound_ms": red["bound_ms"],
+            "bound_by": red["bound_by"],
+            "library_ms": red["library_ms"],  # index_add_
+        },
+        {
+            "name": "bucket_emit",
+            "route": "cuda",
+            "source": "omnigs_torch/csrc/bucket_emit.cu",
+            "replaces": "scripts/bucket_emit_bench.py:48",
+            "tpu_kernel": "scripts/bucket_emit_bench.py::_emit_kernel",
+            "launches": emi["launches"]["bucket_emit"],
+            "max_abs_err": emi["max_abs_err"],
+            "ms": emi["kernel_ms"],
+            "plain_ms": emi["plain_ms"],
+            "bound_ms": emi["bound_ms"],
+            "bound_by": emi["bound_by"],
+            "library_ms": emi["library_ms"],  # index_copy_
+        },
+        {
+            "name": "kernel_ablate",
+            "route": "cuda",
+            "source": "omnigs_torch/csrc/kernel_ablate.cu",
+            "replaces": "scripts/kernel_ablate.py:58",
+            "tpu_kernel": "scripts/kernel_ablate.py::make_kernel",
+            "launches": abl["launches"]["kernel_ablate"],
+            # the six modes: the worst error, the full mode's time and bound
+            # (the others per mode in the ablate line)
+            "max_abs_err": max(v["max_abs_err"] for v in abl["modes"].values()),
+            "ms": abl["modes"]["full"]["kernel_ms"],
+            "plain_ms": abl["modes"]["full"]["plain_ms"],
+            "bound_ms": abl["modes"]["full"]["bound_ms"],
+            "bound_by": abl["modes"]["full"]["bound_by"],
+            "ms_by_mode": {m: v["kernel_ms"] for m, v in abl["modes"].items()},
+            "bound_ms_by_mode": {m: v["bound_ms"] for m, v in abl["modes"].items()},
+            # no single PyTorch call composites splats per tile
             "library_ms": None,
         },
     ]})

@@ -32,6 +32,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cuda_error.cuh"
+
 namespace omnigs_composite {
 
 constexpr int TILE = 16;
@@ -268,7 +270,3 @@ __device__ __forceinline__ void composite_bwd_walk(
 }
 
 }  // namespace omnigs_composite
-
-extern "C" const char* omnigs_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

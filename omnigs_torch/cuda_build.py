@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Any, Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "omnigs_torch"
@@ -109,6 +109,16 @@ def load(name: str) -> ctypes.CDLL:
         lib.omnigs_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
+
+
+def launcher(source: str, name: str, argtypes) -> Tuple[ctypes.CDLL, Any]:
+    """(library of csrc/<source>.cu, its C function ``omnigs_<name>``) with
+    the given ``argtypes`` and an int (CUDA error code) result."""
+    lib = load(source)
+    fn = getattr(lib, f"omnigs_{name}")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -227,10 +227,9 @@ def composite_seg_fwd(
     final_t = torch.empty(num_tiles, PX, dtype=torch.float32, device=inst_T8.device)
     if num_tiles == 0:
         return color, final_t
-    lib = cuda_build.load("composite_seg_fwd")
-    fn = lib.omnigs_composite_seg_fwd
-    fn.argtypes = _LAUNCH_ARGTYPES
-    fn.restype = ctypes.c_int
+    lib, fn = cuda_build.launcher(
+        "composite_seg_fwd", "composite_seg_fwd", _LAUNCH_ARGTYPES
+    )
     err = fn(
         inst_T8.data_ptr(), inst_T8.shape[1], starts8.data_ptr(),
         counts.data_ptr(), num_tiles, gx, tile_lo, color.data_ptr(),
@@ -389,10 +388,9 @@ def composite_seg_bwd(
     dinst = torch.zeros_like(inst_T8)
     if num_tiles == 0:
         return dinst
-    lib = cuda_build.load("composite_seg_bwd")
-    fn = lib.omnigs_composite_seg_bwd
-    fn.argtypes = _BWD_ARGTYPES
-    fn.restype = ctypes.c_int
+    lib, fn = cuda_build.launcher(
+        "composite_seg_bwd", "composite_seg_bwd", _BWD_ARGTYPES
+    )
     err = fn(
         inst_T8.data_ptr(), inst_T8.shape[1], starts8.data_ptr(),
         counts.data_ptr(), color_full.data_ptr(), dcolor.data_ptr(),

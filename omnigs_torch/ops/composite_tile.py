@@ -184,15 +184,6 @@ def _cuda_only(inst_T, what):
         raise ValueError(f"{what}: unsupported device {inst_T.device}")
 
 
-def _launcher(source, name, argtypes):
-    """(library, its launcher ``omnigs_<name>``) of csrc/<source>.cu."""
-    lib = cuda_build.load(source)
-    fn = getattr(lib, f"omnigs_{name}")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return lib, fn
-
-
 def composite_tile_fwd(
     inst_T: torch.Tensor,
     starts: torch.Tensor,
@@ -225,7 +216,9 @@ def composite_tile_fwd(
     ncontrib = torch.empty(num_tiles, PX, dtype=torch.int32, device=dev)
     if num_tiles == 0:
         return color, final_t, ncontrib
-    lib, fn = _launcher("composite_tile_fwd", "composite_tile_fwd", _FWD_ARGTYPES)
+    lib, fn = cuda_build.launcher(
+        "composite_tile_fwd", "composite_tile_fwd", _FWD_ARGTYPES
+    )
     err = fn(
         inst_T.data_ptr(), inst_T.shape[1], starts.data_ptr(), counts.data_ptr(),
         x0.data_ptr(), y0.data_ptr(), num_tiles, int(bool(want_ncontrib)),
@@ -289,7 +282,9 @@ def composite_tile_bwd(
     dinst = torch.zeros_like(inst_T)
     if num_tiles == 0:
         return dinst
-    lib, fn = _launcher("composite_tile_bwd", "composite_tile_bwd", _BWD_ARGTYPES)
+    lib, fn = cuda_build.launcher(
+        "composite_tile_bwd", "composite_tile_bwd", _BWD_ARGTYPES
+    )
     dev = inst_T.device
     err = fn(
         inst_T.data_ptr(), inst_T.shape[1], starts.data_ptr(), counts.data_ptr(),
@@ -363,7 +358,7 @@ def composite_tile_bwd_fused(
     acc = torch.zeros(num_gaussians, NGRAD, dtype=torch.float32, device=dev)
     if num_tiles == 0:
         return acc
-    lib, fn = _launcher(
+    lib, fn = cuda_build.launcher(
         "composite_tile_bwd", "composite_tile_bwd_fused", _FUSED_ARGTYPES
     )
     err = fn(

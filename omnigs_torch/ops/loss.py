@@ -1,8 +1,8 @@
 """Training losses and image metrics.
 
 Counterpart of `omnigs_tpu/ops/loss.py`: L1, two PSNR variants and SSIM
-with an 11×11 σ = 1.5 Gaussian window over (C, H, W) float32 images,
-zero-padded at the border. The separable window runs as two banded matrix
+with an 11×11 σ = 1.5 Gaussian window over (C, H, W) float32 images
+(float64 ones for a reference step), zero-padded at the border. The separable window runs as two banded matrix
 products per image (B_v · img · B_h), like the JAX package, through
 `torch.matmul`, which on the card is full float32 (the package switches
 TF32 off; a cuDNN convolution would be TF32 by default).
@@ -54,14 +54,15 @@ def _band_matrix_np(n: int, window_size: int = 11, sigma: float = 1.5) -> np.nda
     return B
 
 
-# device copies of the band matrices, one upload per (n, window, device)
-_BANDS: Dict[Tuple[int, int, str], torch.Tensor] = {}
+# device copies of the band matrices, one upload per (n, window, device,
+# dtype); a float64 image gets the float32 window widened
+_BANDS: Dict[Tuple[int, int, str, torch.dtype], torch.Tensor] = {}
 
 
-def _band_matrix(n: int, window_size: int, device) -> torch.Tensor:
-    key = (n, window_size, str(device))
+def _band_matrix(n: int, window_size: int, device, dtype) -> torch.Tensor:
+    key = (n, window_size, str(device), dtype)
     if key not in _BANDS:
-        _BANDS[key] = torch.from_numpy(_band_matrix_np(n, window_size)).to(device)
+        _BANDS[key] = torch.from_numpy(_band_matrix_np(n, window_size)).to(device, dtype)
     return _BANDS[key]
 
 
@@ -69,8 +70,8 @@ def _depthwise_conv(img: torch.Tensor, window_size: int) -> torch.Tensor:
     """(C, H, W) ⊛ Gaussian (k, k) with zero SAME padding, as B_v · img · B_h
     (the window is the outer product g·gᵀ, so the conv separates)."""
     _, H, W = img.shape
-    Bv = _band_matrix(H, window_size, img.device)
-    Bh = _band_matrix(W, window_size, img.device)
+    Bv = _band_matrix(H, window_size, img.device, img.dtype)
+    Bh = _band_matrix(W, window_size, img.device, img.dtype)
     return torch.matmul(torch.matmul(Bv, img), Bh)
 
 

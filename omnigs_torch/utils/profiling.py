@@ -5,6 +5,8 @@ Counterpart of the first half of `omnigs_tpu/utils/profiling.py`:
 * `step_timer` — host wall-clock spans, bracketed by a device synchronise
   when the device is a CUDA card (PyTorch returns before the card
   finishes, so an unsynchronised span measures the enqueue).
+* `mean_ms` — the mean time of repeated calls: CUDA events on a card, the
+  host clock on the CPU.
 * `device_peak_memory_mb` / `PeakMemoryTracker` — peak and current device
   memory from `torch.cuda`'s allocator statistics. A CPU device has none:
   the dict is empty.
@@ -33,6 +35,27 @@ def step_timer(results: Dict[str, float], key: str, device=None):
     yield
     _sync(device)
     results[key] = (time.perf_counter() - t0) * 1000.0
+
+
+def mean_ms(fn, device, reps: int = 10, warmup: int = 2) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` calls after ``warmup``:
+    CUDA events around the calls on a CUDA ``device`` (device time, launch
+    gaps included), the host clock otherwise."""
+    for _ in range(warmup):
+        fn()
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps
 
 
 def device_peak_memory_mb(device: Optional[torch.device] = None) -> Dict[str, float]:

@@ -14,7 +14,10 @@ n_contrib bitwise (the plain version walks the instances in the kernel's
 order); the fused backward, whose atomics change its summation order, at
 the same relative bar against the plain backward + reduction; the training
 step on the card against the same step on the CPU at the gradient bars of
-tests/test_torch_trainer.py."""
+tests/test_torch_trainer.py; the script kernels #6 (against a float64 sum,
+its atomics' order varies), #7 (bitwise) and #8 (each mode, 1e-5 of
+max(1, max|plain|)); renders through the ghost-aligned, no-presort and XLA
+layouts on the card against the CPU at 1e-5."""
 
 import numpy as np
 import pytest
@@ -29,9 +32,12 @@ from omnigs_torch.ops.binning import bin_instances_packed, segment_relay
 from omnigs_torch.ops.preprocess import preprocess
 from omnigs_torch.ops.rasterize import RasterConfig, _tiles_to_image
 from omnigs_torch.train.renderer import render_model
+from omnigs_torch.scripts import bucket_emit_bench as tbe
+from omnigs_torch.scripts import kernel_ablate as tka
+from omnigs_torch.scripts import reduce_bench as trb
 from omnigs_torch.train.trainer import train_step
 
-from torch_helpers import PROD_KW, random_cloud_np, random_model_np, to_torch
+from torch_helpers import PROD_KW, ablate_slab_np, random_cloud_np, random_model_np, to_torch
 
 
 def _cuda():
@@ -337,3 +343,80 @@ def test_tile_bwd_kernel_and_reduction_are_bitwise_repeatable():
     ]
     assert torch.equal(outs[0], outs[1])
     assert float(outs[0].abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_reduce_accum_kernel_matches_float64():
+    """#6 against the float64 sum of the same rows at the reduction bar
+    (rtol 2e-3, atol 1e-4 of each row's max): its atomics sum in no fixed
+    order. Its plain version is that sum in float32."""
+    dev = _cuda()
+    ids, rows, live = trb.make_inputs(1 << 16, 4096, dev, seed=46)
+    before = trb.reduce_accum.launches
+    got = trb.reduce_accum(ids[:live], rows, 4096)
+    torch.cuda.synchronize()
+    assert trb.reduce_accum.launches == before + 1
+    exact = torch.zeros(16, 4096, dtype=torch.float64, device=dev)
+    exact.index_add_(1, ids[:live].to(torch.int64), rows[:, :live].to(torch.float64))
+    for acc in (got, trb.reduce_accum_plain(ids[:live], rows, 4096)):
+        ref = exact.cpu().numpy()
+        np.testing.assert_allclose(acc.cpu().numpy(), ref, rtol=2e-3,
+                                   atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.gpu
+def test_bucket_emit_kernel_is_bitwise_plain():
+    dev = _cuda()
+    slots, data, _ = (torch.from_numpy(a).to(dev) for a in tbe.make_inputs(4 * tbe.K, seed=47))
+    before = tbe.bucket_emit.launches
+    got = tbe.bucket_emit(slots, data)
+    torch.cuda.synchronize()
+    assert tbe.bucket_emit.launches == before + 1
+    assert torch.equal(got, tbe.bucket_emit_plain(slots, data))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", tka.MODES)
+def test_kernel_ablate_kernel_matches_plain(mode):
+    """#8 in each mode against its plain version (the same operations in
+    the same order, --fmad=false): max |Δ| ≤ 1e-5 of max(1, max|plain|)."""
+    dev = _cuda()
+    args = [torch.from_numpy(a).to(dev) for a in ablate_slab_np(63)]
+    before = tka.kernel_ablate.launches
+    got = tka.kernel_ablate(mode, *args)
+    torch.cuda.synchronize()
+    assert tka.kernel_ablate.launches == before + 1
+    ref, _ = tka.kernel_ablate_plain(mode, *args)
+    bar = 1e-5 * max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= bar, mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["ghost", "nopresort_seg", "nopresort_tile", "xla"])
+def test_layout_render_on_card_matches_cpu(layout):
+    """`render_model` through the layouts beside the packed key on the card
+    against the same render on the CPU (plain versions)."""
+    dev = _cuda()
+    kw = {
+        "ghost": dict(PROD_KW, ghost_align=True, depth_presort=False, segmented=False,
+                      gather_reduce=False),
+        "nopresort_seg": dict(PROD_KW, depth_presort=False),
+        "nopresort_tile": dict(PROD_KW, depth_presort=False, segmented=False,
+                               want_ncontrib=True),
+        "xla": dict(backend="xla", tight_culling=True, tile_cap=256, chunk=32),
+    }[layout]
+    cfg = RasterConfig(max_instances=1 << 14, **kw)
+    fields = random_model_np(48, 512, 400)
+    cam = Camera(CameraType.LONLAT, 256, 128)
+    out = {}
+    for d in (dev, "cpu"):
+        m = GaussianModel.from_numpy(fields, device=d)
+        with torch.inference_mode():
+            out[str(d)] = render_model(
+                m, cam, torch.eye(4, device=d), torch.zeros(3, device=d),
+                torch.full((3,), 0.1, device=d), 3, cfg,
+            )
+    got, ref = out[str(dev)], out["cpu"]
+    np.testing.assert_allclose(got.image.cpu().numpy(), ref.image.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got.final_T.cpu().numpy(), ref.final_T.numpy(), atol=1e-5)
+    assert int(got.truncated) == int(ref.truncated) == 0

@@ -42,3 +42,18 @@ def test_ssim_map_matches_jax():
     got = tloss.ssim(torch.from_numpy(pred), torch.from_numpy(gt), size_average=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(tloss._band_matrix_np(37), jloss._band_matrix(37))
+
+
+def test_training_loss_float64_matches_jax():
+    """Float64 images get the window in float64 (the float64 reference step
+    of the XLA backend): the loss and its gradient agree with JAX's float32
+    ones to float32 rounding."""
+    pred, gt = _images(SHAPES["64x128"], seed=5)
+    v_ref, g_ref = jax.value_and_grad(
+        lambda p: jloss.training_loss(p, jnp.asarray(gt)))(jnp.asarray(pred))
+    p = torch.from_numpy(pred.astype(np.float64)).requires_grad_(True)
+    v = tloss.training_loss(p, torch.from_numpy(gt.astype(np.float64)))
+    (g,) = torch.autograd.grad(v, [p])
+    assert v.dtype == g.dtype == torch.float64
+    np.testing.assert_allclose(float(v.detach()), float(v_ref), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_ref), rtol=1e-5, atol=1e-6)

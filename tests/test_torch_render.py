@@ -249,6 +249,10 @@ def test_raster_config_from_production():
 
 
 def test_unported_configs_raise():
+    """Every `RasterConfig` the JAX package accepts renders (the XLA
+    backend, the 2-key binning without a depth presort, segmented or not);
+    the combinations it rejects raise ValueError, and the pinhole camera
+    (not a `RasterConfig` field) still raises naming its ROADMAP item."""
     c = {k: torch.from_numpy(v) for k, v in random_cloud_np(55, 8).items()}
     kw = dict(camera=TCamera(TCameraType.LONLAT, 64, 32), viewmatrix=torch.eye(4),
               campos=torch.zeros(3), bg=torch.zeros(3), sh_degree=0)
@@ -258,8 +262,20 @@ def test_unported_configs_raise():
         TRasterConfig(backend="pallas", want_ncontrib=False),
         TRasterConfig(backend="pallas", want_ncontrib=False, segmented=True),
     ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trasterize(*args, config=cfg, **kw)
+        res = trasterize(*args, config=cfg, **kw)
+        assert res.image.shape == (3, 32, 64) and bool(torch.isfinite(res.image).all())
+    for bad in (
+        dict(segmented=True),  # needs the kernel backend
+        dict(backend="pallas", segmented=True),  # no n_contrib when segmented
+        dict(backend="pallas", segmented=True, want_ncontrib=False, ghost_align=True),
+        dict(tile_cap=100, chunk=32),
+        dict(backend="cuda"),
+    ):
+        with pytest.raises(ValueError):
+            TRasterConfig(**bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trasterize(*args, config=TRasterConfig(), **dict(
+            kw, camera=TCamera(TCameraType.PINHOLE, 64, 32, fx=50.0, fy=50.0)))
 
 
 def test_port_imports_no_jax():

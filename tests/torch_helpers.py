@@ -64,3 +64,29 @@ PROD_KW = dict(
     want_ncontrib=False, depth_presort=True, segmented=True,
     gather_reduce=True,
 )
+
+
+def ablate_slab_np(seed, counts=(0, 5, 128, 200, 300, 77, 260, 129), gx=4):
+    """A chunk-aligned (16, L) f32 slab for the ablation kernel (#8) and its
+    (T,) int32 starts, counts, x0, y0: every tile's segment padded to 128
+    lanes (pad lanes hold random rows too, as ghost lanes hold Gaussian 0's),
+    splats around their tile with conics of 1.5–6 px, opacities up to 0.99
+    (so dense tiles stop early) and colors in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int32)
+    padded = -(-counts // 128) * 128
+    starts = (np.cumsum(padded) - padded).astype(np.int32)
+    t = np.arange(len(counts))
+    x0 = ((t % gx) * 16).astype(np.int32)
+    y0 = ((t // gx) * 16).astype(np.int32)
+    lanes = int(padded.sum()) + 128
+    owner = np.clip(np.searchsorted(starts, np.arange(lanes), side="right") - 1, 0, None)
+    slab = np.zeros((16, lanes), np.float32)
+    slab[0] = x0[owner] + rng.uniform(-4.0, 20.0, lanes)
+    slab[1] = y0[owner] + rng.uniform(-4.0, 20.0, lanes)
+    sx, sy = rng.uniform(1.5, 6.0, (2, lanes))
+    slab[2], slab[4] = 1.0 / sx**2, 1.0 / sy**2
+    slab[3] = rng.uniform(-0.2, 0.2, lanes) * np.sqrt(slab[2] * slab[4])
+    slab[5] = rng.uniform(0.05, 0.99, lanes)
+    slab[6:9] = rng.uniform(0.0, 1.0, (3, lanes))
+    return slab, starts, counts, x0, y0
