@@ -10,21 +10,31 @@ script exits non-zero:
 1. device — the card's name and power limit (nvidia-smi) and PyTorch's view.
 2. build  — every CUDA kernel of the paths, built from the repository's
    sources in parallel (`omnigs_torch/cuda_build.py`), with nvcc's register
-   and shared-memory report.
+   and shared-memory report; the segmented kernels #1/#2 may use no stack
+   and spill nothing.
 3. kernel — at full width (1920×960 lonlat, P = 131,072 at SH degree 3):
    the instance slab of one pose through the port's preprocess, binning
    and re-lay; the forward CUDA kernel against its plain PyTorch version on
-   it (max |Δ| ≤ 1e-4, 99.9th percentile ≤ 1e-5 over image and final_T);
-   both timed with CUDA events; the work this slab needs, for the bound;
-   a digest of the kernel's output bytes (the same seed gives the same
-   slab, so two builds of the kernel can be compared bit for bit).
+   it, bit for bit (and max |Δ| ≤ 1e-4, 99.9th percentile ≤ 1e-5 over
+   image and final_T); both timed with CUDA events; the work this slab
+   needs, for the bound; the warp-instance pairs the kernel's warps visit,
+   of those the ones a pixel of the warp composites and the ones its strip
+   masks drop; the spread of the segment lengths; a digest of the kernel's
+   output bytes (the same seed gives the same slab, so two builds of the
+   kernel can be compared bit for bit).
    Then the device time of each stage of that render (CUDA events).
 4. grad   — the backward CUDA kernel on the same slab, with a seeded
-   dL/dcolor, against its plain version (rows 0..8 over the segment lanes,
-   max |Δ| ≤ 1e-4 and 99.9th percentile ≤ 1e-5, each relative to the row's
-   max |plain|); both timed; its work counts and bound; a digest of its
-   output; kernel + reduction run twice must give bitwise-equal Gaussian
-   gradients.
+   dL/dcolor, against its plain version, bit for bit (and rows 0..8 over
+   the segment lanes, max |Δ| ≤ 1e-4 and 99.9th percentile ≤ 1e-5, each
+   relative to the row's max |plain|); both timed; its work counts, warp
+   pairs and bound; a digest of its output; kernel + reduction run twice
+   must give bitwise-equal Gaussian gradients.
+   seg_compare — when an earlier tree's sources are in
+   build/seg_before/omnigs_torch/csrc: kernels #1/#2 built from them and
+   from the present sources with one design element taken out
+   (`omnigs_torch/utils/kernel_variants.py`), every build's output bytes
+   equal to the production build's, ms in turns (earlier sources first and
+   last), each build's ptxas report.
 5. render — four serving requests through `render_model` with the
    production config of cfg/lonlat/360roam_lonlat.yaml under
    `torch.inference_mode()`, with the launch counters set to 0 just before
@@ -111,6 +121,7 @@ import functools
 import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -123,6 +134,9 @@ SH_DEGREE = 3
 SEED = 0
 N_REQUESTS = 4
 CONFIG = REPO / "cfg" / "lonlat" / "360roam_lonlat.yaml"
+# an earlier tree's CUDA sources for the seg_compare phase (gitignored; e.g.
+# `git archive <commit> omnigs_torch/csrc | tar -x -C build/seg_before`)
+SEG_BEFORE = REPO / "build" / "seg_before" / "omnigs_torch" / "csrc"
 # H100 SXM published peaks (dense): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -334,12 +348,58 @@ def _bound(ops, nbytes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def ptxas_clean(lines):
+    """True when ptxas reported stack frames and spills, and all are 0."""
+    found = [re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads", line) for line in lines]
+    found = [m for m in found if m]
+    return bool(found) and all(int(x) == 0 for m in found for x in m.groups())
+
+
 def _digest(*tensors):
     """sha256 (16 hex digits) of the tensors' bytes."""
     h = hashlib.sha256()
     for t in tensors:
         h.update(t.detach().contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def warp_pairs(torch, slab, seg, gx, n_used, gate, strip_rows):
+    """Warp-instance pairs of a segmented kernel whose warps hold
+    ``strip_rows`` pixel rows: (visited — instances up to the last one a
+    pixel of the warp needs, from the plain walk's ``n_used`` —, live — of
+    those, the ones that a pixel of the warp composites, from the plain
+    walk's ``gate`` bits per two rows —, culled — of the visited, the ones
+    whose strip bit the kernels' staging test clears, `_strip_masks`)."""
+    from omnigs_torch.ops import composite_seg as cs
+
+    num_tiles = n_used.shape[0]
+    nw = 16 // strip_rows
+    dev = slab.device
+    counts = seg.counts.to(torch.int64)
+    tile_of = torch.repeat_interleave(torch.arange(num_tiles, device=dev), counts)
+    pos = torch.arange(tile_of.shape[0], device=dev) - (torch.cumsum(counts, 0) - counts)[tile_of]
+    lane = seg.starts8.to(torch.int64)[tile_of] + pos
+    need = n_used.reshape(num_tiles, nw, -1).amax(dim=2)
+    visited = pos[:, None] < need[tile_of]  # (L, warps)
+    w = torch.arange(nw, device=dev)
+    mask = cs._strip_masks(slab, seg.starts8, seg.counts, gx, 0, strip_rows)[lane]
+    kept = ((mask[:, None] >> w) & 1).bool()
+    per = strip_rows // cs.BWD_STRIP  # gate bits per strip
+    g = gate[lane][:, None] >> (w * per)
+    live = (g & ((1 << per) - 1)) != 0
+    return {"warp_pairs_visited": int(visited.sum()),
+            "warp_pairs_live": int((visited & live).sum()),
+            "warp_pairs_culled": int((visited & ~kept).sum()),
+            "warp_rows": strip_rows}
+
+
+def segment_spread(torch, counts):
+    """Mean, 99th percentile and max of the tiles' segment lengths."""
+    c = torch.sort(counts.to(torch.float64)).values
+    return {"counts_mean": float(c.mean()),
+            "counts_p99": float(c[int(0.99 * (c.numel() - 1))]),
+            "counts_max": int(c[-1])}
 
 
 def kernel_phase(torch, model, camera, pose, cfg):
@@ -351,14 +411,19 @@ def kernel_phase(torch, model, camera, pose, cfg):
         args = (slab, seg.starts8, seg.counts, seg.live8, num_tiles, gx)
         kc, kt = cs.composite_seg_fwd(*args)
         torch.cuda.synchronize()
+        gate = torch.zeros(slab.shape[1], dtype=torch.int32, device=slab.device)
         pc, pt, n_used, n_live = cs.composite_seg_fwd_plain(
-            slab, seg.starts8, seg.counts, num_tiles, gx
+            slab, seg.starts8, seg.counts, num_tiles, gx, warp_gate=gate
         )
         diff = torch.cat([(kc - pc).abs().flatten(), (kt - pt).abs().flatten()])
         max_err = float(diff.max())
         p999 = float(torch.sort(diff).values[int(0.999 * (diff.numel() - 1))])
+        bitwise_plain = bool(torch.equal(kc, pc) and torch.equal(kt, pt))
         finite = bool(torch.isfinite(kc).all() and torch.isfinite(kt).all())
         digest = _digest(kc, kt)
+        pairs = {rows: warp_pairs(torch, slab, seg, gx, n_used, gate, rows)
+                 for rows in (cs.FWD_STRIP, cs.BWD_STRIP)}
+        del gate, pc, pt
         kernel_ms = time_ms(torch, lambda: cs.composite_seg_fwd(*args), reps=20)
         plain_ms = time_ms(
             torch,
@@ -383,10 +448,13 @@ def kernel_phase(torch, model, camera, pose, cfg):
         "live8": int(seg.live8),
         "visited_pairs": visited,
         "live_pairs": live,
+        **pairs[cs.FWD_STRIP],
+        **segment_spread(torch, seg.counts),
         "ops": ops,
         "bytes": nbytes,
         "max_abs_err": max_err,
         "p999_abs_err": p999,
+        "bitwise_equal_plain": bitwise_plain,
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -396,12 +464,13 @@ def kernel_phase(torch, model, camera, pose, cfg):
     emit(result)
     if not finite:
         raise RuntimeError("kernel output is not finite")
-    if max_err > MAX_ERR_BAR or p999 > P999_ERR_BAR:
+    if max_err > MAX_ERR_BAR or p999 > P999_ERR_BAR or not bitwise_plain:
         raise RuntimeError(
             f"kernel disagrees with its plain version: max {max_err:.3g} "
-            f"(bar {MAX_ERR_BAR}), p99.9 {p999:.3g} (bar {P999_ERR_BAR})"
+            f"(bar {MAX_ERR_BAR}), p99.9 {p999:.3g} (bar {P999_ERR_BAR}), "
+            f"bitwise equal {bitwise_plain}"
         )
-    return result, (slab, seg, inst, kc, kt)
+    return result, (slab, seg, inst, kc, kt, pairs[cs.BWD_STRIP])
 
 
 def segment_lanes(torch, starts, counts, width):
@@ -420,7 +489,7 @@ def grad_phase(torch, kres, slab_data):
     reduction."""
     from omnigs_torch.ops import composite_seg as cs
 
-    slab, seg, inst, kc, kt = slab_data
+    slab, seg, inst, kc, kt, pairs = slab_data
     num_tiles, gx = kres["tiles"], kres["gx"]
     dev = slab.device
     with torch.inference_mode():
@@ -445,6 +514,7 @@ def grad_phase(torch, kres, slab_data):
         max_rel = float(rel.max())
         p999 = float(torch.sort(rel.flatten()).values[int(0.999 * (rel.numel() - 1))])
         max_abs = float((got[: cs.NGRAD] - ref[: cs.NGRAD]).abs().max())
+        bitwise_plain = bool(torch.equal(got, ref))
         outside_zero = bool((got[:, ~lanes] == 0).all() and (got[cs.NGRAD:] == 0).all())
         finite = bool(torch.isfinite(got).all())
         digest = _digest(got)
@@ -472,11 +542,14 @@ def grad_phase(torch, kres, slab_data):
         "segment_instances": instances,
         "visited_pairs": kres["visited_pairs"],
         "live_pairs": live,
+        **pairs,
+        **segment_spread(torch, seg.counts),
         "ops": ops,
         "bytes": nbytes,
         "max_abs_err": max_abs,
         "max_rel_err": max_rel,
         "p999_rel_err": p999,
+        "bitwise_equal_plain": bitwise_plain,
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "reduce_ms": reduce_ms,
@@ -489,14 +562,44 @@ def grad_phase(torch, kres, slab_data):
     if not finite or not outside_zero:
         raise RuntimeError("backward kernel: non-finite rows or nonzero lanes "
                            "outside the segments")
-    if max_rel > MAX_ERR_BAR or p999 > P999_ERR_BAR:
+    if max_rel > MAX_ERR_BAR or p999 > P999_ERR_BAR or not bitwise_plain:
         raise RuntimeError(
             f"backward kernel disagrees with its plain version: max {max_rel:.3g} "
-            f"(bar {MAX_ERR_BAR}), p99.9 {p999:.3g} (bar {P999_ERR_BAR}), relative"
+            f"(bar {MAX_ERR_BAR}), p99.9 {p999:.3g} (bar {P999_ERR_BAR}), relative; "
+            f"bitwise equal {bitwise_plain}"
         )
     if not bitwise:
         raise RuntimeError("kernel + reduction is not bitwise repeatable")
-    return result
+    return result, (color_full, dcolor)
+
+
+def seg_compare_phase(torch, slab_data, kres, gres, grad_inputs):
+    """Kernels #1/#2 of the earlier sources in ``SEG_BEFORE`` (when that copy
+    exists) and of the present sources with one design element of
+    `csrc/composite_seg_walk.cuh` taken out, against the production build
+    on the kernel/grad slab (`omnigs_torch/utils/kernel_variants.py`): every
+    build's output bytes must equal the production build's; ms in turns
+    (earlier sources first and last), ptxas per build, the unchanged
+    bound."""
+    if not SEG_BEFORE.is_dir():
+        emit({"phase": "seg_compare", "before": None})
+        return None
+    from omnigs_torch.utils import kernel_variants as kv
+
+    slab, seg, _, _, _, _ = slab_data
+    color_full, dcolor = grad_inputs
+    res = kv.compare_seg(SEG_BEFORE, slab, seg.starts8, seg.counts, color_full, dcolor,
+                         kres["tiles"], kres["gx"])
+    line = {"phase": "seg_compare", "before": str(SEG_BEFORE.relative_to(REPO)),
+            "order": res.pop("order")}
+    for kernel, ref in (("composite_seg_fwd", kres), ("composite_seg_bwd", gres)):
+        line[kernel] = {"bound_ms": ref["bound_ms"], "digest_new": ref["digest"],
+                        **res[kernel]}
+    emit(line)
+    bad = [f"{k}/{v}" for k in res for v, r in res[k].items() if not r["bytes_equal_new"]]
+    if bad:
+        raise RuntimeError(f"builds whose output bytes differ from the production build: {bad}")
+    return line
 
 
 def render_phase(torch, model, camera, pose_list, cfg):
@@ -1859,11 +1962,11 @@ def main() -> int:
                "composite_tile_bwd", "reduce_accum", "bucket_emit", "kernel_ablate"]
     t0 = time.perf_counter()
     cuda_build.build(sources)  # one nvcc per source, all in parallel
-    emit({
-        "phase": "build",
-        "seconds": time.perf_counter() - t0,
-        "report": {k: cuda_build.BUILD_REPORT.get(k, "cached") for k in sources},
-    })
+    report = {k: cuda_build.BUILD_REPORT.get(k, "cached") for k in sources}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "report": report})
+    for k in ("composite_seg_fwd", "composite_seg_bwd"):
+        if report[k] != "cached" and not ptxas_clean(report[k]["ptxas"]):
+            raise RuntimeError(f"{k}: ptxas reports stack or spills: {report[k]['ptxas']}")
 
     cfg = raster_config_from(load_config(CONFIG))
     camera = Camera(CameraType.LONLAT, WIDTH, HEIGHT)
@@ -1871,8 +1974,9 @@ def main() -> int:
     pose_list = poses(torch, "cuda")
 
     kres, slab_data = kernel_phase(torch, model, camera, pose_list[0], cfg)
-    gres = grad_phase(torch, kres, slab_data)
-    del slab_data
+    gres, grad_inputs = grad_phase(torch, kres, slab_data)
+    seg_compare_phase(torch, slab_data, kres, gres, grad_inputs)
+    del slab_data, grad_inputs
     stage_phase(torch, model, camera, pose_list[0], cfg)
     renders, render_launches = render_phase(torch, model, camera, pose_list, cfg)
     ply_phase(torch, model, camera, pose_list[0], cfg, renders[0].image)

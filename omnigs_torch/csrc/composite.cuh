@@ -1,9 +1,11 @@
-// The per-tile compositing walks shared by the four compositing kernels for
-// Hopper (sm_90a): composite_seg_fwd.cu, composite_seg_bwd.cu (the
-// segmented layout) and composite_tile_fwd.cu, composite_tile_bwd.cu (the
-// tile-major compact layout). The kernels differ only in where a tile's
+// The per-tile compositing walks of the tile-major kernels for Hopper
+// (sm_90a): composite_tile_fwd.cu and composite_tile_bwd.cu (the compact
+// layout, kernels #3, #4, #5). The kernels differ only in where a tile's
 // segment starts and how its pixel origin is found; the walk over the
-// segment is this file's.
+// segment is this file's. The segmented kernels (#1, #2) run the same
+// per-pair arithmetic on the walk of composite_seg_walk.cuh, which also
+// takes its constants from here; their outputs equal this walk's bit for
+// bit.
 //
 // Tile t composites the depth-sorted instances of its segment [start,
 // start + n) of the (16, rpad) instance slab (rows x, y, A, B, C, opacity,

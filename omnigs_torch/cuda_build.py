@@ -59,34 +59,31 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str]) -> None:
-    """Build every named source whose library is missing, all in parallel."""
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
-        return
+def compile_all(jobs: Dict[str, Tuple[Path, Path]]) -> Dict[str, dict]:
+    """nvcc each ``key → (source .cu, library .so)`` of ``jobs``, all in
+    parallel → ``key → {"seconds", "ptxas"}``; raises if one fails."""
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for name in todo:
-        out = library_path(name)
+    for key, (src, out) in jobs.items():
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[key] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
             ),
             tmp,
             out,
         )
-    failures = []
-    for name, (proc, tmp, out) in procs.items():
+    failures, reports = [], {}
+    for key, (proc, tmp, out) in procs.items():
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exit {proc.returncode}\n{stderr}")
+            failures.append(f"{key}: nvcc exit {proc.returncode}\n{stderr}")
             continue
         os.replace(tmp, out)
-        BUILD_REPORT[name] = {
+        reports[key] = {
             "seconds": time.perf_counter() - t0,
             # registers, shared memory, stack and spills per kernel
             "ptxas": [
@@ -97,6 +94,16 @@ def build(names: Iterable[str]) -> None:
         }
     if failures:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failures))
+    return reports
+
+
+def build(names: Iterable[str]) -> None:
+    """Build every named source whose library is missing, all in parallel."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if todo:
+        BUILD_REPORT.update(
+            compile_all({n: (CSRC / f"{n}.cu", library_path(n)) for n in todo})
+        )
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,9 +11,14 @@
   plain PyTorch version `composite_seg_fwd_plain`, which computes the same
   function with the same operation order.
 * `_walk_fwd_plain` / `_walk_bwd_plain` are the per-tile walk of the
-  kernels' shared `csrc/composite.cuh` in plain PyTorch, one instance at a
-  time; the segmented and the tile-major (`composite_tile.py`) plain
-  versions both run them, at their own pixel coordinates.
+  compositing kernels in plain PyTorch, one instance at a time, with their
+  operations in their order (the backward's pixel sums in the kernels'
+  tree, `_pixel_sum`), so each kernel equals its plain version bit for
+  bit; the segmented and the tile-major (`composite_tile.py`) plain
+  versions both run them, at their own pixel coordinates. The segmented
+  kernels (`csrc/composite_seg_walk.cuh`) skip the instances that cannot
+  be live in a warp's pixel rows; `_strip_masks` is that test in plain
+  PyTorch.
 * `composite_seg_bwd` is its backward: nine gradient rows per instance
   lane. On a CUDA tensor it launches `csrc/composite_seg_bwd.cu` (which
   replaces `pallas_seg.py::_bwd_seg_kernel`) and counts the launch in
@@ -48,6 +53,17 @@ _SEG_ROW = 9  # per-lane dense tile index (f32, exact < 2^24)
 _TID_ROW = 10  # per-lane tile id (f32)
 
 NGRAD = 9  # gradient rows per instance: x, y, A, B, C, opacity, r, g, b
+NWARP, WARP = 8, 32  # a tile's 256 pixels as the kernels' warps of 32 lanes
+
+# the strip test of `csrc/composite_seg_walk.cuh` (`strip_mask`), whose
+# slack the comment there derives; pixel rows per warp strip of the forward
+# (two pixel rows per thread) and of the backward kernel
+CULL_REL = 16.0 * 2.0**-24
+CULL_ABS = 1e-4
+TAU_FLOOR = -1e-5
+CULL_PAD = 1e-6
+LOG_ALPHA_MIN = -5.541263580322266  # logf of the float32 ALPHA_MIN
+FWD_STRIP, BWD_STRIP = 4, 2
 
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
 # omnigs_composite_seg_fwd(inst, r8, starts8, counts, num_tiles, gx,
@@ -121,6 +137,15 @@ def _gather_step(inst_T, starts, counts, k):
     return lane_ok, idx, inst_T[:NGRAD, idx][:, :, None]
 
 
+def _warp_bits(gate: torch.Tensor) -> torch.Tensor:
+    """(T, PX) bool → (T,) int32: bit w set where warp w (pixels 32w ..
+    32w + 31, i.e. pixel rows 2w and 2w + 1) has a True pixel."""
+    hit = gate.reshape(gate.shape[0], NWARP, WARP).any(dim=2).to(torch.int32)
+    return (hit << torch.arange(NWARP, device=gate.device, dtype=torch.int32)).sum(
+        dim=1, dtype=torch.int32
+    )
+
+
 def _walk_fwd_plain(
     inst_T: torch.Tensor,
     starts: torch.Tensor,
@@ -128,6 +153,7 @@ def _walk_fwd_plain(
     px: torch.Tensor,
     py: torch.Tensor,
     want_ncontrib: bool,
+    warp_gate: Optional[torch.Tensor] = None,
 ):
     """The kernels' forward walk (`csrc/composite.cuh`) in plain PyTorch:
     every tile's segment [starts, starts + counts) of ``inst_T`` one
@@ -138,7 +164,8 @@ def _walk_fwd_plain(
     int32 — zeros unless ``want_ncontrib`` —, n_used, n_live): the last two
     (T, PX) int32 counts of the work each pixel needs, the instances it
     visits up to its transmittance stop and of those the live ones it
-    composites."""
+    composites. ``warp_gate``, an (R,) int32 zero tensor if given, gets at
+    each visited lane the `_warp_bits` of the pixels that composite it."""
     dev = inst_T.device
     num_tiles = counts.shape[0]
     s = torch.zeros(num_tiles, PX, device=dev)  # log-T before the next instance
@@ -151,7 +178,7 @@ def _walk_fwd_plain(
     for k in range(k_max):
         if k % _PLAIN_CHECK == 0 and k and bool((done | (k >= counts)[:, None]).all()):
             break
-        lane_ok, _, d = _gather_step(inst_T, starts, counts, k)
+        lane_ok, idx, d = _gather_step(inst_T, starts, counts, k)
         dx = d[0] - px
         dy = d[1] - py
         power = -0.5 * (d[2] * dx * dx + d[4] * dy * dy) - d[3] * dx * dy
@@ -162,6 +189,8 @@ def _walk_fwd_plain(
         ok = n_excl * (1.0 - alpha) >= T_STOP
         gate = live & ok
         stop = live & ~ok
+        if warp_gate is not None:
+            warp_gate[idx[lane_ok]] = _warp_bits(gate)[lane_ok]
         n_used = torch.where(stop, k + 1, n_used)
         done = done | stop
         w = alpha * n_excl
@@ -181,17 +210,18 @@ def composite_seg_fwd_plain(
     num_tiles: int,
     gx: int,
     tile_lo: int = 0,
+    warp_gate: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch version of the segmented forward kernel: the kernels'
-    walk (`_walk_fwd_plain`) at the tiles' pixels. Returns (color (T, 3,
-    PX), finalT (T, PX), n_used, n_live), the last two (T, PX) int32 counts
-    of the work each pixel needs: the instances it visits before its
-    transmittance stop (what the kernel's early exit leaves) and, of those,
-    the live ones it composites.
+    walk (`_walk_fwd_plain`, which also fills ``warp_gate``) at the tiles'
+    pixels. Returns (color (T, 3, PX), finalT (T, PX), n_used, n_live), the
+    last two (T, PX) int32 counts of the work each pixel needs: the
+    instances it visits before its transmittance stop (what the kernel's
+    early exit leaves) and, of those, the live ones it composites.
     """
     px, py = _pixel_coords(num_tiles, gx, tile_lo, inst_T8.device)
     color, final_t, _, n_used, n_live = _walk_fwd_plain(
-        inst_T8, starts8, counts, px, py, False
+        inst_T8, starts8, counts, px, py, False, warp_gate
     )
     return color, final_t, n_used, n_live
 
@@ -258,6 +288,73 @@ def _check_inputs(inst_T8, starts8, counts, num_tiles):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _pixel_sum(t: torch.Tensor) -> torch.Tensor:
+    """(..., PX) → (...): the kernels' sum over a tile's pixels. Per warp
+    of 32 pixels the butterfly's tree (halves at 16, 8, 4, 2, 1, lane i
+    plus lane i + half), then the eight warp sums added left to right."""
+    v = t.reshape(*t.shape[:-1], NWARP, WARP)
+    half = WARP // 2
+    while half:
+        v = v[..., :half] + v[..., half : 2 * half]
+        half //= 2
+    acc = v[..., 0, 0]
+    for w in range(1, NWARP):
+        acc = acc + v[..., w, 0]
+    return acc
+
+
+def _strip_masks(
+    inst_T: torch.Tensor,
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    gx: int,
+    tile_lo: int,
+    strip_rows: int,
+) -> torch.Tensor:
+    """The segmented kernels' staging test (`csrc/composite_seg_walk.cuh`,
+    `strip_mask`: the same float32 operations and slack, where only the
+    logarithm may round apart) → (R,) int32: at each segment lane, bit s
+    set where pixel rows [s·strip_rows, (s + 1)·strip_rows) of the lane's
+    tile may hold a live pair (α ≥ 1/255, power ≤ 0) of its instance; 0
+    elsewhere. A kernel warp skips an instance whose bit it lacks."""
+    dev = inst_T.device
+    counts64 = counts.to(torch.int64)
+    tile_of = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), counts64)
+    first = torch.cumsum(counts64, 0) - counts64
+    lane = starts.to(torch.int64)[tile_of] + (
+        torch.arange(tile_of.shape[0], device=dev) - first[tile_of]
+    )
+    d = inst_T[:6, lane]
+    finite = torch.isfinite(d).all(dim=0)
+    x, y, a, b, c, op = d
+    gid = tile_of + tile_lo
+    tx0 = ((gid % gx) * TILE).to(torch.float32)
+    ty0 = ((gid // gx) * TILE).to(torch.float32)
+    tau = 2.0 * (torch.log(op) - LOG_ALPHA_MIN)
+    det = (a.double() * c.double() - b.double() * b.double()).float()
+    eps = CULL_REL * ((a + c) * (a + c) / det)
+    t = (torch.clamp_min(tau, 0.0) + CULL_ABS) / (1.0 - eps)
+    hx = torch.sqrt(t * c / det) * (1.0 + CULL_PAD) + 1.0
+    hy = torch.sqrt(t * a / det) * (1.0 + CULL_PAD) + 1.0
+    zero = torch.zeros((), device=dev)
+    gap_x = torch.maximum(torch.maximum(tx0 - x, x - (tx0 + (TILE - 1))), zero)
+    in_x = ~(gap_x > hx)
+    m = torch.zeros_like(tile_of, dtype=torch.int32)
+    for s in range(TILE // strip_rows):
+        lo = ty0 + s * strip_rows
+        gap_y = torch.maximum(torch.maximum(lo - y, y - (lo + (strip_rows - 1))), zero)
+        m |= (in_x & (gap_y <= hy)).to(torch.int32) << s
+    every = (1 << (TILE // strip_rows)) - 1
+    # the kernel's early returns, the first one checked applied last
+    m = torch.where(~((a > 0) & (c > 0) & (det > 0)) | ~(eps < 0.5), every, m)
+    m = torch.where(tau < TAU_FLOOR, 0, m)
+    m = torch.where(~(op > 0), 0, m)
+    m = torch.where(finite, m, every).to(torch.int32)
+    out = torch.zeros(inst_T.shape[1], dtype=torch.int32, device=dev)
+    out[lane] = m
+    return out
+
+
 def _walk_bwd_plain(
     inst_T: torch.Tensor,
     starts: torch.Tensor,
@@ -271,8 +368,8 @@ def _walk_bwd_plain(
     one instance at a time like `_walk_fwd_plain`, recomputing the
     forward's transmittances and stop decisions with the kernels' per-pair
     operations in their order; each instance's nine partials are summed
-    over the tile's pixels (in another order than the kernels' warp sums)
-    and written at its lane of a zero array shaped like ``inst_T``."""
+    over the tile's pixels in the kernels' order (`_pixel_sum`) and written
+    at its lane of a zero array shaped like ``inst_T``."""
     dev = inst_T.device
     num_tiles = counts.shape[0]
     dinst = torch.zeros_like(inst_T)
@@ -306,13 +403,10 @@ def _walk_bwd_plain(
         dl_da = n_excl * u - (dl_cf - wu_acc) / one_m
         v = dl_da * op_g  # the 0.99 clamp is ignored, as in the reference
         vdx, vdy = v * dx, v * dy
-        sums = [
-            torch.sum(torch.where(gate, t, zero), dim=1)  # over the pixels → (T,)
-            for t in (
-                vdx, vdy, vdx * dx, vdx * dy, vdy * dy, dl_da * gauss,
-                dlr * w, dlg * w, dlb * w,
-            )
-        ]
+        partials = torch.stack(
+            [vdx, vdy, vdx * dx, vdx * dy, vdy * dy, dl_da * gauss, dlr * w, dlg * w, dlb * w]
+        )
+        sums = _pixel_sum(torch.where(gate, partials, zero))  # over the pixels → (9, T)
         A, B, C = d[2, :, 0], d[3, :, 0], d[4, :, 0]
         rows = torch.stack(
             [
