@@ -10,8 +10,9 @@ script exits non-zero:
 1. device — the card's name and power limit (nvidia-smi) and PyTorch's view.
 2. build  — every CUDA kernel of the paths, built from the repository's
    sources in parallel (`omnigs_torch/cuda_build.py`), with nvcc's register
-   and shared-memory report; the segmented kernels #1/#2 may use no stack
-   and spill nothing.
+   and shared-memory report; the compositing kernels #1-#4 (the two
+   sources of each layout, on one walk) may use no stack and spill
+   nothing.
 3. kernel — at full width (1920×960 lonlat, P = 131,072 at SH degree 3):
    the instance slab of one pose through the port's preprocess, binning
    and re-lay; the forward CUDA kernel against its plain PyTorch version on
@@ -31,10 +32,10 @@ script exits non-zero:
    must give bitwise-equal Gaussian gradients.
    seg_compare — when an earlier tree's sources are in
    build/seg_before/omnigs_torch/csrc: kernels #1/#2 built from them and
-   from the present sources with one design element taken out
-   (`omnigs_torch/utils/kernel_variants.py`), every build's output bytes
-   equal to the production build's, ms in turns (earlier sources first and
-   last), each build's ptxas report.
+   from the present sources with one design element of the shared walk
+   taken out (`omnigs_torch/utils/kernel_variants.py`), every build's
+   output bytes equal to the production build's, ms in turns (earlier
+   sources first and last), each build's ptxas report.
 5. render — four serving requests through `render_model` with the
    production config of cfg/lonlat/360roam_lonlat.yaml under
    `torch.inference_mode()`, with the launch counters set to 0 just before
@@ -54,18 +55,21 @@ script exits non-zero:
 8. tile_kernel — the tile-major path (`Tpu.want_ncontrib: 1` on the same
    YAML): the compact slab of pose 0 through the port's preprocess, binning
    (with the survivor-rank payload) and `_build_inst`; the tile-major
-   forward kernel against its plain version (max |Δ| ≤ 1e-4, 99.9th
-   percentile ≤ 1e-5 over image and final_T, n_contrib bitwise), one
+   forward kernel #3 against its plain version bit for bit (image, final_T
+   and n_contrib; and max |Δ| ≤ 1e-4, 99.9th percentile ≤ 1e-5), one
    launch without n_contrib (zeros, the same image bit for bit), times,
-   work counts and bound.
-9. tile_grad — the tile-major backward kernel on that slab against its
-   plain version (the relative bars of `grad`); kernel + scatter reduction
+   work counts, warp-instance pairs visited / live / culled (at the tiles'
+   origins), a digest of the output bytes, bound.
+9. tile_grad — the tile-major backward kernel #4 on that slab against its
+   plain version bit for bit (and the relative bars of `grad`), its warp
+   pairs and digest; kernel + scatter reduction
    bitwise repeatable; the fused backward kernel against its plain version
    (plain backward + scatter reduction) and against backward kernel +
    scatter reduction, the gather reduction against the scatter reduction,
    and all three reductions against the float64 sum of the same rows
    (rtol 2e-3, atol 1e-4 of each row's max |ref|); times and bounds.
-   Then `tile_stages`: the device time of each stage of that render.
+   tile_compare — as seg_compare, for #3 (with n_contrib) and #4 on that
+   slab. Then `tile_stages`: the device time of each stage of that render.
 10. tile_render — four `render_model` requests through the tile-major
    config: the tile-major forward kernel once each (the segmented one never),
    truncated 0, n_contrib's max and mean, image and final_T within 1e-5 of
@@ -102,6 +106,11 @@ script exits non-zero:
    the segmented renders, no kernel launched; one float32 step and the same
    step in float64; both float32 steps (XLA and segmented) hold the float64
    step's Adam moments at rtol 2e-3, atol 2e-4 of each parameter's max.
+   Then `xla_gap`: of the parameter farthest from the float64 step, the
+   Gaussians whose float32 XLA moments miss the JAX bar (rtol 1e-3, atol
+   1e-4·max), and how many of them the two precisions cull differently
+   (radii or rect) or have a pixel in their tiles that stops at another
+   instance (a stop decision); reported, not gated.
 17. reduce, emit, ablate — the port's copies of the benchmark scripts
    (`omnigs_torch/scripts/`), each run through its `main` with the launch
    counters set to 0 just before and read just after, then its kernel
@@ -364,26 +373,27 @@ def _digest(*tensors):
     return h.hexdigest()[:16]
 
 
-def warp_pairs(torch, slab, seg, gx, n_used, gate, strip_rows):
-    """Warp-instance pairs of a segmented kernel whose warps hold
-    ``strip_rows`` pixel rows: (visited — instances up to the last one a
-    pixel of the warp needs, from the plain walk's ``n_used`` —, live — of
-    those, the ones that a pixel of the warp composites, from the plain
-    walk's ``gate`` bits per two rows —, culled — of the visited, the ones
-    whose strip bit the kernels' staging test clears, `_strip_masks`)."""
+def warp_pairs(torch, slab, starts, counts, x0, y0, n_used, gate, strip_rows):
+    """Warp-instance pairs of a compositing kernel whose warps hold
+    ``strip_rows`` pixel rows, on tiles at pixel origins ``x0``, ``y0``:
+    (visited — instances up to the last one a pixel of the warp needs, from
+    the plain walk's ``n_used`` —, live — of those, the ones that a pixel of
+    the warp composites, from the plain walk's ``gate`` bits per two rows
+    —, culled — of the visited, the ones whose strip bit the kernels'
+    staging test clears, `_strip_masks`)."""
     from omnigs_torch.ops import composite_seg as cs
 
     num_tiles = n_used.shape[0]
     nw = 16 // strip_rows
     dev = slab.device
-    counts = seg.counts.to(torch.int64)
-    tile_of = torch.repeat_interleave(torch.arange(num_tiles, device=dev), counts)
-    pos = torch.arange(tile_of.shape[0], device=dev) - (torch.cumsum(counts, 0) - counts)[tile_of]
-    lane = seg.starts8.to(torch.int64)[tile_of] + pos
+    counts64 = counts.to(torch.int64)
+    tile_of = torch.repeat_interleave(torch.arange(num_tiles, device=dev), counts64)
+    pos = torch.arange(tile_of.shape[0], device=dev) - (torch.cumsum(counts64, 0) - counts64)[tile_of]
+    lane = starts.to(torch.int64)[tile_of] + pos
     need = n_used.reshape(num_tiles, nw, -1).amax(dim=2)
     visited = pos[:, None] < need[tile_of]  # (L, warps)
     w = torch.arange(nw, device=dev)
-    mask = cs._strip_masks(slab, seg.starts8, seg.counts, gx, 0, strip_rows)[lane]
+    mask = cs._strip_masks(slab, starts, counts, x0, y0, strip_rows)[lane]
     kept = ((mask[:, None] >> w) & 1).bool()
     per = strip_rows // cs.BWD_STRIP  # gate bits per strip
     g = gate[lane][:, None] >> (w * per)
@@ -404,6 +414,7 @@ def segment_spread(torch, counts):
 
 def kernel_phase(torch, model, camera, pose, cfg):
     from omnigs_torch.ops import composite_seg as cs
+    from omnigs_torch.ops import composite_tile as ct
 
     vm, campos = pose
     with torch.inference_mode():
@@ -421,7 +432,9 @@ def kernel_phase(torch, model, camera, pose, cfg):
         bitwise_plain = bool(torch.equal(kc, pc) and torch.equal(kt, pt))
         finite = bool(torch.isfinite(kc).all() and torch.isfinite(kt).all())
         digest = _digest(kc, kt)
-        pairs = {rows: warp_pairs(torch, slab, seg, gx, n_used, gate, rows)
+        x0, y0 = ct.tile_origins(gx, num_tiles // gx, slab.device)
+        pairs = {rows: warp_pairs(torch, slab, seg.starts8, seg.counts, x0, y0, n_used,
+                                  gate, rows)
                  for rows in (cs.FWD_STRIP, cs.BWD_STRIP)}
         del gate, pc, pt
         kernel_ms = time_ms(torch, lambda: cs.composite_seg_fwd(*args), reps=20)
@@ -573,14 +586,30 @@ def grad_phase(torch, kres, slab_data):
     return result, (color_full, dcolor)
 
 
+def _compare_line(phase, res, refs):
+    """Emit a `kernel_variants` comparison with each kernel's bound and
+    production digest (``refs``: kernel → its phase result); raise unless
+    every build gave the production build's bytes."""
+    line = {"phase": phase, "before": str(SEG_BEFORE.relative_to(REPO)),
+            "order": res.pop("order")}
+    for kernel, ref in refs.items():
+        line[kernel] = {"bound_ms": ref["bound_ms"], "digest_new": ref["digest"],
+                        **res[kernel]}
+    emit(line)
+    bad = [f"{k}/{v}" for k in res for v, r in res[k].items() if not r["bytes_equal_new"]]
+    if bad:
+        raise RuntimeError(f"builds whose output bytes differ from the production build: {bad}")
+    return line
+
+
 def seg_compare_phase(torch, slab_data, kres, gres, grad_inputs):
     """Kernels #1/#2 of the earlier sources in ``SEG_BEFORE`` (when that copy
-    exists) and of the present sources with one design element of
-    `csrc/composite_seg_walk.cuh` taken out, against the production build
-    on the kernel/grad slab (`omnigs_torch/utils/kernel_variants.py`): every
-    build's output bytes must equal the production build's; ms in turns
-    (earlier sources first and last), ptxas per build, the unchanged
-    bound."""
+    exists) and of the present sources with one design element of the
+    shared walk `csrc/composite_seg_walk.cuh` taken out, against the
+    production build on the kernel/grad slab
+    (`omnigs_torch/utils/kernel_variants.py`): every build's output bytes
+    must equal the production build's; ms in turns (earlier sources first
+    and last), ptxas per build, the unchanged bound."""
     if not SEG_BEFORE.is_dir():
         emit({"phase": "seg_compare", "before": None})
         return None
@@ -590,16 +619,8 @@ def seg_compare_phase(torch, slab_data, kres, gres, grad_inputs):
     color_full, dcolor = grad_inputs
     res = kv.compare_seg(SEG_BEFORE, slab, seg.starts8, seg.counts, color_full, dcolor,
                          kres["tiles"], kres["gx"])
-    line = {"phase": "seg_compare", "before": str(SEG_BEFORE.relative_to(REPO)),
-            "order": res.pop("order")}
-    for kernel, ref in (("composite_seg_fwd", kres), ("composite_seg_bwd", gres)):
-        line[kernel] = {"bound_ms": ref["bound_ms"], "digest_new": ref["digest"],
-                        **res[kernel]}
-    emit(line)
-    bad = [f"{k}/{v}" for k in res for v, r in res[k].items() if not r["bytes_equal_new"]]
-    if bad:
-        raise RuntimeError(f"builds whose output bytes differ from the production build: {bad}")
-    return line
+    return _compare_line("seg_compare", res,
+                         {"composite_seg_fwd": kres, "composite_seg_bwd": gres})
 
 
 def render_phase(torch, model, camera, pose_list, cfg):
@@ -949,9 +970,10 @@ def _plain_ms(torch, fn):
 
 
 def tile_kernel_phase(torch, model, camera, pose, cfg):
-    """The tile-major forward kernel against its plain version on pose 0's
-    compact slab; n_contrib bitwise; a launch without n_contrib; times,
-    work counts and bound."""
+    """The tile-major forward kernel #3 against its plain version on pose
+    0's compact slab, bit for bit (n_contrib included); a launch without
+    n_contrib; times, work counts, warp pairs, digest and bound."""
+    from omnigs_torch.ops import composite_seg as cs
     from omnigs_torch.ops import composite_tile as ct
 
     vm, campos = pose
@@ -962,19 +984,26 @@ def tile_kernel_phase(torch, model, camera, pose, cfg):
         kc, kt, kn = ct.composite_tile_fwd(*args, True)
         k0c, k0t, k0n = ct.composite_tile_fwd(*args, False)
         torch.cuda.synchronize()
+        gate = torch.zeros(d["slab"].shape[1], dtype=torch.int32, device=kc.device)
         (pc, pt, pn, n_used, n_live), plain_ms = _plain_ms(
-            torch, lambda: ct.composite_tile_fwd_plain(*args, True)
+            torch, lambda: ct.composite_tile_fwd_plain(*args, True, warp_gate=gate)
         )
         diff = torch.cat([(kc - pc).abs().flatten(), (kt - pt).abs().flatten()])
         max_err = float(diff.max())
         p999 = float(torch.sort(diff).values[int(0.999 * (diff.numel() - 1))])
+        bitwise_plain = bool(torch.equal(kc, pc) and torch.equal(kt, pt))
         nc_equal = bool(torch.equal(kn, pn))
         nc_off_ok = bool(
             not k0n.any() and torch.equal(k0c, kc) and torch.equal(k0t, kt)
         )
         finite = bool(torch.isfinite(kc).all() and torch.isfinite(kt).all())
-        kernel_ms = time_ms(torch, lambda: ct.composite_tile_fwd(*args, True), reps=3)
-        kernel_ms_off = time_ms(torch, lambda: ct.composite_tile_fwd(*args, False), reps=3)
+        digest = _digest(kc, kt, kn)
+        pairs = {rows: warp_pairs(torch, d["slab"], inst.starts, inst.counts, d["x0"],
+                                  d["y0"], n_used, gate, rows)
+                 for rows in (cs.FWD_STRIP, cs.BWD_STRIP)}
+        del gate, pc, pt, pn
+        kernel_ms = time_ms(torch, lambda: ct.composite_tile_fwd(*args, True), reps=20)
+        kernel_ms_off = time_ms(torch, lambda: ct.composite_tile_fwd(*args, False), reps=20)
     visited = int(n_used.to(torch.int64).sum())
     live = int(n_live.to(torch.int64).sum())
     instances = int(inst.counts.to(torch.int64).sum())
@@ -992,10 +1021,13 @@ def tile_kernel_phase(torch, model, camera, pose, cfg):
         "max_count": int(inst.counts.max()),
         "visited_pairs": visited,
         "live_pairs": live,
+        **pairs[cs.FWD_STRIP],
+        **segment_spread(torch, inst.counts),
         "ops": ops,
         "bytes": nbytes,
         "max_abs_err": max_err,
         "p999_abs_err": p999,
+        "bitwise_equal_plain": bitwise_plain,
         "n_contrib_bitwise": nc_equal,
         "n_contrib_max": int(kn.max()),
         "no_ncontrib_zeros_and_same_image": nc_off_ok,
@@ -1004,19 +1036,22 @@ def tile_kernel_phase(torch, model, camera, pose, cfg):
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "digest": digest,
     }
     emit(result)
     if not finite:
         raise RuntimeError("tile-major kernel output is not finite")
-    if max_err > MAX_ERR_BAR or p999 > P999_ERR_BAR:
+    if max_err > MAX_ERR_BAR or p999 > P999_ERR_BAR or not bitwise_plain:
         raise RuntimeError(
             f"tile-major kernel disagrees with its plain version: max {max_err:.3g} "
-            f"(bar {MAX_ERR_BAR}), p99.9 {p999:.3g} (bar {P999_ERR_BAR})"
+            f"(bar {MAX_ERR_BAR}), p99.9 {p999:.3g} (bar {P999_ERR_BAR}), "
+            f"bitwise equal {bitwise_plain}"
         )
     if not nc_equal or not nc_off_ok:
         raise RuntimeError("n_contrib differs from the plain version's, or the "
                            "launch without it is not zeros with the same image")
     d["color"] = kc
+    d["pairs"] = pairs[cs.BWD_STRIP]
     return result, d
 
 
@@ -1055,10 +1090,12 @@ def tile_grad_phase(torch, kres, d):
         max_rel = float(rel.max())
         p999 = float(torch.sort(rel.flatten()).values[int(0.999 * (rel.numel() - 1))])
         max_abs = float((got[: ct.NGRAD] - ref[: ct.NGRAD]).abs().max())
+        bitwise_plain = bool(torch.equal(got, ref))
         outside_zero = bool((got[:, ~lanes] == 0).all() and (got[ct.NGRAD:] == 0).all())
         finite = bool(torch.isfinite(got).all())
+        digest = _digest(got)
         del ref, rel
-        kernel_ms = time_ms(torch, lambda: ct.composite_tile_bwd(*args), reps=3)
+        kernel_ms = time_ms(torch, lambda: ct.composite_tile_bwd(*args), reps=20)
 
         def scatter(dinst):
             return ct._scatter_reduce(dinst, inst.sorted_g, d["live"], P)
@@ -1112,16 +1149,21 @@ def tile_grad_phase(torch, kres, d):
         "name": "composite_tile_bwd",
         "tiles": num_tiles,
         "segment_instances": instances,
+        "visited_pairs": kres["visited_pairs"],
+        "live_pairs": kres["live_pairs"],
+        **d["pairs"],
         "ops": pair_ops,
         "bytes": bwd_bytes,
         "max_abs_err": max_abs,
         "max_rel_err": max_rel,
         "p999_rel_err": p999,
+        "bitwise_equal_plain": bitwise_plain,
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "bitwise_repeat": bitwise,
+        "digest": digest,
         "scatter_reduce_ms": reduce_ms,
         "gather_reduce_ms": gather_ms,
         "gather_vs_scatter_tol_ratio": gather_err,
@@ -1144,10 +1186,11 @@ def tile_grad_phase(torch, kres, d):
     if not finite or not outside_zero or not fused_finite:
         raise RuntimeError("tile-major backward: non-finite rows or nonzero lanes "
                            "outside the segments")
-    if max_rel > MAX_ERR_BAR or p999 > P999_ERR_BAR:
+    if max_rel > MAX_ERR_BAR or p999 > P999_ERR_BAR or not bitwise_plain:
         raise RuntimeError(
             f"tile-major backward disagrees with its plain version: max {max_rel:.3g} "
-            f"(bar {MAX_ERR_BAR}), p99.9 {p999:.3g} (bar {P999_ERR_BAR}), relative"
+            f"(bar {MAX_ERR_BAR}), p99.9 {p999:.3g} (bar {P999_ERR_BAR}), relative; "
+            f"bitwise equal {bitwise_plain}"
         )
     if not bitwise:
         raise RuntimeError("tile-major kernel + reduction is not bitwise repeatable")
@@ -1158,7 +1201,26 @@ def tile_grad_phase(torch, kres, d):
             f"{fused_plain_err:.3g}, fused vs kernel + scatter {fused_err:.3g}, vs "
             f"float64 {vs_f64} of the bar (rtol {REDUCE_RTOL}, atol {REDUCE_ATOL}·max)"
         )
-    return result
+    return result, (color_full, dcolor)
+
+
+def tile_compare_phase(torch, d, tk, tg, grad_inputs):
+    """Kernels #3/#4 of the earlier sources in ``SEG_BEFORE`` (when that
+    copy exists) and of the present sources with one design element of the
+    shared walk taken out, against the production build on the tile_kernel
+    / tile_grad slab (`kernel_variants.compare_tile`), as
+    `seg_compare_phase`."""
+    if not SEG_BEFORE.is_dir():
+        emit({"phase": "tile_compare", "before": None})
+        return None
+    from omnigs_torch.utils import kernel_variants as kv
+
+    inst = d["inst"]
+    color_full, dcolor = grad_inputs
+    res = kv.compare_tile(SEG_BEFORE, d["slab"], inst.starts, inst.counts, d["x0"], d["y0"],
+                          color_full, dcolor, d["num_tiles"])
+    return _compare_line("tile_compare", res,
+                         {"composite_tile_fwd": tk, "composite_tile_bwd": tg})
 
 
 def tile_stage_phase(torch, model, camera, pose, cfg, reps=3):
@@ -1631,16 +1693,22 @@ def _step(torch, fields, camera, pose_list, gt, rcfg):
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
-def _mu_ratio(torch, got, ref, rtol, atol):
-    """Per parameter: max |got − ref| / (atol·max|ref| + rtol·|ref|) of the
-    Adam first moments (0.1·gradient after one step); ≤ 1 passes."""
+def _mu_rows(torch, got, ref, rtol, atol):
+    """Per parameter, per Gaussian: max |got − ref| / (atol·max|ref| +
+    rtol·|ref|) of the Adam first moments (0.1·gradient after one step);
+    ≤ 1 passes."""
     out = {}
     for k in ref:
         r, g = ref[k].reshape(P, -1), got[k].reshape(P, -1)
         tol = atol * r.abs().max() + rtol * r.abs()
         err = (g - r).abs()
-        out[k] = float(torch.where(err == 0, 0.0, err / tol).max())
+        out[k] = torch.where(err == 0, 0.0, err / tol).amax(dim=1)
     return out
+
+
+def _mu_ratio(torch, got, ref, rtol, atol):
+    """Per parameter: the largest of `_mu_rows`."""
+    return {k: float(v.max()) for k, v in _mu_rows(torch, got, ref, rtol, atol).items()}
 
 
 def layout_steps(torch, model, camera, pose_list, cfg):
@@ -1747,6 +1815,127 @@ def _screen_grads(torch, model, camera, pose, rcfg):
     return dict(zip(names, grads))
 
 
+def _xla_decisions(torch, a, b, gx, gy, xcfg):
+    """The XLA compositor's decisions (`rasterize._composite_tiles_fwd_impl`)
+    on ``a``'s dense binning, from two preprocessings ``a`` and ``b`` of
+    the same model (float32 and float64) → (stop_a, stop_b, alpha_flip):
+    per pixel (T, PX int64) the Gaussian at which each stops — its first
+    live instance whose inclusive transmittance falls below T_STOP —, or
+    -1 where it composites to the end; and (P,) bool the Gaussians with a
+    pair that is live (α ≥ 1/255) in one precision only."""
+    from omnigs_torch.ops.binning import bin_gaussians
+    from omnigs_torch.ops.rasterize import T_STOP, _chunk_geometry, _chunks, _tile_pixel_coords
+
+    dev = a.means2d.device
+    binned = bin_gaussians(a, gx, gy, xcfg.max_instances, xcfg.tile_cap)
+    pix = _tile_pixel_coords(gx, gy, dev)
+    preps = (a, b)
+    n = [torch.ones(gx * gy, pix.shape[1], dtype=p.means2d.dtype, device=dev) for p in preps]
+    stop = [torch.full(n[0].shape, -1, dtype=torch.int64, device=dev) for _ in preps]
+    flip = torch.zeros(P + 1, dtype=torch.bool, device=dev)
+    for _, ids, msk in _chunks(binned.tile_ids, binned.tile_mask, xcfg.chunk):
+        lives = []
+        for k, prep in enumerate(preps):
+            alpha, live, *_ = _chunk_geometry(ids, msk, prep.means2d, prep.conic,
+                                              prep.opacity, pix)
+            n_incl = n[k][..., None] * torch.cumprod(1.0 - alpha, dim=-1)
+            fail = live & ~(n_incl >= T_STOP)
+            first = fail.to(torch.int8).argmax(dim=-1)
+            stop[k] = torch.where(fail.any(dim=-1) & (stop[k] < 0), ids.gather(1, first),
+                                  stop[k])
+            n[k] = n_incl[..., -1]
+            lives.append(live)
+        flip[torch.where((lives[0] != lives[1]).any(dim=1), ids, P)] = True
+    return stop[0], stop[1], flip[:P]
+
+
+def xla_gap(torch, fields, wide, camera, pose, xcfg, steps32, exact):
+    """Which Gaussians carry the float32 steps' distance from the float64
+    step. For the parameter whose float32 XLA moments lie farthest from
+    the float64 step's (in units of the JAX bar, rtol 1e-3, atol
+    1e-4·max): the Gaussians that miss the bar, and how many of them flip a
+    decision between the precisions — `preprocess` culls them differently
+    (radii or rect), a pair of theirs is live (α ≥ 1/255) in one precision
+    only, or a tile of theirs has a pixel whose XLA compositor stops at
+    another Gaussian (`_xla_decisions`; also how many are themselves the
+    Gaussian at which such a pixel stops) —; and per float32 step the bar
+    ratio over the Gaussians with no flip."""
+    from omnigs_torch.model.gaussians import GaussianModel
+    from omnigs_torch.ops.preprocess import preprocess, tile_grid
+
+    vm, campos = pose
+    gx, gy = tile_grid(camera)
+    preps = []
+    for f in (fields, wide):
+        m = GaussianModel.from_numpy(f, device=vm.device)
+        dt = m.xyz.dtype
+        with torch.no_grad():
+            preps.append(preprocess(
+                m.xyz, m.get_scaling(), m.get_rotation(), m.get_opacity(),
+                m.get_features(), camera, vm.to(dt), campos.to(dt), SH_DEGREE,
+                active_mask=m.active, tight_culling=xcfg.tight_culling,
+            ))
+    a, b = preps
+    cull = (a.radii != b.radii) | (a.rect != b.rect).any(dim=-1)
+    s32, s64, alpha = _xla_decisions(torch, a, b, gx, gy, xcfg)
+    moved = s32 != s64
+    stop_tiles = moved.any(dim=1).reshape(gy, gx)
+    # the Gaussians at which a moved stop lies, in either precision
+    own = torch.zeros(P + 1, dtype=torch.bool, device=vm.device)
+    own[torch.cat([s32[moved], s64[moved]]) % (P + 1)] = True  # -1 (none) → P
+    own = own[:P]
+    csum = torch.zeros(gy + 1, gx + 1, dtype=torch.int64, device=vm.device)
+    csum[1:, 1:] = stop_tiles.to(torch.int64).cumsum(0).cumsum(1)
+
+    def hits(rect):
+        x0, y0, x1, y1 = rect.to(torch.int64).unbind(-1)
+        return (csum[y1, x1] - csum[y0, x1] - csum[y1, x0] + csum[y0, x0]) > 0
+
+    stop = hits(a.rect) | hits(b.rect)
+    flipped = cull | alpha | stop
+    rows = {k: _mu_rows(torch, s["mu"], exact["mu"], XLA_GRAD_RTOL, XLA_GRAD_ATOL)
+            for k, s in steps32.items()}
+    name = max(rows["xla"], key=lambda k: float(rows["xla"][k].max()))
+    miss = rows["xla"][name] > 1.0
+    got = steps32["xla"]["mu"][name].reshape(P, -1)
+    ref = exact["mu"][name].reshape(P, -1)
+    tol = XLA_GRAD_ATOL * ref.abs().max() + XLA_GRAD_RTOL * ref.abs()
+    worst = ((got - ref).abs() / tol).argmax(dim=1)
+    ca, cb, cc = b.conic.unbind(-1)
+    kappa = (ca + cc) ** 2 / (ca * cc - cb * cb)  # the float64 conic's condition
+    miss_detail = [
+        [i, float(got[i, worst[i]]), float(ref[i, worst[i]]),
+         float(ref[i].abs().max() / ref.abs().max()), float(rows["xla"][name][i]),
+         float(kappa[i]), int(b.radii[i])]
+        for i in torch.nonzero(miss).flatten()[:20].tolist()
+    ]
+    line = {
+        "phase": "xla_gap", "param": name, "bar": [XLA_GRAD_RTOL, XLA_GRAD_ATOL],
+        "xla_ratio": float(rows["xla"][name].max()),
+        "misses": int(miss.sum()),
+        "misses_cull_flipped": int((miss & cull).sum()),
+        "misses_alpha_flipped": int((miss & alpha).sum()),
+        "misses_stop_flipped": int((miss & stop).sum()),
+        "misses_neither": int((miss & ~flipped).sum()),
+        "misses_own_stop_moved": int((miss & own).sum()),
+        "neither_ids": torch.nonzero(miss & ~flipped).flatten()[:20].tolist(),
+        # each miss: id, its float32 and float64 moment where farthest over
+        # the bar, its largest |float64 moment| / the parameter's max, ratio,
+        # (A + C)^2 / det of its float64 conic, radius
+        "miss_detail": miss_detail,
+        "gaussians_cull_flipped": int(cull.sum()),
+        "gaussians_alpha_flipped": int(alpha.sum()),
+        "gaussians_stop_flipped": int(stop.sum()),
+        "tiles_stop_flipped": int(stop_tiles.sum()),
+        "pixels_stop_moved": int(moved.sum()),
+        "ratio_without_flips": {
+            k: float(torch.where(flipped, 0.0, r[name]).max()) for k, r in rows.items()
+        },
+    }
+    emit(line)
+    return line
+
+
 def xla_phase(torch, np, model, camera, pose_list, cfg, seg_renders, steps):
     """`backend="xla"` (the dense per-tile layout and the chunked plain
     compositor, no kernel) at tile_cap 1024, chunk 32: two requests against
@@ -1755,7 +1944,7 @@ def xla_phase(torch, np, model, camera, pose_list, cfg, seg_renders, steps):
     the float32 XLA and segmented steps' Adam moments are each held against
     the float64 step's at twice the JAX package's Pallas-vs-XLA bars, their
     losses within 1e-5 of each other; and the compositor's own gradients
-    against the segmented compositor's at those bars."""
+    against the segmented compositor's at those bars. Then `xla_gap`."""
     from omnigs_torch.ops.rasterize import RasterConfig
 
     xcfg = RasterConfig(max_instances=cfg.max_instances, tile_cap=1024, chunk=32,
@@ -1784,6 +1973,8 @@ def xla_phase(torch, np, model, camera, pose_list, cfg, seg_renders, steps):
           "mu_vs_float64_tol_ratio": vs_float64,
           "mu_vs_segmented_tol_ratio": ratio,
           "compositor_grads_vs_segmented_tol_ratio": grad_ratio})
+    xla_gap(torch, fields, wide, camera, pose_list[0], xcfg,
+            {"xla": st, "segmented": seg_step}, exact)
     if max(x["vs_segmented_tol_ratio"] for x in lines) > 1.0:
         raise RuntimeError("xla renders off the segmented ones beyond the bar")
     if any(launches.values()) or any(st["launches"].values()) or any(
@@ -1964,7 +2155,9 @@ def main() -> int:
     cuda_build.build(sources)  # one nvcc per source, all in parallel
     report = {k: cuda_build.BUILD_REPORT.get(k, "cached") for k in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "report": report})
-    for k in ("composite_seg_fwd", "composite_seg_bwd"):
+    # kernels #1-#4 (and #5, which shares #4's source)
+    for k in ("composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
+              "composite_tile_bwd"):
         if report[k] != "cached" and not ptxas_clean(report[k]["ptxas"]):
             raise RuntimeError(f"{k}: ptxas reports stack or spills: {report[k]['ptxas']}")
 
@@ -1990,8 +2183,9 @@ def main() -> int:
     if tcfg.segmented or not tcfg.want_ncontrib:
         raise RuntimeError(f"Tpu.want_ncontrib: 1 did not select the tile-major path: {tcfg}")
     tk, tdata = tile_kernel_phase(torch, model, camera, pose_list[0], tcfg)
-    tg = tile_grad_phase(torch, tk, tdata)
-    del tdata
+    tg, tile_grad_inputs = tile_grad_phase(torch, tk, tdata)
+    tile_compare_phase(torch, tdata, tk, tg, tile_grad_inputs)
+    del tdata, tile_grad_inputs
     tile_stage_phase(torch, model, camera, pose_list[0], tcfg)
     tile_launches = tile_render_phase(torch, model, camera, pose_list, tcfg, renders)
     ttr, tile_train_launches = tile_train_phase(torch, scene, "cuda", seg_loss)

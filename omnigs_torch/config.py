@@ -95,7 +95,9 @@ class TpuParams:
     max_instances: int = 1 << 22
     tile_cap: int = 1024
     chunk: int = 64
-    backend: str = "pallas"  # "pallas": the kernel path | "xla" (unported)
+    # "pallas": the CUDA kernel path | "xla": the dense plain-PyTorch
+    # compositor (`rasterize._CompositeTiles`)
+    backend: str = "pallas"
     tight_culling: bool = True
     tile_culling: bool = True  # exact ellipse-box culling (pallas backend)
     aligned_cap: int = 0  # live-slab cap; 0 = uncapped (never drops tiles)

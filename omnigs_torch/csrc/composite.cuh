@@ -1,11 +1,8 @@
-// The per-tile compositing walks of the tile-major kernels for Hopper
-// (sm_90a): composite_tile_fwd.cu and composite_tile_bwd.cu (the compact
-// layout, kernels #3, #4, #5). The kernels differ only in where a tile's
-// segment starts and how its pixel origin is found; the walk over the
-// segment is this file's. The segmented kernels (#1, #2) run the same
-// per-pair arithmetic on the walk of composite_seg_walk.cuh, which also
-// takes its constants from here; their outputs equal this walk's bit for
-// bit.
+// The per-tile compositing math of the five compositing kernels for Hopper
+// (sm_90a), their constants, and the walk of kernel #5 (the fused
+// tile-major backward, composite_tile_bwd.cu, second launcher). Kernels
+// #1-#4 run the walk of composite_seg_walk.cuh, with this arithmetic in this
+// order; their outputs equal this walk's bit for bit.
 //
 // Tile t composites the depth-sorted instances of its segment [start,
 // start + n) of the (16, rpad) instance slab (rows x, y, A, B, C, opacity,
@@ -21,14 +18,15 @@
 //   live instance that does not (transmittance only falls from there)
 //   color += rgb alpha N_excl, log_T += log1p(-alpha) when compositing
 //
-// One 256-thread block per tile, one thread per pixel; instances are
-// staged in batches through shared memory (row-major slab rows, so each
-// staging load is coalesced; threads then read each instance as a shared
-// memory broadcast), and the block stops reading once every pixel of the
-// tile has stopped (__syncthreads_count). Transmittance is carried in the
-// log domain. Built with --fmad=false, so every mul/add rounds as the plain
-// PyTorch versions' elementwise ops do and the forward and backward walks
-// make the same stop decisions.
+// #5's walk: one 256-thread block per tile, one thread per pixel;
+// instances are staged in batches through shared memory (row-major slab
+// rows, so each staging load is coalesced; threads then read each instance
+// as a shared memory broadcast), every warp visits every instance, and the
+// block stops reading once every pixel of the tile has stopped
+// (__syncthreads_count). Transmittance is carried in the log domain. Built
+// with --fmad=false, so every mul/add rounds as the plain PyTorch versions'
+// elementwise ops do and the forward and backward walks make the same stop
+// decisions.
 
 #pragma once
 
@@ -50,72 +48,6 @@ constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float T_STOP = 1.0e-4f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// What the forward walk leaves in one pixel's thread.
-struct FwdPixel {
-  float r, g, b;  // sum of rgb alpha N_excl over the composited instances
-  float log_t;    // sum of log1p(-alpha) over them
-  int nc;         // the last k + 1 at which it composited (WANT_NC only)
-};
-
-// The forward walk of the calling thread's pixel over the block's segment.
-template <bool WANT_NC>
-__device__ __forceinline__ FwdPixel composite_fwd_walk(
-    const float* __restrict__ inst, long long rpad, long long start, int n,
-    float px, float py) {
-  __shared__ float stage[NSTAGE][FWD_BATCH];
-  const int tid = threadIdx.x;
-  FwdPixel o{0.f, 0.f, 0.f, 0.f, 0};
-  bool done = false;
-  for (int base = 0; base < n; base += FWD_BATCH) {
-    const int m = min(FWD_BATCH, n - base);
-    for (int k = tid; k < NSTAGE * FWD_BATCH; k += PX) {
-      const int row = k / FWD_BATCH;
-      const int j = k % FWD_BATCH;
-      stage[row][j] = j < m ? inst[row * rpad + start + base + j] : 0.f;
-    }
-    __syncthreads();
-    if (!done) {
-      for (int j = 0; j < m; ++j) {
-        const float dx = stage[0][j] - px;
-        const float dy = stage[1][j] - py;
-        const float power =
-            -0.5f * (stage[2][j] * dx * dx + stage[4][j] * dy * dy) -
-            stage[3][j] * dx * dy;
-        const float alpha =
-            fminf(stage[5][j] * expf(fminf(power, 0.f)), ALPHA_MAX);
-        if (!(power <= 0.f && alpha >= ALPHA_MIN)) continue;
-        const float l = log1pf(-alpha);
-        const float n_excl = expf(o.log_t);
-        if (!(n_excl * (1.f - alpha) >= T_STOP)) {
-          done = true;
-          break;
-        }
-        const float w = alpha * n_excl;
-        o.r += stage[6][j] * w;
-        o.g += stage[7][j] * w;
-        o.b += stage[8][j] * w;
-        o.log_t += l;
-        if constexpr (WANT_NC) o.nc = base + j + 1;
-      }
-    }
-    // also the barrier before the next batch overwrites the stage
-    if (__syncthreads_count(!done) == 0) break;
-  }
-  return o;
-}
-
-// Writes one pixel's color (T, 3, 256) and final_T = exp(log_T) (T, 256).
-__device__ __forceinline__ void store_fwd(const FwdPixel& o, int tile,
-                                          float* __restrict__ color,
-                                          float* __restrict__ final_t) {
-  const int tid = threadIdx.x;
-  float* c = color + static_cast<long long>(tile) * 3 * PX + tid;
-  c[0] = o.r;
-  c[PX] = o.g;
-  c[2 * PX] = o.b;
-  final_t[static_cast<long long>(tile) * PX + tid] = expf(o.log_t);
-}
-
 // The backward walk. For every instance i of the block's segment, given
 // color_full (T, 3, 256), the forward color with bg * final_T blended in,
 // and dL = dL/dcolor_full (T, 3, 256):
@@ -130,10 +62,9 @@ __device__ __forceinline__ void store_fwd(const FwdPixel& o, int tile,
 //     dA = -1/2 sum V dx^2, dB = -sum V dx dy, dC = -1/2 sum V dy^2
 //     dop = sum dL/dalpha G, drgb = sum dL w
 //
-// FUSED = false: the nine rows go to the instance's own lane of out (16,
-// rpad); each lane belongs to exactly one tile, so every lane is written by
-// one block, without atomics, and the result is deterministic. FUSED =
-// true: they are added with atomicAdd into row ids[lane] of out (p, 9).
+// The nine rows are added with atomicAdd into row ids[lane] of out (p, 9)
+// (kernel #5; kernel #4 writes the same rows at their lanes, through
+// composite_seg_walk.cuh's bwd_walk).
 //
 // Each thread carries its pixel's log-T, the running sum of w u, dL and
 // dL . color_full through ONE forward walk (color_full is saved by the
@@ -142,7 +73,6 @@ __device__ __forceinline__ void store_fwd(const FwdPixel& o, int tile,
 // written, when __any_sync finds no pixel of the warp composites it), and
 // after the batch one thread per instance sums the eight warp partials in
 // warp order.
-template <bool FUSED>
 __device__ __forceinline__ void composite_bwd_walk(
     const float* __restrict__ inst, long long rpad, long long start, int n,
     float px, float py, int tile, const float* __restrict__ color_full,
@@ -254,16 +184,11 @@ __device__ __forceinline__ void composite_bwd_walk(
       rows[7] = sum[7];
       rows[8] = sum[8];
       const long long at = start + base + tid;
-      if constexpr (FUSED) {
-        const int id = at < n_ids ? ids[at] : -1;
-        if (id >= 0 && id < p) {
-          float* row = out + static_cast<long long>(id) * NGRAD;
+      const int id = at < n_ids ? ids[at] : -1;
+      if (id >= 0 && id < p) {
+        float* row = out + static_cast<long long>(id) * NGRAD;
 #pragma unroll
-          for (int q = 0; q < NGRAD; ++q) atomicAdd(row + q, rows[q]);
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < NGRAD; ++q) out[q * rpad + at] = rows[q];
+        for (int q = 0; q < NGRAD; ++q) atomicAdd(row + q, rows[q]);
       }
     }
     // also the barrier before the next batch overwrites stage and red

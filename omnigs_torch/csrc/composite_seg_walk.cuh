@@ -1,9 +1,13 @@
-// The per-tile compositing walks of the segmented kernels for Hopper
-// (sm_90a): composite_seg_fwd.cu (forward) and composite_seg_bwd.cu
-// (backward). The per-pair arithmetic, its order and its rounding are those
-// of composite.cuh (which the tile-major kernels still run) and of the plain
-// PyTorch versions (composite_seg._walk_fwd_plain / _walk_bwd_plain), so
-// every output bit is theirs; what differs is which work is done.
+// The per-tile compositing walks for Hopper (sm_90a) of kernels #1-#4: the
+// segmented kernels composite_seg_fwd.cu / composite_seg_bwd.cu and the
+// tile-major kernels composite_tile_fwd.cu / composite_tile_bwd.cu (first
+// launcher). A kernel only places its tile -- the pixel origin (tx0, ty0),
+// the segment [start, start + n) of the (16, rpad) instance slab and the
+// tile's index into the (T, ...) pixel arrays -- and calls fwd_walk or
+// bwd_walk. The per-pair arithmetic, its order and its rounding are those
+// of composite.cuh (which kernel #5 still runs) and of the plain PyTorch
+// versions (composite_seg._walk_fwd_plain / _walk_bwd_plain), so every
+// output bit is theirs; what differs is which work is done.
 //
 // 1. Strip masks at staging. While a batch of instances is staged into
 //    shared memory, the thread that loads instance j also decides, once, in
@@ -13,7 +17,8 @@
 //    one ballot and visits the set ones in order, so a dead instance costs it
 //    nothing. The test is conservative (strip_mask below): a skipped pair is
 //    dead under the kernels' own float arithmetic, so skipping it changes no
-//    bit.
+//    bit. It reads only the instance and the tile origin, so unaligned
+//    segment starts and zero rows (mask 0: opacity 0) change nothing.
 // 2. In the backward, the nine pixel sums of a warp by recursive halving
 //    (warp_sum_halving): 12 shuffles an instance instead of nine butterflies
 //    of five (45). Each addition pairs the same two values as the butterfly
@@ -50,6 +55,7 @@ constexpr int FWD_ROWS = 2;                   // pixel rows per forward thread
 constexpr int FWD_THREADS = PX / FWD_ROWS;    // forward threads per tile
 constexpr int FWD_STRIP = 2 * FWD_ROWS;       // pixel rows per forward warp
 constexpr int BWD_STRIP = 2;                  // pixel rows per backward warp
+constexpr int GROUPS = BWD_BATCH / 32;        // ballots per warp and batch
 
 // Slack of the strip test (strip_mask): a live pair satisfies
 // Q(dx, dy) <= tau + 10u + 4u S in float32, u = 2^-24, where Q = A dx^2 +
@@ -148,9 +154,13 @@ struct FwdPixel {
 
 // One forward pair, as composite.cuh's walk computes it. Returns true when
 // the pixel stops here (its first live instance that fails the T test).
+// With WANT_NC, nc takes k1 (the instance's index in the segment, plus 1)
+// when the pair composites.
+template <bool WANT_NC>
 __device__ __forceinline__ bool fwd_pair(const float4 geo, const float4 opc,
                                          const float* blue, float px,
-                                         float py, FwdPixel& o) {
+                                         float py, FwdPixel& o, int& nc,
+                                         int k1) {
   const float dx = geo.x - px;
   const float dy = geo.y - py;
   const float power =
@@ -165,7 +175,84 @@ __device__ __forceinline__ bool fwd_pair(const float4 geo, const float4 opc,
   o.g += opc.w * w;
   o.b += *blue * w;
   o.log_t += l;
+  if constexpr (WANT_NC) nc = k1;
   return false;
+}
+
+// The forward walk of one tile, FWD_THREADS threads: composites instances
+// [start, start + n) of the slab over the pixels (tx0 + p % 16, ty0 + p /
+// 16) and writes color (T, 3, 256) and final_T = exp(log_T) (T, 256) at
+// tile `out`; where ncontrib is given, n_contrib (T, 256), the last k + 1
+// at which the pixel composited (WANT_NC), else zeros. A pixel stops at its
+// first contribution failure, a warp once all its pixels have, the block
+// once every pixel of the tile has.
+template <bool WANT_NC>
+__device__ __forceinline__ void fwd_walk(const float* __restrict__ inst,
+                                         long long rpad, long long start,
+                                         int n, int tx0, int ty0,
+                                         long long out,
+                                         float* __restrict__ color,
+                                         float* __restrict__ final_t,
+                                         int* __restrict__ ncontrib) {
+  __shared__ Stage<FWD_BATCH> s;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  // rows row0 .. row0 + FWD_ROWS - 1 of the warp's strip, column lane % 16
+  const int row0 = warp * FWD_STRIP + (lane / TILE) * FWD_ROWS;
+  const float px = static_cast<float>(tx0 + lane % TILE);
+  float py[FWD_ROWS];
+  FwdPixel o[FWD_ROWS];
+  bool done[FWD_ROWS];
+  int nc[FWD_ROWS];
+#pragma unroll
+  for (int r = 0; r < FWD_ROWS; ++r) {
+    py[r] = static_cast<float>(ty0 + row0 + r);
+    o[r] = FwdPixel{0.f, 0.f, 0.f, 0.f};
+    done[r] = false;
+    nc[r] = 0;
+  }
+  const auto all_done = [&done]() {
+    bool all = true;
+#pragma unroll
+    for (int r = 0; r < FWD_ROWS; ++r) all = all && done[r];
+    return all;
+  };
+  for (int base = 0; base < n; base += FWD_BATCH) {
+    const int m = min(FWD_BATCH, n - base);
+    stage_batch<FWD_BATCH, FWD_THREADS, FWD_STRIP>(s, inst, rpad, start + base,
+                                                   m, tx0, ty0);
+    __syncthreads();
+    for (int j0 = 0; j0 < m; j0 += 32) {
+      if (__all_sync(FULL, all_done())) break;
+      unsigned bits = strip_ballot(s, j0, m, warp, lane);
+      while (bits) {
+        const int j = j0 + __ffs(bits) - 1;
+        bits &= bits - 1;
+        const float4 geo = s.geo[j];
+        const float4 opc = s.opc[j];
+#pragma unroll
+        for (int r = 0; r < FWD_ROWS; ++r) {
+          if (!done[r]) {
+            done[r] = fwd_pair<WANT_NC>(geo, opc, &s.blue[j], px, py[r], o[r],
+                                        nc[r], base + j + 1);
+          }
+        }
+      }
+    }
+    // also the barrier before the next batch overwrites the stage
+    if (__syncthreads_count(!all_done()) == 0) break;
+  }
+#pragma unroll
+  for (int r = 0; r < FWD_ROWS; ++r) {
+    const int p = (row0 + r) * TILE + lane % TILE;
+    float* c = color + out * 3 * PX + p;
+    c[0] = o[r].r;
+    c[PX] = o[r].g;
+    c[2 * PX] = o[r].b;
+    final_t[out * PX + p] = expf(o[r].log_t);
+    if (ncontrib != nullptr) ncontrib[out * PX + p] = WANT_NC ? nc[r] : 0;
+  }
 }
 
 // One recursive-halving step over xor offset `off`: of the N values the
@@ -213,6 +300,154 @@ __device__ __forceinline__ int halving_slot(int lane) {
     n = k;
   }
   return held > 0 ? base : -1;
+}
+
+// The backward walk of one tile, PX threads (one per pixel, a warp two
+// rows): given color_full (T, 3, 256), the forward color with bg * final_T
+// blended in, and dL = dL/dcolor_full (T, 3, 256) at tile `out`, writes the
+// nine gradient rows dL/d(x, y, A, B, C, opacity, r, g, b) of every
+// instance of [start, start + n) at its own lane of dinst (16, rpad)
+// (composite.cuh states the math). One forward walk per pixel from the
+// saved color_full (no reverse pass). A warp visits only the instances
+// whose strip mask has its bit, and sums each visited instance's nine
+// partials over its lanes by recursive halving; after each batch one thread
+// per instance adds the eight warp sums in warp order (a warp that did not
+// visit the instance, or had no composited pixel, adds 0). A lane belongs
+// to one segment, so the block writes its lanes alone: no atomics, and the
+// result is deterministic.
+__device__ __forceinline__ void bwd_walk(const float* __restrict__ inst,
+                                         long long rpad, long long start,
+                                         int n, int tx0, int ty0,
+                                         long long out,
+                                         const float* __restrict__ color_full,
+                                         const float* __restrict__ dcolor,
+                                         float* __restrict__ dinst) {
+  __shared__ Stage<BWD_BATCH> s;
+  // warp sums; the stride BWD_BATCH + 1 puts the nine writer lanes on nine
+  // banks
+  __shared__ float red[NWARP][NGRAD][BWD_BATCH + 1];
+  __shared__ unsigned wrote[NWARP][GROUPS];  // which red entries were set
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const float px = static_cast<float>(tx0 + tid % TILE);
+  const float py = static_cast<float>(ty0 + tid / TILE);
+  const int slot = halving_slot(lane);
+
+  const long long pix = out * 3 * PX + tid;
+  const float dlr = dcolor[pix];
+  const float dlg = dcolor[pix + PX];
+  const float dlb = dcolor[pix + 2 * PX];
+  const float dl_cf = dlr * color_full[pix] + dlg * color_full[pix + PX] +
+                      dlb * color_full[pix + 2 * PX];
+
+  float s_log = 0.f;   // log of the transmittance before the next instance
+  float wu_acc = 0.f;  // sum of w u over the composited instances so far
+  bool done = false;
+  for (int base = 0; base < n; base += BWD_BATCH) {
+    const int m = min(BWD_BATCH, n - base);
+    stage_batch<BWD_BATCH, PX, BWD_STRIP>(s, inst, rpad, start + base, m, tx0,
+                                          ty0);
+    __syncthreads();
+#pragma unroll
+    for (int grp = 0; grp < GROUPS; ++grp) {
+      const int j0 = grp * 32;
+      unsigned bits = 0u;
+      if (j0 < m && !__all_sync(FULL, done)) {
+        bits = strip_ballot(s, j0, m, warp, lane);
+      }
+      unsigned set = 0u;
+      while (bits) {
+        const int k = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const int j = j0 + k;
+        float g[NGRAD];
+        bool gated = false;
+        if (!done) {
+          const float4 geo = s.geo[j];
+          const float4 opc = s.opc[j];
+          const float dx = geo.x - px;
+          const float dy = geo.y - py;
+          const float power =
+              -0.5f * (geo.z * dx * dx + opc.x * dy * dy) - geo.w * dx * dy;
+          const float gauss = expf(fminf(power, 0.f));
+          const float op_g = opc.y * gauss;
+          const float alpha = fminf(op_g, ALPHA_MAX);
+          if (power <= 0.f && alpha >= ALPHA_MIN) {
+            const float l = log1pf(-alpha);
+            const float n_excl = expf(s_log);
+            const float one_m = 1.f - alpha;
+            if (!(n_excl * one_m >= T_STOP)) {
+              done = true;
+            } else {
+              const float w = alpha * n_excl;
+              const float u =
+                  dlr * opc.z + dlg * opc.w + dlb * s.blue[j];
+              wu_acc += w * u;
+              const float dl_da = n_excl * u - (dl_cf - wu_acc) / one_m;
+              const float v = dl_da * op_g;
+              const float vdx = v * dx;
+              const float vdy = v * dy;
+              g[0] = vdx;
+              g[1] = vdy;
+              g[2] = vdx * dx;
+              g[3] = vdx * dy;
+              g[4] = vdy * dy;
+              g[5] = dl_da * gauss;
+              g[6] = dlr * w;
+              g[7] = dlg * w;
+              g[8] = dlb * w;
+              s_log += l;
+              gated = true;
+            }
+          }
+        }
+        if (__any_sync(FULL, gated)) {
+#pragma unroll
+          for (int q = 0; q < NGRAD; ++q) g[q] = gated ? g[q] : 0.f;
+          warp_sum_halving(g, lane);
+          if (slot >= 0) red[warp][slot][j] = g[0];
+          set |= 1u << k;
+        }
+      }
+      if (lane == 0) wrote[warp][grp] = set;
+    }
+    __syncthreads();
+    // one thread per instance of the batch: warp sums in warp order, then
+    // the nine rows of the instance
+    if (tid < m) {
+      const int grp = tid / 32;
+      const unsigned bit = 1u << (tid % 32);
+      float sum[NGRAD];
+#pragma unroll
+      for (int q = 0; q < NGRAD; ++q) {
+        float acc = (wrote[0][grp] & bit) ? red[0][q][tid] : 0.f;
+#pragma unroll
+        for (int w = 1; w < NWARP; ++w) {
+          acc += (wrote[w][grp] & bit) ? red[w][q][tid] : 0.f;
+        }
+        sum[q] = acc;
+      }
+      const float A = s.geo[tid].z;
+      const float B = s.geo[tid].w;
+      const float C = s.opc[tid].x;
+      float rows[NGRAD];
+      rows[0] = -(A * sum[0] + B * sum[1]);
+      rows[1] = -(C * sum[1] + B * sum[0]);
+      rows[2] = -0.5f * sum[2];
+      rows[3] = -sum[3];
+      rows[4] = -0.5f * sum[4];
+      rows[5] = sum[5];
+      rows[6] = sum[6];
+      rows[7] = sum[7];
+      rows[8] = sum[8];
+      const long long at = start + base + tid;
+#pragma unroll
+      for (int q = 0; q < NGRAD; ++q) dinst[q * rpad + at] = rows[q];
+    }
+    // also the barrier before the next batch overwrites stage and red
+    if (__syncthreads_count(!done) == 0) break;
+  }
 }
 
 }  // namespace omnigs_seg

@@ -15,10 +15,10 @@
   operations in their order (the backward's pixel sums in the kernels'
   tree, `_pixel_sum`), so each kernel equals its plain version bit for
   bit; the segmented and the tile-major (`composite_tile.py`) plain
-  versions both run them, at their own pixel coordinates. The segmented
-  kernels (`csrc/composite_seg_walk.cuh`) skip the instances that cannot
-  be live in a warp's pixel rows; `_strip_masks` is that test in plain
-  PyTorch.
+  versions both run them, at their own pixel coordinates. Both layouts'
+  kernels run one walk (`csrc/composite_seg_walk.cuh`), which skips the
+  instances that cannot be live in a warp's pixel rows; `_strip_masks` is
+  that test in plain PyTorch, at the tiles' pixel origins.
 * `composite_seg_bwd` is its backward: nine gradient rows per instance
   lane. On a CUDA tensor it launches `csrc/composite_seg_bwd.cu` (which
   replaces `pallas_seg.py::_bwd_seg_kernel`) and counts the launch in
@@ -155,10 +155,10 @@ def _walk_fwd_plain(
     want_ncontrib: bool,
     warp_gate: Optional[torch.Tensor] = None,
 ):
-    """The kernels' forward walk (`csrc/composite.cuh`) in plain PyTorch:
-    every tile's segment [starts, starts + counts) of ``inst_T`` one
-    instance at a time, all tiles and pixels (at ``px``, ``py`` (T, PX))
-    at once, with the kernels' per-pair operations in their order
+    """The kernels' forward walk (`csrc/composite_seg_walk.cuh`) in plain
+    PyTorch: every tile's segment [starts, starts + counts) of ``inst_T``
+    one instance at a time, all tiles and pixels (at ``px``, ``py`` (T,
+    PX)) at once, with the kernels' per-pair operations in their order
     (sequential log-transmittance), so the stop decisions equal the
     kernels'. Returns (color (T, 3, PX), final_T (T, PX), n_contrib (T, PX)
     int32 — zeros unless ``want_ncontrib`` —, n_used, n_live): the last two
@@ -307,16 +307,17 @@ def _strip_masks(
     inst_T: torch.Tensor,
     starts: torch.Tensor,
     counts: torch.Tensor,
-    gx: int,
-    tile_lo: int,
+    x0: torch.Tensor,
+    y0: torch.Tensor,
     strip_rows: int,
 ) -> torch.Tensor:
-    """The segmented kernels' staging test (`csrc/composite_seg_walk.cuh`,
+    """The compositing kernels' staging test (`csrc/composite_seg_walk.cuh`,
     `strip_mask`: the same float32 operations and slack, where only the
-    logarithm may round apart) → (R,) int32: at each segment lane, bit s
-    set where pixel rows [s·strip_rows, (s + 1)·strip_rows) of the lane's
-    tile may hold a live pair (α ≥ 1/255, power ≤ 0) of its instance; 0
-    elsewhere. A kernel warp skips an instance whose bit it lacks."""
+    logarithm may round apart) for tiles at integer pixel origins ``x0``,
+    ``y0`` (T,) → (R,) int32: at each segment lane, bit s set where pixel
+    rows [s·strip_rows, (s + 1)·strip_rows) of the lane's tile may hold a
+    live pair (α ≥ 1/255, power ≤ 0) of its instance; 0 elsewhere. A
+    kernel warp skips an instance whose bit it lacks."""
     dev = inst_T.device
     counts64 = counts.to(torch.int64)
     tile_of = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), counts64)
@@ -327,9 +328,8 @@ def _strip_masks(
     d = inst_T[:6, lane]
     finite = torch.isfinite(d).all(dim=0)
     x, y, a, b, c, op = d
-    gid = tile_of + tile_lo
-    tx0 = ((gid % gx) * TILE).to(torch.float32)
-    ty0 = ((gid // gx) * TILE).to(torch.float32)
+    tx0 = x0.to(torch.int64)[tile_of].to(torch.float32)
+    ty0 = y0.to(torch.int64)[tile_of]
     tau = 2.0 * (torch.log(op) - LOG_ALPHA_MIN)
     det = (a.double() * c.double() - b.double() * b.double()).float()
     eps = CULL_REL * ((a + c) * (a + c) / det)
@@ -341,7 +341,7 @@ def _strip_masks(
     in_x = ~(gap_x > hx)
     m = torch.zeros_like(tile_of, dtype=torch.int32)
     for s in range(TILE // strip_rows):
-        lo = ty0 + s * strip_rows
+        lo = (ty0 + s * strip_rows).to(torch.float32)  # int sum, one conversion
         gap_y = torch.maximum(torch.maximum(lo - y, y - (lo + (strip_rows - 1))), zero)
         m |= (in_x & (gap_y <= hy)).to(torch.int32) << s
     every = (1 << (TILE // strip_rows)) - 1
@@ -364,8 +364,8 @@ def _walk_bwd_plain(
     color_full: torch.Tensor,
     dcolor: torch.Tensor,
 ) -> torch.Tensor:
-    """The kernels' backward walk (`csrc/composite.cuh`) in plain PyTorch:
-    one instance at a time like `_walk_fwd_plain`, recomputing the
+    """The kernels' backward walk (`csrc/composite_seg_walk.cuh`) in plain
+    PyTorch: one instance at a time like `_walk_fwd_plain`, recomputing the
     forward's transmittances and stop decisions with the kernels' per-pair
     operations in their order; each instance's nine partials are summed
     over the tile's pixels in the kernels' order (`_pixel_sum`) and written

@@ -28,12 +28,14 @@ contribution counts ``n_contrib``.
   gather. As in the JAX package, ``bg`` gets a zero gradient; ``final_T``
   and ``n_contrib`` are marked non-differentiable.
 
-The kernels share their per-tile walk with the segmented ones
-(`csrc/composite.cuh`), and the plain versions share its plain PyTorch
-form (`composite_seg._walk_fwd_plain` / `_walk_bwd_plain`): one instance
-at a time with the kernels' operations in their order, so their stop
-decisions and ``n_contrib`` equal the kernels'; only the sums over a
-tile's pixels in the backward are taken in another order.
+Kernels #3 and #4 run the segmented kernels' walk
+(`csrc/composite_seg_walk.cuh`) from their tiles' origins and unaligned
+segment starts; #5 runs `csrc/composite.cuh`. The plain versions share
+the walk's plain PyTorch form (`composite_seg._walk_fwd_plain` /
+`_walk_bwd_plain`): one instance at a time with the kernels' operations in
+their order and the backward's pixel sums in the kernels' warp tree, so #3
+(``n_contrib`` included) and #4 equal them bit for bit; #5 adds its rows
+with atomics, in no fixed order.
 """
 
 from __future__ import annotations
@@ -138,17 +140,18 @@ def composite_tile_fwd_plain(
     y0: torch.Tensor,
     num_tiles: int,
     want_ncontrib: bool = True,
+    warp_gate: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch version of the tile-major forward kernel: the kernels'
-    walk (`composite_seg._walk_fwd_plain`) at the tiles' pixels. Returns
-    (color (T, 3, PX), final_T (T, PX), n_contrib (T, PX) int32, n_used,
-    n_live): the last two (T, PX) int32 counts of the work each pixel
-    needs — the instances it visits up to its transmittance stop, and of
-    those the live ones it composites.
+    walk (`composite_seg._walk_fwd_plain`, which also fills ``warp_gate``)
+    at the tiles' pixels. Returns (color (T, 3, PX), final_T (T, PX),
+    n_contrib (T, PX) int32, n_used, n_live): the last two (T, PX) int32
+    counts of the work each pixel needs — the instances it visits up to its
+    transmittance stop, and of those the live ones it composites.
     """
     del num_tiles  # = len(counts)
     px, py = _tile_pixels(x0, y0)
-    return _walk_fwd_plain(inst_T, starts, counts, px, py, want_ncontrib)
+    return _walk_fwd_plain(inst_T, starts, counts, px, py, want_ncontrib, warp_gate)
 
 
 def _check_inputs(inst_T, starts, counts, x0, y0, num_tiles):

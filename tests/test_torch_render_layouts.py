@@ -2,12 +2,14 @@
 packed key: the ghost-aligned slab (``ghost_align``), the compact 2-key
 binning without a depth presort (segmented and tile-major) and the dense
 XLA-style compositor (``backend="xla"``), each through `rasterize` and its
-gradient; the goldens through the XLA backend.
+gradient; the goldens through the XLA backend; the XLA backend's float32
+distance from float64, which the JAX package's float32 has too.
 
 Bars: image and final_T atol 1e-5, n_contrib, radii, truncation and
 overflow equal (tests/test_pallas_raster.py); gradients rtol 2e-3, atol
 1e-4·max|ref| (tests/test_gather_reduce.py); the goldens at
-tests/test_goldens.py's bars."""
+tests/test_goldens.py's bars; port and JAX float32 within 1% of the
+Pallas-vs-XLA gradient bar of each other."""
 
 from pathlib import Path
 
@@ -166,3 +168,54 @@ def test_layouts_render_alike():
         np.testing.assert_allclose(res.image.numpy(), ref.image.numpy(), atol=1e-5, err_msg=name)
         np.testing.assert_allclose(res.final_T.numpy(), ref.final_T.numpy(), atol=1e-5,
                                    err_msg=name)
+
+
+def _bar_ratio(got, ref):
+    """Per Gaussian: max |got − ref| / (1e-4·max|ref| + 1e-3·|ref|), the
+    JAX package's Pallas-vs-XLA gradient bar (tests/test_pallas_raster.py)."""
+    ref = np.asarray(ref, np.float64).reshape(ref.shape[0], -1)
+    err = np.abs(np.asarray(got, np.float64).reshape(ref.shape) - ref)
+    return np.where(err == 0, 0.0, err / (1e-4 * np.abs(ref).max() + 1e-3 * np.abs(ref))).max(axis=1)
+
+
+def test_xla_float32_gap_matches_the_reference():
+    """The XLA backend's float32 gradients miss the float64 ones at the JAX
+    bar on a small cloud (Gaussian 61's opacity, 1.66× the bar: one of its
+    pairs sits at α = 1/255, live in one precision only), and the JAX
+    package's float32 XLA path misses them the same way: the port's and the
+    reference's float32 gradients lie within 1% of the bar of each other."""
+    w, h, n = 128, 64, 800
+    c = random_cloud_np(3, n, scale_mu=-2.0)
+    arrays = [c[k] for k in KEYS]
+    vm, campos = np.eye(4, dtype=np.float32), np.zeros(3, np.float32)
+    wts = np.random.default_rng(3).uniform(0.5, 1.5, size=(3, h, w)).astype(np.float32)
+    kw = dict(backend="xla", tile_cap=1024, chunk=32, tight_culling=True)
+
+    def jloss(*a):
+        res = jrasterize(
+            *a, camera=Camera(CameraType.LONLAT, w, h), viewmatrix=jnp.asarray(vm),
+            campos=jnp.asarray(campos), bg=jnp.zeros(3), sh_degree=2,
+            config=JRasterConfig(max_instances=1 << 14, **kw),
+        )
+        return jnp.sum(res.image * jnp.asarray(wts))
+
+    grads_j = jax.grad(jloss, argnums=tuple(range(5)))(*[jnp.asarray(a) for a in arrays])
+    grads = {}
+    for dt in (torch.float32, torch.float64):
+        leaves = [torch.from_numpy(a).to(dt).requires_grad_(True) for a in arrays]
+        res = trasterize(
+            *leaves, camera=TCamera(TCameraType.LONLAT, w, h),
+            viewmatrix=torch.from_numpy(vm).to(dt), campos=torch.from_numpy(campos).to(dt),
+            bg=torch.zeros(3, dtype=dt), sh_degree=2,
+            config=TRasterConfig(max_instances=1 << 14, **kw),
+        )
+        loss = torch.sum(res.image * torch.from_numpy(wts).to(dt))
+        grads[dt] = [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+    for i, name in enumerate(KEYS):
+        exact = grads[torch.float64][i]
+        port = _bar_ratio(grads[torch.float32][i], exact)
+        ref = _bar_ratio(np.asarray(grads_j[i]), exact)
+        assert _bar_ratio(grads[torch.float32][i], np.asarray(grads_j[i])).max() <= 0.01, name
+        np.testing.assert_allclose(port, ref, atol=0.01, err_msg=name)
+    opacity = _bar_ratio(grads[torch.float32][3], grads[torch.float64][3])
+    assert int(np.argmax(opacity)) == 61 and opacity[61] > 1.0

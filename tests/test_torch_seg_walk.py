@@ -1,13 +1,19 @@
-"""The segmented kernels' walk (omnigs_torch/csrc/composite_seg_walk.cuh)
-on the CPU, where the kernels cannot run.
+"""The compositing kernels' walk (omnigs_torch/csrc/composite_seg_walk.cuh,
+kernels #1-#4) on the CPU, where the kernels cannot run.
 
 * The staging test that lets a warp skip an instance (`strip_mask`, in
-  plain PyTorch `composite_seg._strip_masks`, same formula and slack) never
-  clears the bit of a strip that holds a live pair: on slabs of the port's
-  pipeline and on made-up slabs with opacities at 1/255, needle-thin and
-  near-singular conics and means just outside the tile and the strips.
-  Every pair is evaluated with the kernels' float32 operations; the plain
-  walk's composited pixels (`warp_gate`) are a subset of the live ones.
+  plain PyTorch `composite_seg._strip_masks`, same formula and slack)
+  never clears the bit of a strip that holds a live pair: on segmented
+  slabs of the port's pipeline, on the tile-major layouts (the compact
+  slab with and without the emission payload, the ghost-aligned layout,
+  also with its pad lanes as zero rows inside the segments, and the 2-key
+  binning; unaligned segment starts) and on made-up slabs with opacities
+  at 1/255, needle-thin and near-singular conics and means just outside
+  the tile and the strips. Every pair is evaluated with the kernels'
+  float32 operations at the tiles' origins; the plain walk's composited
+  pixels (`warp_gate`) are a subset of the live ones.
+* Every ablation of `omnigs_torch/utils/kernel_variants.py` edits the
+  shared walk once.
 * The backward's recursive-halving warp sums (12 shuffles) equal the xor
   butterfly (45) bit for bit, -0.0 and inf included, in a numpy float32
   emulation of the exchange the kernel unrolls; the plain backward sums the
@@ -29,8 +35,15 @@ import torch
 
 from omnigs_torch.cameras import Camera, CameraType
 from omnigs_torch.ops import composite_seg as tcs
-from omnigs_torch.ops.binning import bin_instances_packed, segment_relay
+from omnigs_torch.ops import composite_tile as tct
+from omnigs_torch.ops.binning import (
+    bin_instances,
+    bin_instances_aligned,
+    bin_instances_packed,
+    segment_relay,
+)
 from omnigs_torch.ops.preprocess import TILE, preprocess
+from omnigs_torch.utils import kernel_variants
 
 from torch_helpers import random_cloud_np, to_torch
 
@@ -38,20 +51,58 @@ HEADER = Path(tcs.__file__).resolve().parent.parent / "csrc" / "composite_seg_wa
 ALPHA_MIN_F32 = float(np.float32(tcs.ALPHA_MIN))
 
 
-def _pipeline_slab(seed, n, scale_mu, w=256, h=128, max_instances=1 << 14):
+def _prep(seed, n, scale_mu, w=256, h=128):
     c = to_torch(random_cloud_np(seed, n, scale_mu=scale_mu))
-    gx, gy = w // 16, h // 16
-    prep = preprocess(
+    return preprocess(
         c["means3d"], c["scales"], c["quats"], c["opacities"], c["shs"],
         Camera(CameraType.LONLAT, w, h), torch.eye(4), torch.zeros(3), 2,
         tight_culling=True,
     )
+
+
+def _pipeline_slab(seed, n, scale_mu, w=256, h=128, max_instances=1 << 14):
+    """The segmented slab → (slab, starts8, counts, x0, y0)."""
+    prep = _prep(seed, n, scale_mu, w, h)
+    gx, gy = w // 16, h // 16
     inst = bin_instances_packed(prep, gx, gy, max_instances, tile_cull=True)
     seg = segment_relay(inst.sorted_g, inst.starts, inst.counts, max_instances, n,
                         inst.sorted_key)
     slab = tcs._build_inst_seg(prep.means2d, prep.conic, prep.rgb, prep.opacity,
                                seg.sorted_g8, inst.perm, seg.ride_d, seg.ride_t)
-    return slab, seg.starts8, seg.counts, gx, gx * gy
+    return (slab, seg.starts8, seg.counts, *tct.tile_origins(gx, gy))
+
+
+def _tile_major_slab(layout, seed, n, scale_mu, w=256, h=128, max_instances=1 << 14):
+    """A tile-major slab (`composite_tile._build_inst`, as `rasterize`
+    builds it) of one binning → (slab, starts, counts, x0, y0):
+    ``compact`` and ``compact_emission`` (the packed key, without and with
+    the survivor-rank payload), ``two_key`` (`bin_instances`), ``ghost``
+    (`bin_instances_aligned`: segments at CHUNK-aligned starts) and
+    ``ghost_pad`` (the same with every segment running over its ghost pad
+    lanes, zeroed: zero rows inside the segments)."""
+    prep = _prep(seed, n, scale_mu, w, h)
+    gx, gy = w // 16, h // 16
+    if layout.startswith("compact"):
+        inst = bin_instances_packed(prep, gx, gy, max_instances, tile_cull=True,
+                                    with_emission=layout == "compact_emission")
+    elif layout == "two_key":
+        inst = bin_instances(prep, gx, gy, max_instances, tile_cull=True)
+    else:
+        inst = bin_instances_aligned(prep, gx, gy, max_instances, chunk=tcs.CHUNK,
+                                     tile_cull=True)
+    live = torch.amax(inst.starts + inst.counts)
+    slab = tct._build_inst(prep.means2d, prep.conic, prep.rgb, prep.opacity,
+                           inst.sorted_g, live, inst.perm)
+    counts = inst.counts
+    if layout == "ghost_pad":
+        padded = (counts + tcs.CHUNK - 1) // tcs.CHUNK * tcs.CHUNK
+        lane = torch.arange(slab.shape[1])
+        owner = torch.searchsorted(inst.starts, lane, right=True) - 1
+        in_pad = (lane >= inst.starts[owner] + counts[owner]) & (
+            lane < inst.starts[owner] + padded[owner])
+        slab[:, in_pad] = 0.0
+        counts = padded.to(torch.int32)
+    return (slab, inst.starts, counts, *tct.tile_origins(gx, gy))
 
 
 def _edge_slab(seed, per_tile=160, gx=3, gy=2):
@@ -98,18 +149,20 @@ def _edge_slab(seed, per_tile=160, gx=3, gy=2):
     slab[:9] = np.array(rows, np.float32).T
     counts = np.array(counts, np.int32)
     starts = (np.cumsum(counts) - counts).astype(np.int32)
-    return torch.from_numpy(slab), torch.from_numpy(starts), torch.from_numpy(counts), gx, gx * gy
+    return (torch.from_numpy(slab), torch.from_numpy(starts), torch.from_numpy(counts),
+            *tct.tile_origins(gx, gy))
 
 
-def _live_pairs(slab, starts, counts, gx):
+def _live_pairs(slab, starts, counts, x0, y0):
     """(lanes (L,), live (L, PX) bool): every segment pair through the
-    kernels' float32 operations, alive iff power ≤ 0 and α ≥ 1/255."""
+    kernels' float32 operations at the tiles' pixels, alive iff power ≤ 0
+    and α ≥ 1/255."""
     lanes, tiles = [], []
     for t in range(counts.shape[0]):
         lanes.append(torch.arange(int(starts[t]), int(starts[t]) + int(counts[t])))
         tiles.append(torch.full((int(counts[t]),), t))
     lanes, tiles = torch.cat(lanes), torch.cat(tiles)
-    px, py = tcs._pixel_coords(counts.shape[0], gx, 0, slab.device)
+    px, py = tct._tile_pixels(x0, y0)
     d = slab[:6, lanes][:, :, None]
     dx = d[0] - px[tiles]
     dy = d[1] - py[tiles]
@@ -132,21 +185,32 @@ SLABS = {
     "pipeline_large": lambda: _pipeline_slab(52, 60, 0.0),
     "edges": lambda: _edge_slab(53),
     "edges2": lambda: _edge_slab(54),
+    "compact": lambda: _tile_major_slab("compact", 55, 400, -1.5),
+    "compact_emission": lambda: _tile_major_slab("compact_emission", 56, 600, -3.0),
+    "ghost": lambda: _tile_major_slab("ghost", 57, 400, -1.5),
+    "ghost_pad": lambda: _tile_major_slab("ghost_pad", 58, 300, -2.0),
+    "two_key": lambda: _tile_major_slab("two_key", 59, 400, -1.0),
 }
 
 
 @pytest.mark.parametrize("strip_rows", [tcs.BWD_STRIP, tcs.FWD_STRIP])
 @pytest.mark.parametrize("kind", sorted(SLABS))
 def test_strip_mask_keeps_every_live_pair(kind, strip_rows):
-    slab, starts, counts, gx, num_tiles = SLABS[kind]()
-    mask = tcs._strip_masks(slab, starts, counts, gx, 0, strip_rows)
-    lanes, live = _live_pairs(slab, starts, counts, gx)
+    slab, starts, counts, x0, y0 = SLABS[kind]()
+    mask = tcs._strip_masks(slab, starts, counts, x0, y0, strip_rows)
+    lanes, live = _live_pairs(slab, starts, counts, x0, y0)
     need = _strip_bits(live, strip_rows)
     lost = need & ~mask[lanes]
     assert int((lost != 0).sum()) == 0, f"{int((lost != 0).sum())} instances lose a live strip"
+    # zero rows (the ghost layout's pad lanes) are dead and culled
+    zero = (slab[:9, lanes] == 0).all(dim=0)
+    assert not bool(live[zero].any()) and not bool(mask[lanes][zero].any())
+    if kind == "ghost_pad":
+        assert int(zero.sum()) > 0
     # the composited pixels of the plain walk are live ones
     gate = torch.zeros(slab.shape[1], dtype=torch.int32)
-    tcs.composite_seg_fwd_plain(slab, starts, counts, num_tiles, gx, warp_gate=gate)
+    px, py = tct._tile_pixels(x0, y0)
+    tcs._walk_fwd_plain(slab, starts, counts, px, py, False, gate)
     assert int((gate[lanes] & ~_strip_bits(live, 2)).abs().sum()) == 0
     if strip_rows == 2:
         assert int((gate[lanes] & ~mask[lanes]).abs().sum()) == 0
@@ -155,6 +219,39 @@ def test_strip_mask_keeps_every_live_pair(kind, strip_rows):
     dead = n_strips * lanes.shape[0] - int(sum(((need >> s) & 1).sum() for s in range(n_strips)))
     kept_dead = sum(int((((mask[lanes] & ~need) >> s) & 1).sum()) for s in range(n_strips))
     assert dead > 0 and kept_dead <= 0.6 * dead, (kept_dead, dead)
+
+
+def test_tile_major_slabs_have_unaligned_segments():
+    """The compact and 2-key layouts start most segments off the CHUNK
+    grid, the ghost-aligned one on it; every layout's tiles have the
+    grid's origins."""
+    for kind in ("compact", "compact_emission", "two_key", "ghost"):
+        _, starts, counts, x0, y0 = SLABS[kind]()
+        busy = counts > 0
+        off_grid = (starts[busy] % tcs.CHUNK != 0).float().mean()
+        if kind == "ghost":
+            assert float(off_grid) == 0.0
+        else:
+            assert float(off_grid) > 0.5, kind
+        gx0, gy0 = tct.tile_origins(16, 8)
+        assert torch.equal(x0, gx0) and torch.equal(y0, gy0)
+
+
+def test_ablations_edit_the_shared_walk_once(tmp_path, monkeypatch):
+    """Each ablation of `kernel_variants` applies to the walk header that
+    kernels #1-#4 share (an anchor that moved raises "is not once in"),
+    and the compared builds cover all four kernels."""
+    monkeypatch.setattr(kernel_variants, "VARIANT_DIR", tmp_path)
+    assert set(kernel_variants.SOURCES) == {
+        "composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd", "composite_tile_bwd"}
+    for name, edits in kernel_variants.ABLATIONS.items():
+        tree = kernel_variants._variant_tree(name, edits)
+        assert {f for f, _, _ in edits} == {"composite_seg_walk.cuh"}
+        text = (tree / "composite_seg_walk.cuh").read_text()
+        for _, _, new in edits:
+            assert new in text, name
+        for src in kernel_variants.SOURCES:
+            assert '#include "composite_seg_walk.cuh"' in (tree / f"{src}.cu").read_text()
 
 
 def test_strip_mask_edge_rules():
@@ -174,8 +271,9 @@ def test_strip_mask_edge_rules():
     ]
     slab = torch.zeros(tcs.NROWS, len(rows))
     slab[:6] = torch.tensor(rows).T
-    m = tcs._strip_masks(slab, torch.zeros(1, dtype=torch.int32),
-                         torch.tensor([len(rows)], dtype=torch.int32), 1, 0, 2)
+    zero = torch.zeros(1, dtype=torch.int32)
+    m = tcs._strip_masks(slab, zero, torch.tensor([len(rows)], dtype=torch.int32), zero,
+                         zero, 2)
     assert m.tolist() == [255, 255, 0, 0, 255, 255, 255, 1, 0]
 
 
