@@ -11,8 +11,9 @@ script exits non-zero:
 2. build  — every CUDA kernel of the paths, built from the repository's
    sources in parallel (`omnigs_torch/cuda_build.py`), with nvcc's register
    and shared-memory report; the compositing kernels #1-#4 (the two
-   sources of each layout, on one walk) may use no stack and spill
-   nothing.
+   sources of each layout, on one walk; #5 shares #4's source) and #6's
+   two kernels may use no stack and spill nothing; the `ptxas` line holds
+   the report of #4, #5 and #6's two kernels.
 3. kernel — at full width (1920×960 lonlat, P = 131,072 at SH degree 3):
    the instance slab of one pose through the port's preprocess, binning
    and re-lay; the forward CUDA kernel against its plain PyTorch version on
@@ -67,9 +68,15 @@ script exits non-zero:
    (plain backward + scatter reduction) and against backward kernel +
    scatter reduction, the gather reduction against the scatter reduction,
    and all three reductions against the float64 sum of the same rows
-   (rtol 2e-3, atol 1e-4 of each row's max |ref|); times and bounds.
-   tile_compare — as seg_compare, for #3 (with n_contrib) and #4 on that
-   slab. Then `tile_stages`: the device time of each stage of that render.
+   (rtol 2e-3, atol 1e-4 of each row's max |ref|); times and bounds; the
+   instances whose rows are all zero (#5's table sink adds nothing for
+   them).
+   tile_compare — as seg_compare, for #3 (with n_contrib), #4 and #5 on
+   that slab; #5 also in the ablations of its table sink (`scalar_sink`:
+   nine scalar atomics into a (P, 9) table; `b_vec4`; `no_skip`), each
+   build's output against the float64 sum at the reduction bar (its
+   atomics add in no fixed order), #4 of those builds bytes equal. Then
+   `tile_stages`: the device time of each stage of that render.
 10. tile_render — four `render_model` requests through the tile-major
    config: the tile-major forward kernel once each (the segmented one never),
    truncated 0, n_contrib's max and mean, image and final_T within 1e-5 of
@@ -116,7 +123,15 @@ script exits non-zero:
    counters set to 0 just before and read just after, then its kernel
    against its plain version at the script's sizes (#6 against a float64
    sum at the reduction bar, #7 bit for bit, #8 per mode at the forward
-   bars), times, bound and library call.
+   bars), times, bound and library call. reduce_compare — #6 of the
+   earlier sources (when present), the present ones and the `scalar_table`
+   ablation (16 scalar atomics into the (P, 16) table) on the script's
+   uniform ids, on Zipf-like ids and on the live lanes of pose 0's
+   tile-major slab (`tile_grad`'s ids and rows), each against the float64
+   sum at the reduction bar, ms in turns, with `_scatter_reduce` of the
+   same rows beside them.
+18. card_tests — `tests/test_torch_kernels_gpu.py -m gpu` in a child
+   process: every test must pass, none skip.
 
 Then the `kernels` line, nvidia-smi's line, and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -208,6 +223,10 @@ XLA_STEP_ATOL = 2e-4
 # +17 (log1p, Σl, round, prefix, exp, N·, a·, round, three rgb rounds, 6);
 # full +16 (log1p, Σl, prefix, exp, N·, 1 − a, division, test, a·, mask, 6)
 ABLATE_OPS = {"alpha": 20, "notrans": 30, "nocumsum": 30, "lowprec": 36, "full": 35}
+# reduce_compare's skewed ids: Zipf's exponent over P ranks
+ZIPF_S = 1.0
+# the card tests' child process
+CARD_TEST_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -363,6 +382,19 @@ def ptxas_clean(lines):
                        r"(\d+) bytes spill loads", line) for line in lines]
     found = [m for m in found if m]
     return bool(found) and all(int(x) == 0 for m in found for x in m.groups())
+
+
+def ptxas_of(lines, kernel):
+    """The ptxas report lines of one kernel (by the name in its mangled
+    symbol) within a source's report."""
+    out, current = [], None
+    for line in lines:
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
+        if m:
+            current = m.group(1)
+        if current is not None and kernel in current:
+            out.append(line)
+    return out
 
 
 def _digest(*tensors):
@@ -589,16 +621,19 @@ def grad_phase(torch, kres, slab_data):
 def _compare_line(phase, res, refs):
     """Emit a `kernel_variants` comparison with each kernel's bound and
     production digest (``refs``: kernel → its phase result); raise unless
-    every build gave the production build's bytes."""
-    line = {"phase": phase, "before": str(SEG_BEFORE.relative_to(REPO)),
-            "order": res.pop("order")}
+    every build gave the production build's bytes, or (#5, #6) held the
+    float bar."""
+    line = {"phase": phase, "before": str(SEG_BEFORE.relative_to(REPO))}
     for kernel, ref in refs.items():
-        line[kernel] = {"bound_ms": ref["bound_ms"], "digest_new": ref["digest"],
+        line[kernel] = {"bound_ms": ref["bound_ms"], "digest_new": ref.get("digest"),
                         **res[kernel]}
     emit(line)
-    bad = [f"{k}/{v}" for k in res for v, r in res[k].items() if not r["bytes_equal_new"]]
+    builds = [(k, v, r) for k in res for v, r in res[k].items() if v != "order"]
+    bad = [f"{k}/{v}" for k, v, r in builds
+           if not r.get("bytes_equal_new", True) or r.get("tol_ratio", 0.0) > 1.0]
     if bad:
-        raise RuntimeError(f"builds whose output bytes differ from the production build: {bad}")
+        raise RuntimeError(f"builds whose outputs differ from the production build's "
+                           f"(bytes, or the float bar for #5/#6): {bad}")
     return line
 
 
@@ -1121,7 +1156,7 @@ def tile_grad_phase(torch, kres, d):
         exact = exact.to(torch.float32)
         vs_f64 = {name: _reduce_close(torch, x, exact)
                   for name, x in (("scatter", acc), ("gather", gathered), ("fused", fused))}
-        del exact
+        d["fused_exact"] = exact
         fused_plain_err = _reduce_close(torch, fused, fplain)
         fused_err = _reduce_close(torch, fused, acc)
         fused_max_abs = float((fused - fplain).abs().max())
@@ -1134,14 +1169,20 @@ def tile_grad_phase(torch, kres, d):
             reps=3,
         )
         fused_ms = time_ms(torch, lambda: ct.composite_tile_bwd_fused(*fargs), reps=3)
+        # the instances whose nine rows are all zero (no pixel composited
+        # them): #5's table sink adds nothing for them
+        zero_rows = int((got[: ct.NGRAD, lanes] == 0).all(dim=0).sum())
+        # the live lanes' ids and rows, for reduce_compare
+        d["reduce_inputs"] = (inst.sorted_g[: int(d["live"])].contiguous(),
+                              got[:, : int(d["live"])].contiguous())
     instances = kres["segment_instances"]
     pair_ops = (kres["visited_pairs"] * OPS_PER_VISITED_PAIR
                 + kres["live_pairs"] * BWD_OPS_PER_LIVE_PAIR
                 + instances * BWD_OPS_PER_INSTANCE)
     pix_bytes = 4 * 4 * num_tiles + 6 * 4 * 256 * num_tiles
     bwd_bytes = 18 * 4 * instances + pix_bytes + slab.numel() * 4  # + zero fill
-    fused_ops = pair_ops + instances * FUSED_OPS_PER_INSTANCE
-    fused_bytes = (9 + 1) * 4 * instances + pix_bytes + 2 * P * 9 * 4  # + zero fill
+    fused_ops = pair_ops + (instances - zero_rows) * FUSED_OPS_PER_INSTANCE
+    fused_bytes = (9 + 1) * 4 * instances + pix_bytes + P * 9 * 4
     bound_ms, bound_by = _bound(pair_ops, bwd_bytes)
     fbound_ms, fbound_by = _bound(fused_ops, fused_bytes)
     result = {
@@ -1176,6 +1217,7 @@ def tile_grad_phase(torch, kres, d):
             "max_abs_err": fused_max_abs,
             "vs_bwd_scatter_tol_ratio": fused_err,
             "vs_bwd_scatter_max_abs": float((fused - acc).abs().max()),
+            "instances_all_zero_rows": zero_rows,
             "kernel_ms": fused_ms,
             "plain_ms": fused_plain_ms,
             "bound_ms": fbound_ms,
@@ -1217,10 +1259,13 @@ def tile_compare_phase(torch, d, tk, tg, grad_inputs):
 
     inst = d["inst"]
     color_full, dcolor = grad_inputs
+    exact = d["fused_exact"]
     res = kv.compare_tile(SEG_BEFORE, d["slab"], inst.starts, inst.counts, d["x0"], d["y0"],
-                          color_full, dcolor, d["num_tiles"])
+                          color_full, dcolor, inst.sorted_g, P,
+                          lambda out: _reduce_close(torch, out, exact), d["num_tiles"])
     return _compare_line("tile_compare", res,
-                         {"composite_tile_fwd": tk, "composite_tile_bwd": tg})
+                         {"composite_tile_fwd": tk, "composite_tile_bwd": tg,
+                          "composite_tile_bwd_fused": tg["fused"]})
 
 
 def tile_stage_phase(torch, model, camera, pose, cfg, reps=3):
@@ -2042,6 +2087,102 @@ def reduce_phase(torch):
     return res
 
 
+def _zipf_ids(torch, n, p, dev):
+    """n ids in [0, P) drawn with probability ∝ 1/rank^ZIPF_S over a seeded
+    random ranking of the P ids: a few ids take a large share, so a warp's
+    ids repeat (the contended case of an atomic reduction)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    w = torch.arange(1, p + 1, device=dev, dtype=torch.float64).pow(-ZIPF_S)
+    rank = torch.multinomial(w.float(), n, replacement=True, generator=gen)
+    return torch.randperm(p, generator=gen, device=dev)[rank].to(torch.int32)
+
+
+def _id_spread(torch, ids, p):
+    """The largest count of one id, and the mean number of distinct ids in
+    a warp's 32 consecutive instances."""
+    top = int(torch.bincount(ids.to(torch.int64), minlength=p).max())
+    n = ids.shape[0] // 32 * 32
+    w = torch.sort(ids[:n].view(-1, 32), dim=1).values
+    distinct = float((1 + (w[:, 1:] != w[:, :-1]).sum(dim=1)).float().mean())
+    return {"max_per_id": top, "distinct_per_warp": distinct}
+
+
+def reduce_compare_phase(torch, training_inputs):
+    """Kernel #6 in every build (`kernel_variants.compare_reduce`: the
+    earlier sources in ``SEG_BEFORE`` when that copy exists, the present
+    ones and `REDUCE_ABLATIONS`) on three inputs: the script's (uniform
+    ids), the same rows with Zipf-like ids, and the live lanes of pose 0's
+    tile-major slab from `tile_grad` (its ids and its backward rows); each
+    build's output against the float64 sum at the reduction bar, ms in
+    turns, and the deterministic `_scatter_reduce` of the same rows (nine
+    of them) for the record; and the wrapper's time with no instance (its
+    tables' allocation and zero fill, and the transpose)."""
+    from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.scripts import reduce_bench as rb
+    from omnigs_torch.utils import kernel_variants as kv
+
+    dev = torch.device("cuda")
+    ids, rows, live = rb.make_inputs(8704 * rb.CHUNK, P, dev)
+    inputs = {
+        "uniform": (ids[:live].contiguous(), rows),
+        "zipf": (_zipf_ids(torch, live, P, dev), rows),
+        "tile_slab": training_inputs,
+    }
+    before = SEG_BEFORE if SEG_BEFORE.is_dir() else None
+    with torch.inference_mode():
+        # no instance: the wrapper's two tables and the transpose alone
+        empty_ms = time_ms(torch, lambda: rb.reduce_accum(ids[:0], rows, P), reps=10)
+    line = {"phase": "reduce_compare",
+            "before": None if before is None else str(SEG_BEFORE.relative_to(REPO)),
+            "zipf_exponent": ZIPF_S, "tables_and_transpose_ms": empty_ms}
+    bad = []
+    for name, (ids_i, rows_i) in inputs.items():
+        with torch.inference_mode():
+            n = ids_i.shape[0]
+            exact = torch.zeros(rb.NROWS, P, dtype=torch.float64, device=dev)
+            exact.index_add_(1, ids_i.to(torch.int64), rows_i[:, :n].to(torch.float64))
+            exact = exact.to(torch.float32)
+            live_t = torch.tensor(n, device=dev)
+            scatter_ms = time_ms(
+                torch, lambda: ct._scatter_reduce(rows_i, ids_i, live_t, P), reps=3)
+        res = kv.compare_reduce(before, ids_i, rows_i, P,
+                                lambda out: _reduce_close(torch, out.T, exact.T))
+        nbytes = n * (rb.NROWS * 4 + 4) + rb.NROWS * 4 * P
+        bound_ms, bound_by = _bound(rb.NROWS * n, nbytes)
+        line[name] = {"instances": n, **_id_spread(torch, ids_i, P),
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "scatter_reduce_ms": scatter_ms, **res}
+        bad += [f"{name}/{v}" for v, r in res.items()
+                if v != "order" and r["tol_ratio"] > 1.0]
+        del exact
+    emit(line)
+    if bad:
+        raise RuntimeError(f"reduce_accum builds off the float64 sum: {bad}")
+    return line
+
+
+def card_test_phase(torch):
+    """The card tests (`tests/test_torch_kernels_gpu.py -m gpu`) in a child
+    process with its own CUDA context; raise unless every test passed and
+    none skipped."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "tests/test_torch_kernels_gpu.py", "-m", "gpu",
+         "--noconftest", "-q", "-p", "no:cacheprovider", "-rs"],
+        cwd=REPO, capture_output=True, text=True, timeout=CARD_TEST_TIMEOUT_S,
+    )
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    counts = {k: int(v) for v, k in re.findall(r"(\d+) (passed|failed|skipped|error)", summary)}
+    emit({"phase": "card_tests", "rc": proc.returncode, "summary": summary,
+          "seconds": time.perf_counter() - t0, **counts})
+    if proc.returncode != 0 or counts.get("skipped") or not counts.get("passed"):
+        print(proc.stdout[-6000:], proc.stderr[-3000:], file=sys.stderr)
+        raise RuntimeError(f"card tests: {summary} (rc {proc.returncode})")
+    return counts
+
+
 def emit_phase(torch):
     """Kernel #7: the script's run, then the kernel against its plain
     version bit for bit at the script's size; times, bound, and the
@@ -2155,11 +2296,17 @@ def main() -> int:
     cuda_build.build(sources)  # one nvcc per source, all in parallel
     report = {k: cuda_build.BUILD_REPORT.get(k, "cached") for k in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "report": report})
-    # kernels #1-#4 (and #5, which shares #4's source)
+    # kernels #1-#4, #5 (which shares #4's source) and #6's two kernels
     for k in ("composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
-              "composite_tile_bwd"):
+              "composite_tile_bwd", "reduce_accum"):
         if report[k] != "cached" and not ptxas_clean(report[k]["ptxas"]):
             raise RuntimeError(f"{k}: ptxas reports stack or spills: {report[k]['ptxas']}")
+    emit({"phase": "ptxas", **{
+        name: ptxas_of(report[src]["ptxas"], name) if report[src] != "cached" else "cached"
+        for src, name in (("composite_tile_bwd", "composite_tile_bwd_kernel"),
+                          ("composite_tile_bwd", "composite_tile_bwd_fused_kernel"),
+                          ("reduce_accum", "reduce_accum_kernel"),
+                          ("reduce_accum", "reduce_transpose_kernel"))}})
 
     cfg = raster_config_from(load_config(CONFIG))
     camera = Camera(CameraType.LONLAT, WIDTH, HEIGHT)
@@ -2185,6 +2332,7 @@ def main() -> int:
     tk, tdata = tile_kernel_phase(torch, model, camera, pose_list[0], tcfg)
     tg, tile_grad_inputs = tile_grad_phase(torch, tk, tdata)
     tile_compare_phase(torch, tdata, tk, tg, tile_grad_inputs)
+    reduce_inputs = tdata["reduce_inputs"]
     del tdata, tile_grad_inputs
     tile_stage_phase(torch, model, camera, pose_list[0], tcfg)
     tile_launches = tile_render_phase(torch, model, camera, pose_list, tcfg, renders)
@@ -2203,8 +2351,11 @@ def main() -> int:
     del renders, steps
     # the benchmark scripts' kernels, each through its script's main
     red = reduce_phase(torch)
+    reduce_compare_phase(torch, reduce_inputs)
+    del reduce_inputs
     emi = emit_phase(torch)
     abl = ablate_phase(torch)
+    card_test_phase(torch)
 
     emit({"kernels": [
         {

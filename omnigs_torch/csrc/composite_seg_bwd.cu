@@ -15,9 +15,10 @@
 // sums as moments S = Ut V on the MXU; all of that exists because a TPU grid
 // runs in order on one core with a matrix unit. Here the kernel places its
 // tile (origin from its id, segment from starts8) and runs bwd_walk of
-// composite_seg_walk.cuh, the walk the tile-major backward (#4) shares: one
-// 256-thread block per tile, one thread per pixel, one forward walk per pixel
-// from the saved color_full (no reverse pass). A warp (two pixel rows) visits
+// composite_seg_walk.cuh with its lane sink, the walk the tile-major
+// backwards (#4, #5) share: one 256-thread block per tile, one thread per
+// pixel, one forward walk per pixel from the saved color_full (no reverse
+// pass). A warp (two pixel rows) visits
 // only the instances whose strip mask has its bit, and sums each visited
 // instance's nine partials over its lanes by recursive halving; after each
 // batch one thread per instance adds the eight warp sums in warp order (a
@@ -49,7 +50,8 @@ __global__ void __launch_bounds__(PX) composite_seg_bwd_kernel(
   const int tile = blockIdx.x;
   const int gid = tile + tile_lo;
   bwd_walk(inst, r8, starts8[tile], counts[tile], (gid % gx) * TILE,
-           (gid / gx) * TILE, tile, color_full, dcolor, dinst);
+           (gid / gx) * TILE, tile, color_full, dcolor,
+           LaneSink{dinst, r8});
 }
 
 }  // namespace

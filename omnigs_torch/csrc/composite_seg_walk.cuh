@@ -1,13 +1,15 @@
-// The per-tile compositing walks for Hopper (sm_90a) of kernels #1-#4: the
-// segmented kernels composite_seg_fwd.cu / composite_seg_bwd.cu and the
-// tile-major kernels composite_tile_fwd.cu / composite_tile_bwd.cu (first
-// launcher). A kernel only places its tile -- the pixel origin (tx0, ty0),
-// the segment [start, start + n) of the (16, rpad) instance slab and the
-// tile's index into the (T, ...) pixel arrays -- and calls fwd_walk or
-// bwd_walk. The per-pair arithmetic, its order and its rounding are those
-// of composite.cuh (which kernel #5 still runs) and of the plain PyTorch
-// versions (composite_seg._walk_fwd_plain / _walk_bwd_plain), so every
-// output bit is theirs; what differs is which work is done.
+// The per-tile compositing walks for Hopper (sm_90a) of the five
+// compositing kernels: the segmented kernels composite_seg_fwd.cu (#1) /
+// composite_seg_bwd.cu (#2) and the tile-major kernels composite_tile_fwd.cu
+// (#3) / composite_tile_bwd.cu (#4 and the fused #5). A kernel only places
+// its tile -- the pixel origin (tx0, ty0), the segment [start, start + n) of
+// the (16, rpad) instance slab and the tile's index into the (T, ...) pixel
+// arrays -- and calls fwd_walk, or bwd_walk with a sink for the rows (#2 and
+// #4 write them at their lanes, #5 adds them into a per-Gaussian table).
+// The per-pair arithmetic, its order and its rounding are those that
+// composite.cuh states and of the plain PyTorch versions
+// (composite_seg._walk_fwd_plain / _walk_bwd_plain), so every output bit of
+// #1-#4 is theirs; what differs is which work is done.
 //
 // 1. Strip masks at staging. While a batch of instances is staged into
 //    shared memory, the thread that loads instance j also decides, once, in
@@ -152,7 +154,7 @@ struct FwdPixel {
   float log_t;    // sum of log1p(-alpha) over them
 };
 
-// One forward pair, as composite.cuh's walk computes it. Returns true when
+// One forward pair, as composite.cuh states it. Returns true when
 // the pixel stops here (its first live instance that fails the T test).
 // With WANT_NC, nc takes k1 (the instance's index in the segment, plus 1)
 // when the pair composites.
@@ -302,26 +304,43 @@ __device__ __forceinline__ int halving_slot(int lane) {
   return held > 0 ? base : -1;
 }
 
+// Where the backward walk puts an instance's nine rows: called once per
+// instance of the segment that the walk reached, by one thread, with the
+// instance's slab lane `at`.
+//
+// LaneSink (kernels #2 and #4): the rows at their own lane of dinst (16,
+// rpad). A lane belongs to one segment, so the block writes its lanes
+// alone: no atomics, and the result is deterministic.
+struct LaneSink {
+  float* dinst;
+  long long rpad;
+  __device__ __forceinline__ void operator()(long long at,
+                                             const float (&rows)[NGRAD]) const {
+#pragma unroll
+    for (int q = 0; q < NGRAD; ++q) dinst[q * rpad + at] = rows[q];
+  }
+};
+
 // The backward walk of one tile, PX threads (one per pixel, a warp two
 // rows): given color_full (T, 3, 256), the forward color with bg * final_T
-// blended in, and dL = dL/dcolor_full (T, 3, 256) at tile `out`, writes the
+// blended in, and dL = dL/dcolor_full (T, 3, 256) at tile `out`, hands the
 // nine gradient rows dL/d(x, y, A, B, C, opacity, r, g, b) of every
-// instance of [start, start + n) at its own lane of dinst (16, rpad)
-// (composite.cuh states the math). One forward walk per pixel from the
-// saved color_full (no reverse pass). A warp visits only the instances
-// whose strip mask has its bit, and sums each visited instance's nine
-// partials over its lanes by recursive halving; after each batch one thread
-// per instance adds the eight warp sums in warp order (a warp that did not
-// visit the instance, or had no composited pixel, adds 0). A lane belongs
-// to one segment, so the block writes its lanes alone: no atomics, and the
-// result is deterministic.
+// instance of [start, start + n) to `sink` (composite.cuh states the math).
+// One forward walk per pixel from the saved color_full (no reverse pass). A
+// warp visits only the instances whose strip mask has its bit, and sums each
+// visited instance's nine partials over its lanes by recursive halving;
+// after each batch one thread per instance adds the eight warp sums in warp
+// order (a warp that did not visit the instance, or had no composited pixel,
+// adds 0). Once every pixel has stopped the walk ends: the instances after
+// that batch reach no sink.
+template <class Sink>
 __device__ __forceinline__ void bwd_walk(const float* __restrict__ inst,
                                          long long rpad, long long start,
                                          int n, int tx0, int ty0,
                                          long long out,
                                          const float* __restrict__ color_full,
                                          const float* __restrict__ dcolor,
-                                         float* __restrict__ dinst) {
+                                         const Sink sink) {
   __shared__ Stage<BWD_BATCH> s;
   // warp sums; the stride BWD_BATCH + 1 puts the nine writer lanes on nine
   // banks
@@ -441,9 +460,7 @@ __device__ __forceinline__ void bwd_walk(const float* __restrict__ inst,
       rows[6] = sum[6];
       rows[7] = sum[7];
       rows[8] = sum[8];
-      const long long at = start + base + tid;
-#pragma unroll
-      for (int q = 0; q < NGRAD; ++q) dinst[q * rpad + at] = rows[q];
+      sink(start + base + tid, rows);
     }
     // also the barrier before the next batch overwrites stage and red
     if (__syncthreads_count(!done) == 0) break;

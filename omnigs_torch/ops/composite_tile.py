@@ -17,8 +17,9 @@ contribution counts ``n_contrib``.
   lane (`csrc/composite_tile_bwd.cu`, replacing `_bwd_kernel`), and
   `composite_tile_bwd_fused` the backward with the instance → Gaussian
   reduction fused in (the second kernel of `csrc/composite_tile_bwd.cu`,
-  replacing `_bwd_kernel_fused`; atomics, so its summation order varies
-  from run to run), each with its plain version beside it.
+  replacing `_bwd_kernel_fused`; atomics into a (P, 16) table, so its
+  summation order varies from run to run), each with its plain version
+  beside it.
 * `_scatter_reduce` (the live-bound scatter) and `gather_reduce_rows` (the
   blocked gather reduction over survivor ranks) reduce instance rows to
   Gaussian rows deterministically.
@@ -28,14 +29,14 @@ contribution counts ``n_contrib``.
   gather. As in the JAX package, ``bg`` gets a zero gradient; ``final_T``
   and ``n_contrib`` are marked non-differentiable.
 
-Kernels #3 and #4 run the segmented kernels' walk
+Kernels #3, #4 and #5 run the segmented kernels' walk
 (`csrc/composite_seg_walk.cuh`) from their tiles' origins and unaligned
-segment starts; #5 runs `csrc/composite.cuh`. The plain versions share
-the walk's plain PyTorch form (`composite_seg._walk_fwd_plain` /
-`_walk_bwd_plain`): one instance at a time with the kernels' operations in
-their order and the backward's pixel sums in the kernels' warp tree, so #3
-(``n_contrib`` included) and #4 equal them bit for bit; #5 adds its rows
-with atomics, in no fixed order.
+segment starts; #4 writes its rows at their lanes, #5 adds them into a
+table row per id. The plain versions share the walk's plain PyTorch form
+(`composite_seg._walk_fwd_plain` / `_walk_bwd_plain`): one instance at a
+time with the kernels' operations in their order and the backward's pixel
+sums in the kernels' warp tree, so #3 (``n_contrib`` included) and #4
+equal them bit for bit; #5 adds its rows with atomics, in no fixed order.
 """
 
 from __future__ import annotations
@@ -61,6 +62,9 @@ from omnigs_torch.ops.preprocess import TILE
 # (the TPU kernel kept the table in on-chip memory), kept so that the fused
 # route runs exactly where the reference takes it
 FUSED_REDUCE_MAX_P = 160 * 1024
+# columns of the fused kernel's per-Gaussian table (`pallas_raster.py:774`
+# keeps a (P, 16) table too): 16-byte-aligned rows for vector atomics
+FUSED_TABLE_COLS = 16
 
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # omnigs_composite_tile_fwd(inst, rpad, starts, counts, x0, y0, num_tiles,
@@ -71,7 +75,7 @@ _FWD_ARGTYPES = [_VP, _I64, _VP, _VP, _VP, _VP, _I32, _I32, _VP, _VP, _VP, _I32,
 #                           dcolor, num_tiles, dinst, device, stream)
 _BWD_ARGTYPES = [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _VP, _I32, _VP]
 # omnigs_composite_tile_bwd_fused(inst, rpad, ids, n_ids, starts, counts, x0,
-#                                 y0, color_full, dcolor, num_tiles, p, acc,
+#                                 y0, color_full, dcolor, num_tiles, p, table,
 #                                 device, stream)
 _FUSED_ARGTYPES = [
     _VP, _I64, _VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _VP, _I32, _VP
@@ -340,8 +344,12 @@ def composite_tile_bwd_fused(
     Same contract as `omnigs_tpu.ops.pallas_raster.composite_pallas_bwd_fused`:
     the rows of `composite_tile_bwd`, summed per ``ids[lane]`` (the depth
     rank under a depth presort) over every lane of every segment. The
-    kernel adds each instance's rows with float atomics, so the order of
-    the additions, and the last bits of the sums, vary from run to run.
+    kernel adds each instance's rows with float atomics into a zeroed (P,
+    FUSED_TABLE_COLS) table, whose 64-byte rows take float4 atomics, as the
+    JAX wrapper's table is (P, 16); the result is the view of its first
+    nine columns (the backward's consumers, a gather by ``inv_perm`` and
+    column slices, take it as it is). The order of the additions, and the
+    last bits of the sums, vary from run to run.
     """
     if inst_T.device.type == "cpu":
         return composite_tile_bwd_fused_plain(
@@ -358,9 +366,11 @@ def composite_tile_bwd_fused(
     ):
         raise ValueError(f"ids must be contiguous (R,) int32 on {dev}, "
                          f"R ≤ {inst_T.shape[1]}")
-    acc = torch.zeros(num_gaussians, NGRAD, dtype=torch.float32, device=dev)
+    table = torch.zeros(
+        num_gaussians, FUSED_TABLE_COLS, dtype=torch.float32, device=dev
+    )
     if num_tiles == 0:
-        return acc
+        return table[:, :NGRAD]
     lib, fn = cuda_build.launcher(
         "composite_tile_bwd", "composite_tile_bwd_fused", _FUSED_ARGTYPES
     )
@@ -368,11 +378,11 @@ def composite_tile_bwd_fused(
         inst_T.data_ptr(), inst_T.shape[1], ids.data_ptr(), ids.shape[0],
         starts.data_ptr(), counts.data_ptr(), x0.data_ptr(), y0.data_ptr(),
         color_full.data_ptr(), dcolor.data_ptr(), num_tiles, num_gaussians,
-        acc.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        table.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, err, "composite_tile_bwd_fused launch")
     composite_tile_bwd_fused.launches += 1
-    return acc
+    return table[:, :NGRAD]
 
 
 composite_tile_bwd_fused.launches = 0

@@ -7,10 +7,11 @@ and prints, for each strategy, ms, ns per live row and the max |Δ| from (a):
 
   a) the port's live-bound scatter reduction of the (R, 9) rows
      (`composite_tile._scatter_reduce`, the production path);
-  b) kernel #6, `reduce_accum`: a hand-written CUDA kernel
-     (`csrc/reduce_accum.cu`, replacing the TPU kernel
-     `scripts/reduce_bench.py::_reduce_kernel`) that adds every live
-     instance's 16 rows into a (16, P) table with float atomics;
+  b) kernel #6, `reduce_accum`: hand-written CUDA (`csrc/reduce_accum.cu`,
+     replacing the TPU kernel `scripts/reduce_bench.py::_reduce_kernel`)
+     that adds every live instance's 16 rows into a Gaussian-major (P, 16)
+     table with four float4 atomics (lanes of a warp with the same id sum
+     first), then transposes it into the (16, P) result;
   c) sort by Gaussian, gather the rows, f32 cumsum and segment difference
      (for the record).
 
@@ -35,9 +36,9 @@ CHUNK = 128
 LIVE_FRAC = 0.92  # live rows of the slab cap at the production reduction
 
 _VP = ctypes.c_void_p
-# omnigs_reduce_accum(ids, rows, r, live, p, acc, device, stream)
+# omnigs_reduce_accum(ids, rows, r, live, p, scratch, acc, device, stream)
 _ARGTYPES = [_VP, _VP, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _VP,
-             ctypes.c_int, _VP]
+             _VP, ctypes.c_int, _VP]
 
 
 def reduce_accum_plain(ids: torch.Tensor, rows: torch.Tensor, p: int) -> torch.Tensor:
@@ -52,8 +53,9 @@ def reduce_accum(ids: torch.Tensor, rows: torch.Tensor, p: int) -> torch.Tensor:
     j < len(ids) with ``ids[j] == g`` (ids (live,) int32 in [0, P), rows
     (16, R) f32 with R ≥ live).
 
-    On a CUDA tensor it launches `csrc/reduce_accum.cu` and counts the
-    launch in ``reduce_accum.launches``; its float atomics sum in no fixed
+    On a CUDA tensor it launches `csrc/reduce_accum.cu` (the accumulate
+    into a zeroed (P, 16) scratch table and its transpose, counted as one
+    launch in ``reduce_accum.launches``); its float atomics sum in no fixed
     order, so the last bits vary from run to run. On a CPU tensor it runs
     `reduce_accum_plain`.
     """
@@ -71,10 +73,12 @@ def reduce_accum(ids: torch.Tensor, rows: torch.Tensor, p: int) -> torch.Tensor:
                          f"{rows.shape[1]}")
     if not rows.is_contiguous() or not ids.is_contiguous():
         raise ValueError("rows and ids must be contiguous")
-    acc = torch.zeros(NROWS, p, dtype=torch.float32, device=dev)
+    scratch = torch.zeros(p, NROWS, dtype=torch.float32, device=dev)
+    acc = torch.empty(NROWS, p, dtype=torch.float32, device=dev)
     lib, fn = cuda_build.launcher("reduce_accum", "reduce_accum", _ARGTYPES)
     err = fn(ids.data_ptr(), rows.data_ptr(), rows.shape[1], ids.shape[0], p,
-             acc.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+             scratch.data_ptr(), acc.data_ptr(), dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, err, "reduce_accum launch")
     reduce_accum.launches += 1
     return acc

@@ -5,8 +5,8 @@ Counterpart of the first half of `omnigs_tpu/utils/profiling.py`:
 * `step_timer` — host wall-clock spans, bracketed by a device synchronise
   when the device is a CUDA card (PyTorch returns before the card
   finishes, so an unsynchronised span measures the enqueue).
-* `mean_ms` — the mean time of repeated calls: CUDA events on a card, the
-  host clock on the CPU.
+* `mean_ms` — the mean time of repeated calls: CUDA events on a card
+  (device time of back-to-back calls), the host clock on the CPU.
 * `device_peak_memory_mb` / `PeakMemoryTracker` — peak and current device
   memory from `torch.cuda`'s allocator statistics. A CPU device has none:
   the dict is empty.
@@ -37,17 +37,29 @@ def step_timer(results: Dict[str, float], key: str, device=None):
     results[key] = (time.perf_counter() - t0) * 1000.0
 
 
+# cycles the card sleeps before a timed run (~5 ms): the host enqueues the
+# warm-up and timed calls meanwhile, so that calls shorter than their own
+# launch overhead still run back to back on the device
+QUEUE_AHEAD_CYCLES = 10_000_000
+
+
 def mean_ms(fn, device, reps: int = 10, warmup: int = 2) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` calls after ``warmup``:
-    CUDA events around the calls on a CUDA ``device`` (device time, launch
-    gaps included), the host clock otherwise."""
-    for _ in range(warmup):
-        fn()
+    CUDA events around the calls on a CUDA ``device``, the host clock
+    otherwise. On a card the stream is first held busy (``torch.cuda._sleep``)
+    while the host enqueues every call, so the events measure the calls'
+    device time without the host's launch gaps, as long as the host
+    enqueues them within that time."""
     if torch.device(device).type != "cuda":
+        for _ in range(warmup):
+            fn()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+    for _ in range(warmup):
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()

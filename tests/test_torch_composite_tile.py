@@ -48,20 +48,30 @@ def _prep_pair(seed, n, squeeze=None):
             tpre.Preprocessed(*[torch.from_numpy(a) for a in arrays]))
 
 
-def _layout(seed, n, max_instances, squeeze=None):
+def _layout(seed, n, max_instances, squeeze=None, binning="packed"):
     """JAX pipeline → compact slab, layout and per-Gaussian arrays (numpy),
-    the forward's color_full over bg and a seeded dL/dcolor."""
+    the forward's color_full over bg and a seeded dL/dcolor. ``binning``:
+    the packed key with the survivor-rank payload ("packed"), the 2-key
+    binning ("two_key") or the ghost-aligned one ("ghost")."""
     pj, _ = _prep_pair(seed, n, squeeze)
-    inst = jbin.bin_instances_packed(
-        pj, GX, GY, max_instances, tile_cull=True, with_emission=True
-    )
+    if binning == "packed":
+        inst = jbin.bin_instances_packed(
+            pj, GX, GY, max_instances, tile_cull=True, with_emission=True
+        )
+    elif binning == "two_key":
+        inst = jbin.bin_instances(pj, GX, GY, max_instances, tile_cull=True)
+    else:
+        inst = jbin.bin_instances_aligned(
+            pj, GX, GY, max_instances, jpr.CHUNK, tile_cull=True
+        )
     g = {k: np.array(getattr(pj, k)) for k in ("means2d", "conic", "rgb", "opacity")}
     slab = jpr._build_inst(
         *[jnp.asarray(g[k]) for k in ("means2d", "conic", "rgb", "opacity")],
         inst.sorted_g, jnp.max(inst.starts + inst.counts), inst.perm,
     )
     t_ids = np.arange(T)
-    lay = {k: np.array(getattr(inst, k)) for k in INTS if hasattr(inst, k)}
+    lay = {k: np.array(getattr(inst, k)) for k in INTS
+           if getattr(inst, k, None) is not None}
     lay["x0"] = ((t_ids % GX) * 16).astype(np.int32)
     lay["y0"] = ((t_ids // GX) * 16).astype(np.int32)
     ti = {k: torch.from_numpy(v) for k, v in lay.items()}
@@ -86,12 +96,19 @@ CASES = {
     # unaligned starts across several 128-lane chunks
     "multichunk": dict(seed=33, n=512, squeeze=(0.2, 0.2, 1.0), max_instances=1 << 13),
 }
+# the other slab layouts on which the rasterizer takes the fused route
+# (fused_reduce=True needs no emission payload; RasterConfig allows it with
+# or without a depth presort and with ghost alignment)
+FUSED_CASES = {
+    "multichunk_two_key": dict(CASES["multichunk"], binning="two_key"),
+    "multichunk_ghost": dict(CASES["multichunk"], binning="ghost"),
+}
 _LAYOUTS = {}
 
 
 def _get(case):
     if case not in _LAYOUTS:
-        _LAYOUTS[case] = _layout(**CASES[case])
+        _LAYOUTS[case] = _layout(**{**CASES, **FUSED_CASES}[case])
     return _LAYOUTS[case]
 
 
@@ -206,7 +223,7 @@ def test_bwd_plain_matches_jax(case):
     assert (got[:, ~in_seg] == 0).all() and (got[9:] == 0).all()
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(CASES) + list(FUSED_CASES))
 def test_bwd_fused_plain_matches_jax(case):
     d = _get(case)
     lay = d["lay"]
@@ -307,9 +324,39 @@ def _torch_function(d, route):
     outs = tct.composite_instances(
         g["means2d"], g["conic"], g["rgb"], g["opacity"], bg,
         *[ti[k] for k in ("sorted_g", "starts", "counts", "x0", "y0")], *emis,
-        ti["perm"], ti["inv_perm"], T, True, route == "fused",
+        ti.get("perm"), ti.get("inv_perm"), T, True, route == "fused",
     )
     return outs, [g["means2d"], g["conic"], g["rgb"], g["opacity"], bg]
+
+
+@pytest.mark.parametrize("case", ["multichunk", "multichunk_two_key"])
+def test_fused_backward_takes_the_table_view(case, monkeypatch):
+    """On the card the fused wrapper returns the first nine columns of its
+    (P, 16) table as a view, not a copy: the backward's consumers (the
+    gather by ``inv_perm`` after a depth presort, the column slices without
+    one) and autograd give bit for bit the gradients of a contiguous (P, 9)
+    result."""
+    d = _get(case)
+    assert (d["ti"].get("inv_perm") is None) == (case == "multichunk_two_key")
+    dcolor = torch.from_numpy(d["dcolor"])
+    (color, _, _), inputs = _torch_function(d, "fused")
+    ref = torch.autograd.grad(color, inputs[:4], dcolor)
+    plain = tct.composite_tile_bwd_fused
+
+    def table_view(*args):
+        acc = plain(*args)
+        table = torch.full((acc.shape[0], tct.FUSED_TABLE_COLS), float("nan"))
+        table[:, : tct.NGRAD] = acc
+        view = table[:, : tct.NGRAD]
+        assert not view.is_contiguous()
+        return view
+
+    monkeypatch.setattr(tct, "composite_tile_bwd_fused", table_view)
+    (color, _, _), inputs = _torch_function(d, "fused")
+    got = torch.autograd.grad(color, inputs[:4], dcolor)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert max(float(g.abs().max()) for g in got) > 0
 
 
 @pytest.mark.parametrize("route", ["scatter", "gather", "fused"])

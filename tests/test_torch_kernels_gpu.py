@@ -10,13 +10,17 @@ one walk, and the plain versions repeat its operations in their order, the
 pixel sums in the kernels' warp tree) — the segmented #1/#2 on sparse,
 dense, many-small and larger-than-a-tile clouds, the tile-major #3 (with
 n_contrib) and #4 on compact slabs with unaligned segment starts; the
-fused backward, whose atomics change its summation order, at
-the same relative bar against the plain backward + reduction; the training
+fused backward #5, whose atomics change its summation order, against the
+plain backward + reduction at max |Δ| ≤ 1e-4 of each row's max |plain| (the
+relative bar of the backwards) on the packed, 2-key and ghost-aligned
+slabs and on a slab where one Gaussian sits in many tiles; the training
 step on the card against the same step on the CPU at the gradient bars of
-tests/test_torch_trainer.py; the script kernels #6 (against a float64 sum,
-its atomics' order varies), #7 (bitwise) and #8 (each mode, 1e-5 of
-max(1, max|plain|)); renders through the ghost-aligned, no-presort and XLA
-layouts on the card against the CPU at 1e-5."""
+tests/test_torch_trainer.py, and the fused step's launches; the script
+kernels #6 (against a float64 sum at the reduction bar, rtol 2e-3, atol
+1e-4 of the max: its atomics' order varies; uniform and Zipf-like ids, a
+P that is not a multiple of its transpose tile), #7 (bitwise) and #8
+(each mode, 1e-5 of max(1, max|plain|)); renders through the ghost-aligned,
+no-presort and XLA layouts on the card against the CPU at 1e-5."""
 
 import numpy as np
 import pytest
@@ -324,15 +328,96 @@ def test_composite_tile_bwd_kernels_match_plain(seed, n, squeeze):
     assert (tct.composite_tile_bwd.launches, tct.composite_tile_bwd_fused.launches) == (
         before[0] + 1, before[1] + 1)
     ref = tct.composite_tile_bwd_plain(*args, color_full, dcolor, 128)
-    ref_fused = tct.composite_tile_bwd_fused_plain(
-        args[0], ids, *args[1:], color_full, dcolor, 128, n
-    )
     assert torch.equal(got, ref)
     for r in range(tct.NGRAD):
         assert float(ref[r].abs().max()) > 0
-        scale = float(ref_fused[:, r].abs().max())
-        assert float((fused[:, r] - ref_fused[:, r]).abs().max()) <= 1e-4 * scale, r
+    _fused_close(fused, args, ids, color_full, dcolor, n)
     assert bool((got[tct.NGRAD:] == 0).all())
+
+
+def _fused_close(fused, args, ids, color_full, dcolor, p):
+    """#5's (P, 9) rows against its plain version: max |Δ| ≤ 1e-4 of each
+    row's max |plain| (its atomics add in no fixed order)."""
+    ref = tct.composite_tile_bwd_fused_plain(
+        args[0], ids, *args[1:], color_full, dcolor, args[1].shape[0], p
+    )
+    assert fused.shape == ref.shape == (p, tct.NGRAD)
+    for r in range(tct.NGRAD):
+        scale = float(ref[:, r].abs().max())
+        assert scale > 0, r
+        assert float((fused[:, r] - ref[:, r]).abs().max()) <= 1e-4 * scale, r
+
+
+def _layout_slab(dev, cloud, layout):
+    """(args, ids) of ``cloud``'s slab at 256×128 through the packed
+    ("packed"), 2-key ("two_key") or ghost-aligned ("ghost") binning."""
+    prep = preprocess(
+        cloud["means3d"], cloud["scales"], cloud["quats"], cloud["opacities"],
+        cloud["shs"], Camera(CameraType.LONLAT, 256, 128), torch.eye(4), torch.zeros(3),
+        2, tight_culling=True,
+    )
+    if layout == "packed":
+        inst = bin_instances_packed(prep, 16, 8, 1 << 14, tile_cull=True)
+    elif layout == "two_key":
+        inst = bin_instances(prep, 16, 8, 1 << 14, tile_cull=True)
+    else:
+        inst = bin_instances_aligned(prep, 16, 8, 1 << 14, chunk=tct.CHUNK, tile_cull=True)
+    slab = tct._build_inst(
+        prep.means2d, prep.conic, prep.rgb, prep.opacity, inst.sorted_g,
+        torch.amax(inst.starts + inst.counts), inst.perm,
+    )
+    args = [t.to(dev) for t in (slab, inst.starts, inst.counts, *tct.tile_origins(16, 8))]
+    return args, inst.sorted_g.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["two_key", "ghost", "contention"])
+def test_fused_bwd_kernel_matches_plain_on_layouts(layout):
+    """#5 on the other layouts the fused route takes (the 2-key and the
+    ghost-aligned binnings, whose ghost lanes hold id 0 and zero rows), and
+    on a packed slab where one Gaussian sits in many tiles (its rows meet
+    in one table row from many blocks), against its plain version."""
+    dev = _cuda()
+    c = to_torch(random_cloud_np(52, 256))
+    c["means3d"] = c["means3d"] * torch.tensor((0.3, 0.3, 1.0))
+    if layout == "contention":
+        c["scales"][0] = 1.5
+        c["opacities"][0] = 0.3
+    args, ids = _layout_slab(dev, c, "packed" if layout == "contention" else layout)
+    if layout == "contention":
+        live = int(torch.amax(args[1] + args[2]))
+        assert int(torch.bincount(ids[:live].long()).max()) >= 64
+    kc, kt, _ = tct.composite_tile_fwd(*args, 128)
+    color_full = (kc + kt[:, None, :] * 0.2).contiguous()
+    dcolor = torch.from_numpy(
+        np.random.default_rng(52).normal(size=(128, 3, 256)).astype(np.float32)
+    ).to(dev)
+    before = tct.composite_tile_bwd_fused.launches
+    fused = tct.composite_tile_bwd_fused(args[0], ids, *args[1:], color_full, dcolor, 128, 256)
+    torch.cuda.synchronize()
+    assert tct.composite_tile_bwd_fused.launches == before + 1
+    _fused_close(fused, args, ids, color_full, dcolor, 256)
+
+
+@pytest.mark.gpu
+def test_fused_step_launches_the_fused_kernel_only():
+    """A `train_step` with fused_reduce=True on the tile-major path
+    launches #5 once, #4 never, and #3 once."""
+    dev = _cuda()
+    fields = random_model_np(53, 512, 400, scale_mu=-2.5)
+    cfg = RasterConfig(max_instances=1 << 14, **dict(
+        PROD_KW, segmented=False, want_ncontrib=True, fused_reduce=True,
+        gather_reduce=False))
+    gt = torch.from_numpy(
+        np.random.default_rng(53).uniform(size=(3, 128, 256)).astype(np.float32)
+    )
+    kernels = (tct.composite_tile_bwd_fused, tct.composite_tile_bwd, tct.composite_tile_fwd)
+    before = [k.launches for k in kernels]
+    _, st, aux = _step(dev, fields, gt, cfg)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 0, 1]
+    assert np.isfinite(float(aux["loss"]))
+    assert all(bool(torch.isfinite(v).all()) for v in st.mu.values())
 
 
 @pytest.mark.gpu
@@ -384,19 +469,33 @@ def test_tile_bwd_kernel_and_reduction_are_bitwise_repeatable():
 
 
 @pytest.mark.gpu
-def test_reduce_accum_kernel_matches_float64():
+@pytest.mark.parametrize("ids_kind,p", [("uniform", 4096), ("zipf", 4096),
+                                        ("uniform", 4093)])
+def test_reduce_accum_kernel_matches_float64(ids_kind, p):
     """#6 against the float64 sum of the same rows at the reduction bar
     (rtol 2e-3, atol 1e-4 of each row's max): its atomics sum in no fixed
-    order. Its plain version is that sum in float32."""
+    order. Its plain version is that sum in float32. Uniform ids; Zipf-like
+    ids (a few ids take most rows, so a warp's ids repeat); and P = 4093,
+    not a multiple of the transpose's 128 Gaussians (the ragged edge), with
+    ids up to P − 1."""
     dev = _cuda()
-    ids, rows, live = trb.make_inputs(1 << 16, 4096, dev, seed=46)
+    ids, rows, live = trb.make_inputs(1 << 16, p, dev, seed=46)
+    if ids_kind == "zipf":
+        w = np.arange(1, p + 1, dtype=np.float64) ** -1.0
+        rng = np.random.default_rng(46)
+        ranks = rng.choice(p, size=ids.shape[0], p=w / w.sum())
+        ids = torch.from_numpy(rng.permutation(p)[ranks].astype(np.int32)).to(dev)
+        assert int(torch.bincount(ids[:live].long()).max()) > 32 * 64
+    else:
+        assert int(ids[:live].max()) == p - 1
     before = trb.reduce_accum.launches
-    got = trb.reduce_accum(ids[:live], rows, 4096)
+    got = trb.reduce_accum(ids[:live].contiguous(), rows, p)
     torch.cuda.synchronize()
     assert trb.reduce_accum.launches == before + 1
-    exact = torch.zeros(16, 4096, dtype=torch.float64, device=dev)
+    assert got.shape == (16, p)
+    exact = torch.zeros(16, p, dtype=torch.float64, device=dev)
     exact.index_add_(1, ids[:live].to(torch.int64), rows[:, :live].to(torch.float64))
-    for acc in (got, trb.reduce_accum_plain(ids[:live], rows, 4096)):
+    for acc in (got, trb.reduce_accum_plain(ids[:live], rows, p)):
         ref = exact.cpu().numpy()
         np.testing.assert_allclose(acc.cpu().numpy(), ref, rtol=2e-3,
                                    atol=1e-4 * np.abs(ref).max())

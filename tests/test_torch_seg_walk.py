@@ -13,7 +13,9 @@ kernels #1-#4) on the CPU, where the kernels cannot run.
   float32 operations at the tiles' origins; the plain walk's composited
   pixels (`warp_gate`) are a subset of the live ones.
 * Every ablation of `omnigs_torch/utils/kernel_variants.py` edits the
-  shared walk once.
+  shared walk once (and so reaches #1-#5); the ablations of #5's table sink
+  and of #6 edit their own sources once. `composite.cuh` holds no walk, and
+  every compositing kernel (#1-#5) runs the shared one.
 * The backward's recursive-halving warp sums (12 shuffles) equal the xor
   butterfly (45) bit for bit, -0.0 and inf included, in a numpy float32
   emulation of the exchange the kernel unrolls; the plain backward sums the
@@ -252,6 +254,51 @@ def test_ablations_edit_the_shared_walk_once(tmp_path, monkeypatch):
             assert new in text, name
         for src in kernel_variants.SOURCES:
             assert '#include "composite_seg_walk.cuh"' in (tree / f"{src}.cu").read_text()
+        # the fused backward #5 sits in #4's source and runs the same walk
+        fused = (tree / "composite_tile_bwd.cu").read_text()
+        assert re.search(r"composite_tile_bwd_fused_kernel\([^{]*\{[^}]*bwd_walk\(",
+                         fused), name
+
+
+def test_sink_and_reduce_ablations_edit_their_sources_once(tmp_path, monkeypatch):
+    """The ablations of #5's table sink edit composite_tile_bwd.cu, those of
+    #6 reduce_accum.cu, each anchor exactly once; the earlier (p, 9) table
+    width is the scalar sink's."""
+    monkeypatch.setattr(kernel_variants, "VARIANT_DIR", tmp_path)
+    for edits, fname in ((kernel_variants.SINK_ABLATIONS, "composite_tile_bwd.cu"),
+                         (kernel_variants.REDUCE_ABLATIONS, "reduce_accum.cu")):
+        assert edits
+        for name, e in edits.items():
+            tree = kernel_variants._variant_tree(name, e)
+            assert {f for f, _, _ in e} == {fname}
+            text = (tree / fname).read_text()
+            for _, old, new in e:
+                assert new in text and old not in text, name
+    cols = kernel_variants._variant_tree(
+        "scalar_sink", kernel_variants.SINK_ABLATIONS["scalar_sink"])
+    assert "constexpr int TABLE_COLS = 9;" in (cols / "composite_tile_bwd.cu").read_text()
+    src = (HEADER.parent / "composite_tile_bwd.cu").read_text()
+    assert f"constexpr int TABLE_COLS = {tct.FUSED_TABLE_COLS};" in src
+
+
+def test_every_compositing_kernel_runs_the_shared_walk():
+    """composite.cuh keeps the constants and no walk; each `__global__` of
+    the compositing sources (#1-#5) calls fwd_walk or bwd_walk."""
+    csrc = HEADER.parent
+    base = (csrc / "composite.cuh").read_text()
+    assert "__device__" not in base and "__global__" not in base
+    assert "constexpr float T_STOP" in base
+    kernels = {}
+    for src in kernel_variants.SOURCES:
+        text = (csrc / f"{src}.cu").read_text()
+        for m in re.finditer(r"__global__ void __launch_bounds__\([^)]*\) (\w+)\(", text):
+            body = text[m.end():text.index("\n}\n", m.end())]
+            kernels[m.group(1)] = body
+    assert set(kernels) == {
+        "composite_seg_fwd_kernel", "composite_seg_bwd_kernel", "composite_tile_fwd_kernel",
+        "composite_tile_bwd_kernel", "composite_tile_bwd_fused_kernel"}
+    for name, body in kernels.items():
+        assert re.search(r"\b(fwd_walk<[^>]*>|bwd_walk)\(", body), name
 
 
 def test_strip_mask_edge_rules():
