@@ -11,9 +11,9 @@ script exits non-zero:
 2. build  — every CUDA kernel of the paths, built from the repository's
    sources in parallel (`omnigs_torch/cuda_build.py`), with nvcc's register
    and shared-memory report; the compositing kernels #1-#4 (the two
-   sources of each layout, on one walk; #5 shares #4's source) and #6's
-   two kernels may use no stack and spill nothing; the `ptxas` line holds
-   the report of #4, #5 and #6's two kernels.
+   sources of each layout, on one walk; #5 shares #4's source), #6's two
+   kernels and #8's six modes may use no stack and spill nothing; the
+   `ptxas` line holds the report of #4, #5, #6's two kernels and #8.
 3. kernel — at full width (1920×960 lonlat, P = 131,072 at SH degree 3):
    the instance slab of one pose through the port's preprocess, binning
    and re-lay; the forward CUDA kernel against its plain PyTorch version on
@@ -122,8 +122,14 @@ script exits non-zero:
    (`omnigs_torch/scripts/`), each run through its `main` with the launch
    counters set to 0 just before and read just after, then its kernel
    against its plain version at the script's sizes (#6 against a float64
-   sum at the reduction bar, #7 bit for bit, #8 per mode at the forward
-   bars), times, bound and library call. reduce_compare — #6 of the
+   sum at the reduction bar, #7 bit for bit, #8 per mode bit for bit and
+   at the forward bars, with its pairs, warp-lane pairs visited / live /
+   culled, digest and its bound beside the all-lanes count), times, bound and
+   library call. ablate_compare — #8 of the earlier sources (when
+   present), the present ones, the walk's `no_cull` and `fwd_rows_1` and
+   its own ablations (`no_count_trim`, `no_live_skip`, `no_warp_stop`,
+   `dma_per_thread`) in each mode on the script's slab: every build's
+   bytes and digest those of production, ms in turns. reduce_compare — #6 of the
    earlier sources (when present), the present ones and the `scalar_table`
    ablation (16 scalar atomics into the (P, 16) table) on the script's
    uniform ids, on Zipf-like ids and on the live lanes of pose 0's
@@ -142,7 +148,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import hashlib
 import json
 import math
 import re
@@ -215,14 +220,19 @@ XLA_GRAD_RTOL = 1e-3
 XLA_GRAD_ATOL = 1e-4
 XLA_STEP_RTOL = 2e-3
 XLA_STEP_ATOL = 2e-4
-# kernel #8: fp32 operations per visited lane-pixel pair of each mode (a
-# transcendental or a bf16 rounding counts as one): the α math (dx, dy, the
-# quadratic form 8, clamp, exp, opacity, clamp, three tests, select = 19),
-# then alpha +1 (the lane sum); notrans +11 (prefix, 1 + cs, N·, a·, three
-# multiply-adds 6, Σa); nocumsum +11 (log1p, Σl, exp, N·, a·, 6); lowprec
-# +17 (log1p, Σl, round, prefix, exp, N·, a·, round, three rgb rounds, 6);
-# full +16 (log1p, Σl, prefix, exp, N·, 1 − a, division, test, a·, mask, 6)
-ABLATE_OPS = {"alpha": 20, "notrans": 30, "nocumsum": 30, "lowprec": 36, "full": 35}
+# kernel #8: fp32 operations (a transcendental or a bf16 rounding counts as
+# one) per lane-pixel pair with the lane below the tile's count in a
+# visited chunk, the α math (dx, dy, the quadratic form 8, clamp, exp,
+# opacity, clamp, three tests, select = 19); and per live pair (a > 0) the
+# mode's tail: alpha +1 (the lane sum); notrans +11 (prefix, 1 + cs, N·,
+# a·, three multiply-adds 6, Σa); nocumsum +11 (log1p, Σl, exp, N·, a·, 6);
+# lowprec +17 (log1p, Σl, round, prefix, exp, N·, a·, round, three rgb
+# rounds, 6); full +16 (log1p, Σl, prefix, exp, N·, 1 − a, division, test,
+# a·, mask, 6). The earlier count, which charged 19 + the tail per pair of
+# all 128 lanes of every visited chunk, stays beside it on the ablate line
+# (`bound_ms_all_lanes`).
+ABLATE_ALPHA_OPS = 19
+ABLATE_TAIL_OPS = {"alpha": 1, "notrans": 11, "nocumsum": 11, "lowprec": 17, "full": 16}
 # reduce_compare's skewed ids: Zipf's exponent over P ranks
 ZIPF_S = 1.0
 # the card tests' child process
@@ -398,11 +408,11 @@ def ptxas_of(lines, kernel):
 
 
 def _digest(*tensors):
-    """sha256 (16 hex digits) of the tensors' bytes."""
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
+    """sha256 (16 hex digits) of the tensors' bytes, as the build
+    comparisons of `kernel_variants` take it."""
+    from omnigs_torch.utils.kernel_variants import digest
+
+    return digest(tensors)
 
 
 def warp_pairs(torch, slab, starts, counts, x0, y0, n_used, gate, strip_rows):
@@ -2216,29 +2226,51 @@ def emit_phase(torch):
 def ablate_phase(torch):
     """Kernel #8: the script's run (six modes, and full's color against
     kernel #3's), then each mode against its plain version on the script's
-    slab (max |Δ| ≤ 1e-4, p99.9 ≤ 1e-5, both of max(1, max|plain|)), times,
-    the lane-pixel pairs each mode visits and its bound."""
+    slab, bit for bit (and max |Δ| ≤ 1e-4, p99.9 ≤ 1e-5, both of max(1,
+    max|plain|)), a digest of its output, times, the pairs the function
+    needs (α per pair below the count in a visited chunk, the mode's tail
+    per live pair) and its bound beside the all-lanes count, and the warp-lane
+    pairs the kernel's warps (`FWD_STRIP` rows) walk, of those the ones
+    with a live pixel and the ones their strip masks drop."""
+    from omnigs_torch.ops import composite_seg as cs
     from omnigs_torch.scripts import kernel_ablate as ka
 
     result, printed, launches = _script_main(torch, ka)
     s = ka.build_slab(torch.device("cuda"))
     slab = (s["inst_T"], s["starts"], s["counts"], s["x0"], s["y0"])
     t = s["num_tiles"]
+    counts64 = s["counts"].to(torch.int64)
     modes = {}
     for mode in ka.MODES:
         with torch.inference_mode():
             got = ka.kernel_ablate(mode, *slab)
-            (plain, visited), plain_ms = _plain_ms(
+            (plain, visited, live, walked), plain_ms = _plain_ms(
                 torch, lambda m=mode: ka.kernel_ablate_plain(m, *slab))
             scale = max(1.0, float(plain.abs().max()))
             diff = ((got - plain).abs() / scale).flatten()
+            pairs = {}
+            if mode != "dma":  # the warps' live pixels: once more, untimed
+                gate = torch.zeros(s["inst_T"].shape[1], dtype=torch.int32, device=got.device)
+                ka.kernel_ablate_plain(mode, *slab, warp_gate=gate)
+                pairs = warp_pairs(torch, s["inst_T"], s["starts"], s["counts"], s["x0"],
+                                   s["y0"], walked, gate, cs.FWD_STRIP)
+                del gate
             kernel_ms = time_ms(torch, lambda m=mode: ka.kernel_ablate(m, *slab), reps=10)
         chunks = int(visited.sum())
-        pairs = chunks * ka.CHUNK * 256
+        lanes = int(torch.minimum(counts64, visited * ka.CHUNK).sum())
+        live_pairs = int(live.sum())
         rows = 3 if mode == "dma" else ka.NSTAGE
-        # dma's work is its lane sums and plane adds, not per pair
-        ops = chunks * 3 * (ka.CHUNK + 256) if mode == "dma" else pairs * ABLATE_OPS[mode]
-        nbytes = rows * 4 * ka.CHUNK * chunks + 4 * 4 * t + 3 * 4 * 256 * t
+        out_bytes = 4 * 4 * t + 3 * 4 * 256 * t
+        if mode == "dma":
+            # its lane sums and plane adds, not per pair; all 128 lanes
+            ops = ops_all_lanes = chunks * 3 * (ka.CHUNK + 256)
+            nbytes = nbytes_all_lanes = rows * 4 * ka.CHUNK * chunks + out_bytes
+        else:
+            ops = lanes * 256 * ABLATE_ALPHA_OPS + live_pairs * ABLATE_TAIL_OPS[mode]
+            ops_all_lanes = (chunks * ka.CHUNK * 256
+                             * (ABLATE_ALPHA_OPS + ABLATE_TAIL_OPS[mode]))
+            nbytes = rows * 4 * lanes + out_bytes
+            nbytes_all_lanes = rows * 4 * ka.CHUNK * chunks + out_bytes
         bound_ms, bound_by = _bound(ops, nbytes)
         modes[mode] = {
             "max_abs_err": float(diff.max()) * scale,
@@ -2246,20 +2278,50 @@ def ablate_phase(torch):
             "p999_rel_err": float(torch.sort(diff).values[int(0.999 * (diff.numel() - 1))]),
             "bitwise": bool(torch.equal(got, plain)),
             "finite": bool(torch.isfinite(got).all()),
-            "visited_chunks": chunks, "pairs": pairs, "ops": ops, "bytes": nbytes,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "digest": _digest(got),
+            "visited_chunks": chunks, "lanes_below_count": lanes,
+            "pairs": lanes * 256, "live_pairs": live_pairs, **pairs,
+            "ops": ops, "bytes": nbytes, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "ops_all_lanes": ops_all_lanes,
+            "bound_ms_all_lanes": _bound(ops_all_lanes, nbytes_all_lanes)[0],
         }
+        del plain, walked
     res = {"phase": "ablate", "name": "kernel_ablate", "script": result,
            "printed": printed, "launches": launches, "tiles": t,
-           "instances": int(s["counts"].sum()), "modes": modes}
+           "instances": int(counts64.sum()), "modes": modes}
     emit(res)
-    bad = {m: v for m, v in modes.items() if not v["finite"]
+    bad = {m: v for m, v in modes.items() if not v["finite"] or not v["bitwise"]
            or v["max_rel_err"] > MAX_ERR_BAR or v["p999_rel_err"] > P999_ERR_BAR}
     if launches["kernel_ablate"] < len(ka.MODES) or bad:
         raise RuntimeError(f"kernel_ablate: launches {launches['kernel_ablate']}, "
                            f"modes off their plain versions {sorted(bad)}")
-    return res
+    return res, slab
+
+
+def ablate_compare_phase(torch, ares, slab):
+    """Kernel #8 in every build (`kernel_variants.compare_ablate`: the
+    earlier sources in ``SEG_BEFORE`` when that copy exists, the present
+    ones, the walk's `no_cull` and `fwd_rows_1` and `ABLATE_ABLATIONS`) in
+    each mode on the script's slab: every build's output bytes (and
+    digest) equal to the production build's, ms in turns, ptxas per
+    build, the mode's bound."""
+    from omnigs_torch.utils import kernel_variants as kv
+
+    before = SEG_BEFORE if SEG_BEFORE.is_dir() else None
+    res = kv.compare_ablate(before, *slab)
+    line = {"phase": "ablate_compare",
+            "before": None if before is None else str(SEG_BEFORE.relative_to(REPO))}
+    for mode, r in res.items():
+        m = ares["modes"][mode]
+        line[mode] = {"bound_ms": m["bound_ms"], "digest_new": m["digest"], **r}
+    emit(line)
+    bad = [f"{mode}/{v}" for mode, r in res.items() for v, b in r.items()
+           if v != "order" and not (b["bytes_equal_new"]
+                                    and b["digest"] == ares["modes"][mode]["digest"])]
+    if bad:
+        raise RuntimeError(f"kernel_ablate builds whose bytes differ from production: {bad}")
+    return line
 
 
 def main() -> int:
@@ -2296,9 +2358,10 @@ def main() -> int:
     cuda_build.build(sources)  # one nvcc per source, all in parallel
     report = {k: cuda_build.BUILD_REPORT.get(k, "cached") for k in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "report": report})
-    # kernels #1-#4, #5 (which shares #4's source) and #6's two kernels
+    # kernels #1-#4, #5 (which shares #4's source), #6's two kernels and
+    # #8's six modes
     for k in ("composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
-              "composite_tile_bwd", "reduce_accum"):
+              "composite_tile_bwd", "reduce_accum", "kernel_ablate"):
         if report[k] != "cached" and not ptxas_clean(report[k]["ptxas"]):
             raise RuntimeError(f"{k}: ptxas reports stack or spills: {report[k]['ptxas']}")
     emit({"phase": "ptxas", **{
@@ -2306,7 +2369,8 @@ def main() -> int:
         for src, name in (("composite_tile_bwd", "composite_tile_bwd_kernel"),
                           ("composite_tile_bwd", "composite_tile_bwd_fused_kernel"),
                           ("reduce_accum", "reduce_accum_kernel"),
-                          ("reduce_accum", "reduce_transpose_kernel"))}})
+                          ("reduce_accum", "reduce_transpose_kernel"),
+                          ("kernel_ablate", "kernel_ablate_kernel"))}})
 
     cfg = raster_config_from(load_config(CONFIG))
     camera = Camera(CameraType.LONLAT, WIDTH, HEIGHT)
@@ -2354,7 +2418,9 @@ def main() -> int:
     reduce_compare_phase(torch, reduce_inputs)
     del reduce_inputs
     emi = emit_phase(torch)
-    abl = ablate_phase(torch)
+    abl, ablate_slab = ablate_phase(torch)
+    ablate_compare_phase(torch, abl, ablate_slab)
+    del ablate_slab
     card_test_phase(torch)
 
     emit({"kernels": [

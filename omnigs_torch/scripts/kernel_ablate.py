@@ -10,7 +10,18 @@ transcendentals, the prefix sums, the color product, bf16 operands):
 
   dma, alpha, notrans, nocumsum, lowprec, full
 
-on the ghost-aligned slab of one pose at lonlat 1920×960: P = 2^17
+Each mode keeps the TPU kernel's function bit for bit; on the card all six
+run one staging and one walk, so "mode − dma" is what the mode's
+arithmetic costs there. ``dma`` is the staging floor (the TPU's
+double-buffered DMA windows hid load latency in a grid that runs in order;
+on the card other resident blocks do), ``alpha`` the α math of the visited
+pairs, ``notrans`` the compositing without transcendentals, ``nocumsum``
+the log1p/exp pair per live pair, ``full`` the prefix, the division and
+the mask on top. ``lowprec`` rounds the operands to bf16: on the TPU that
+saved matrix-unit passes of the prefix and color products; on the card
+those are sequential per pixel, so it only adds conversions.
+
+It runs on the ghost-aligned slab of one pose at lonlat 1920×960: P = 2^17
 Gaussians of the JAX package's example model (`__graft_entry__.py`'s
 `_example_model`, drawn here from a seeded `torch.Generator`), the view
 matrix the identity, SH degree 3, tight culling; `bin_instances_aligned`
@@ -38,7 +49,9 @@ from omnigs_torch.cameras import Camera, CameraType
 from omnigs_torch.model.gaussians import GaussianModel
 from omnigs_torch.ops import composite_tile as ct
 from omnigs_torch.ops.binning import bin_instances_aligned
-from omnigs_torch.ops.composite_seg import ALPHA_MAX, ALPHA_MIN, PX, T_STOP
+from omnigs_torch.ops.composite_seg import (
+    ALPHA_MAX, ALPHA_MIN, FWD_STRIP, PX, T_STOP, TILE, _warp_bits,
+)
 from omnigs_torch.ops.preprocess import preprocess, tile_grid
 from omnigs_torch.utils.profiling import mean_ms
 
@@ -57,14 +70,18 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk_colors(mode, d, c, counts, px, py, n):
-    """One chunk of every tile: (color increment (T, 3, PX), new N (T, PX)),
-    with ``d`` (rows, T, CHUNK) the chunk's staged rows, one lane at a time
-    with the kernel's operations in its order."""
+    """One chunk of every tile: (color increment (T, 3, PX), new N (T, PX),
+    live (T, PX) int32 pairs with a > 0 per pixel, bits (T, CHUNK) int32
+    `_warp_bits` of each lane's live pixels), with ``d`` (rows, T, CHUNK)
+    the chunk's staged rows, one lane at a time with the kernel's operations
+    in its order."""
+    n_live = torch.zeros(n.shape, dtype=torch.int32, device=n.device)
+    bits = torch.zeros(n.shape[0], CHUNK, dtype=torch.int32, device=n.device)
     if mode == "dma":
         sums = torch.zeros_like(d[:3, :, 0])
         for k in range(CHUNK):
             sums = sums + d[:3, :, k]
-        return sums.T[:, :, None].expand(-1, -1, PX), n
+        return sums.T[:, :, None].expand(-1, -1, PX), n, n_live, bits
     zero = torch.zeros_like(n)
     total, cs, wr, wg, wb = zero, zero, zero, zero, zero
     for k in range(CHUNK):
@@ -74,6 +91,8 @@ def _chunk_colors(mode, d, c, counts, px, py, n):
         power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
         alpha = torch.clamp_max(op * torch.exp(torch.clamp_max(power, 0.0)), ALPHA_MAX)
         live = ((c * CHUNK + k) < counts)[:, None] & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        n_live += live.to(torch.int32)
+        bits[:, k] = _warp_bits(live)
         a = torch.where(live, alpha, 0.0)
         if mode == "alpha":
             total = total + a
@@ -99,19 +118,26 @@ def _chunk_colors(mode, d, c, counts, px, py, n):
         wg = wg + g * w
         wb = wb + b * w
     if mode == "alpha":
-        return total[:, None, :].expand(-1, 3, -1), n * 0.9999
+        return total[:, None, :].expand(-1, 3, -1), n * 0.9999, n_live, bits
     if mode == "notrans":
         n = n * (1.0 - total * 1e-6)
     else:
         n = n * torch.exp(total)
-    return torch.stack([wr, wg, wb], dim=1), n
+    return torch.stack([wr, wg, wb], dim=1), n, n_live, bits
 
 
-def kernel_ablate_plain(mode, inst_T, starts, counts, x0, y0):
+def kernel_ablate_plain(mode, inst_T, starts, counts, x0, y0, warp_gate=None):
     """Plain version of kernel #8 → (color (T, 3, PX), visited (T,) int64
-    chunks each tile walked): every tile's chunks in order, all tiles and
-    pixels at once, each chunk's lanes one at a time with the kernel's
-    operations in its order."""
+    chunks each tile walked, live (T,) int64 lane-pixel pairs with a > 0 in
+    them, walked (T, PX) int64 lanes each pixel's warp walks): every tile's
+    chunks in order, all tiles and pixels at once, each chunk's lanes one at
+    a time with the kernel's operations in its order.
+
+    ``walked`` counts what the kernel's warps (`FWD_STRIP` pixel rows each)
+    walk: the lanes below the count in the visited chunks, less in ``full``
+    the chunks at whose start every pixel of the warp has N < T_STOP.
+    ``warp_gate``, an (R,) int32 zero tensor if given, gets at each walked
+    lane the `_warp_bits` of its live pixels."""
     num_tiles = counts.shape[0]
     dev = inst_T.device
     rpad = inst_T.shape[1]
@@ -119,20 +145,32 @@ def kernel_ablate_plain(mode, inst_T, starts, counts, x0, y0):
     n = torch.ones(num_tiles, PX, device=dev)
     color = torch.zeros(num_tiles, 3, PX, device=dev)
     visited = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
+    live = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
+    walked = torch.zeros(num_tiles, PX, dtype=torch.int64, device=dev)
     n_chunks = (counts.to(torch.int64) + CHUNK - 1) // CHUNK
     rows = 3 if mode == "dma" else NSTAGE
     lane = torch.arange(CHUNK, device=dev)
+    strip = TILE * FWD_STRIP  # pixels of a kernel warp
     for c in range(int(n_chunks.max()) if num_tiles else 0):
         go = (c < n_chunks) & (n >= T_STOP).any(dim=1)
         if not bool(go.any()):
             break
         at = starts.to(torch.int64)[:, None] + c * CHUNK + lane
         d = torch.where(at < rpad, inst_T[:rows, torch.clamp_max(at, rpad - 1)], 0.0)
-        dc, n_new = _chunk_colors(mode, d, c, counts, px, py, n)
+        dc, n_new, n_live, bits = _chunk_colors(mode, d, c, counts, px, py, n)
+        below = torch.clamp(counts.to(torch.int64) - c * CHUNK, 0, CHUNK)
+        warp_go = go[:, None].expand(-1, PX // strip)
+        if mode == "full":
+            warp_go = warp_go & (n >= T_STOP).reshape(num_tiles, -1, strip).any(dim=2)
+        walked += torch.where(warp_go, below[:, None], 0).repeat_interleave(strip, dim=1)
         color = torch.where(go[:, None, None], color + dc, color)
         n = torch.where(go[:, None], n_new, n)
         visited += go
-    return color, visited
+        live += torch.where(go, n_live.sum(dim=1, dtype=torch.int64), 0)
+        if warp_gate is not None:
+            walk = go[:, None] & (lane < below[:, None])
+            warp_gate[at[walk]] = bits[walk]
+    return color, visited, live, walked
 
 
 def kernel_ablate(mode, inst_T, starts, counts, x0, y0) -> torch.Tensor:

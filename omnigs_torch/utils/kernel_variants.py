@@ -1,15 +1,17 @@
-"""Other builds of the compositing kernels #1-#5 and of the reduction
-kernel #6, timed in turns with the production build on the same inputs.
+"""Other builds of the compositing kernels #1-#5, of the reduction kernel #6
+and of the ablation kernel #8, timed in turns with the production build on
+the same inputs.
 
-`chip_smoke.py`'s `seg_compare`, `tile_compare` and `reduce_compare`
-phases run `compare_seg` (kernels #1/#2 on the segmented slab),
-`compare_tile` (#3/#4/#5 on the compact slab) and `compare_reduce` (#6 on
-the given ids and rows) at full width. The builds, each by nvcc with the
-production flags into ``build/seg_variants/<variant>/``:
+`chip_smoke.py`'s `seg_compare`, `tile_compare`, `reduce_compare` and
+`ablate_compare` phases run `compare_seg` (kernels #1/#2 on the segmented
+slab), `compare_tile` (#3/#4/#5 on the compact slab), `compare_reduce` (#6
+on the given ids and rows) and `compare_ablate` (#8's six modes on its
+script's slab) at full width. The builds, each by nvcc with the production
+flags into ``build/seg_variants/<variant>/``:
 
-* ``before``: a copy of an earlier tree's CUDA sources, when present (for
-  example `git archive <commit> omnigs_torch/csrc | tar -x -C
-  build/seg_before`);
+* ``before``: a copy of an earlier tree's CUDA sources with the present C
+  interfaces, when present (the parent commit's: `git archive <commit>
+  omnigs_torch/csrc | tar -x -C build/seg_before`);
 * `ABLATIONS`: the present sources with one design element of the shared
   walk `csrc/composite_seg_walk.cuh` taken out (each edit acts on the
   segmented and the tile-major kernels, #5 included, at once);
@@ -17,18 +19,22 @@ production flags into ``build/seg_variants/<variant>/``:
   element of #5's table sink changed (#4 in the same build must keep its
   bytes);
 * `REDUCE_ABLATIONS`: the present `csrc/reduce_accum.cu` with one element
-  of #6 changed.
+  of #6 changed;
+* `ABLATE_ABLATIONS`: the present `csrc/kernel_ablate.cu` with one design
+  element of #8 turned off; #8 also builds in the walk's
+  `ABLATE_WALK_ABLATIONS` (it stages with the shared header).
 
-#1-#4 of every build must give the production build's output bytes; #5
-and #6 add with atomics in no fixed order, so their outputs are held to a
-caller's float bar instead. The times say what each element buys. Nothing
-here is on a render or training path.
+#1-#4 and #8 of every build must give the production build's output
+bytes; #5 and #6 add with atomics in no fixed order, so their outputs are
+held to a caller's float bar instead. The times say what each element
+buys. Nothing here is on a render or training path.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 import shutil
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
@@ -38,6 +44,7 @@ import torch
 from omnigs_torch import cuda_build
 from omnigs_torch.ops import composite_seg as cs
 from omnigs_torch.ops import composite_tile as ct
+from omnigs_torch.scripts import kernel_ablate as ka
 from omnigs_torch.scripts import reduce_bench as rb
 from omnigs_torch.utils.profiling import mean_ms
 
@@ -97,7 +104,7 @@ SINK_ABLATIONS: Dict[str, List[Tuple[str, str, str]]] = {
     "no_skip": [(_TILE_BWD, _SKIP, "    (void)zero;\n")],
 }
 # the fused table's columns in each build (the present sources': 16)
-_FUSED_COLS = {"before": 9, "scalar_sink": 9}
+_FUSED_COLS = {"scalar_sink": 9}
 
 _REDUCE = "reduce_accum.cu"
 _ADD16 = """#pragma unroll
@@ -117,14 +124,37 @@ REDUCE_ABLATIONS: Dict[str, List[Tuple[str, str, str]]] = {
 """)],
 }
 
+_ABLATE = "kernel_ablate.cu"
+
+
+def _off(name: str) -> List[Tuple[str, str, str]]:
+    return [(_ABLATE, f"constexpr bool {name} = true;", f"constexpr bool {name} = false;")]
+
+
+ABLATE_ABLATIONS: Dict[str, List[Tuple[str, str, str]]] = {
+    # the last chunk's 128 lanes staged and walked, the count tested per pair
+    "no_count_trim": _off("COUNT_TRIM"),
+    # every visited lane runs the log1p tail (nocumsum, lowprec, full)
+    "no_live_skip": _off("LIVE_SKIP"),
+    # full: a warp whose pixels have all stopped walks the chunk all the same
+    "no_warp_stop": _off("WARP_STOP"),
+    # dma: every thread sums the 3 x 128 staged values itself
+    "dma_per_thread": _off("DMA_ONCE"),
+}
+# the walk's ablations that #8 is built in: the strip test and two pixel
+# rows per thread (the halving is the backward's)
+ABLATE_WALK_ABLATIONS = ("no_cull", "fwd_rows_1")
+
 # variant → the sources it is built from (the walk's ablations build every
 # compositing source; the earlier tree every source compared)
 _BUILT = {
-    **{v: SOURCES for v in ABLATIONS},
+    **{v: SOURCES + (("kernel_ablate",) if v in ABLATE_WALK_ABLATIONS else ())
+       for v in ABLATIONS},
     **{v: ("composite_tile_bwd",) for v in SINK_ABLATIONS},
     **{v: ("reduce_accum",) for v in REDUCE_ABLATIONS},
+    **{v: ("kernel_ablate",) for v in ABLATE_ABLATIONS},
 }
-_EDITS = {**ABLATIONS, **SINK_ABLATIONS, **REDUCE_ABLATIONS}
+_EDITS = {**ABLATIONS, **SINK_ABLATIONS, **REDUCE_ABLATIONS, **ABLATE_ABLATIONS}
 
 
 def _variant_tree(name: str, edits) -> Path:
@@ -152,7 +182,7 @@ def build_variants(before: Optional[Path]) -> Dict[str, dict]:
     built = dict(_BUILT)
     if before is not None:
         trees["before"] = before
-        built["before"] = (*SOURCES, "reduce_accum")
+        built["before"] = (*SOURCES, "reduce_accum", "kernel_ablate")
     jobs = {
         f"{variant}/{src}": (tree / f"{src}.cu", VARIANT_DIR / variant / f"{src}.so")
         for variant, tree in trees.items()
@@ -168,11 +198,6 @@ def build_variants(before: Optional[Path]) -> Dict[str, dict]:
     return out
 
 
-_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the reduction kernel before its scratch table:
-# omnigs_reduce_accum(ids, rows, r, live, p, acc, device, stream)
-_REDUCE_ARGTYPES_BEFORE = [_VP, _VP, _I64, _I64, _I32, _VP, _I32, _VP]
-
 # kernel → (source, C symbol, argument types, the variants it is built in)
 _SYMBOLS = {
     "composite_seg_fwd": ("composite_seg_fwd", "omnigs_composite_seg_fwd",
@@ -187,13 +212,13 @@ _SYMBOLS = {
                                  ct._FUSED_ARGTYPES, (*ABLATIONS, *SINK_ABLATIONS)),
     "reduce_accum": ("reduce_accum", "omnigs_reduce_accum", rb._ARGTYPES,
                      tuple(REDUCE_ABLATIONS)),
+    "kernel_ablate": ("kernel_ablate", "omnigs_kernel_ablate", ka._ARGTYPES,
+                      (*ABLATE_WALK_ABLATIONS, *ABLATE_ABLATIONS)),
 }
 
 
-def _launcher(lib: Path, kernel: str, variant: str):
+def _launcher(lib: Path, kernel: str):
     _, symbol, argtypes, _ = _SYMBOLS[kernel]
-    if kernel == "reduce_accum" and variant == "before":
-        argtypes = _REDUCE_ARGTYPES_BEFORE
     fn = getattr(ctypes.CDLL(str(lib)), symbol)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn
@@ -209,26 +234,36 @@ def _bytes_equal(out, ref) -> bool:
                for a, b in zip(out, ref))
 
 
+def digest(outputs) -> str:
+    """sha256 (16 hex digits) of the output tensors' bytes."""
+    h = hashlib.sha256()
+    for t in outputs:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def _compare(before: Optional[Path], runs: Dict[str, Callable], dev, reps: int,
-             close: Optional[Dict[str, Callable]] = None) -> dict:
-    """``runs``: kernel → run(launcher, variant) → output tensors. Each
-    kernel in the production build ("new"), ``before`` (when given) and
-    the variants it is built in: its outputs against production's, bytes
-    (``bytes_equal_new``) or, for the kernels in ``close`` (kernel →
-    close(outputs) → ratio to a float bar), the ratio (``tol_ratio``); ms
+             close: Optional[Dict[str, Callable]] = None, digests: bool = False) -> dict:
+    """``runs``: kernel (or "kernel/case") → run(launcher, variant) →
+    output tensors. Each kernel in the production build ("new"),
+    ``before`` (when given) and the variants it is built in: its outputs
+    against production's, bytes (``bytes_equal_new``; with ``digests``
+    also each build's ``digest``) or, for the kernels in ``close`` (kernel
+    → close(outputs) → ratio to a float bar), the ratio (``tol_ratio``); ms
     in turns earlier sources, production, variants…, variants reversed,
     production, earlier sources ("old, new, new, old")."""
     close = close or {}
     builds = build_variants(before)
-    cuda_build.build([_SYMBOLS[k][0] for k in runs])
+    cuda_build.build({_SYMBOLS[k.split("/")[0]][0] for k in runs})
     result = {}
-    for kernel, run in runs.items():
+    for key, run in runs.items():
+        kernel = key.split("/")[0]
         src, _, _, variants = _SYMBOLS[kernel]
         variants = list(variants)
         head = ["before"] if before is not None else []
         order = [*head, "new", *variants, *reversed(variants), "new", *head]
-        launch = {"new": _launcher(cuda_build.library_path(src), kernel, "new")}
-        launch.update({v: _launcher(builds[v]["libs"][src], kernel, v)
+        launch = {"new": _launcher(cuda_build.library_path(src), kernel)}
+        launch.update({v: _launcher(builds[v]["libs"][src], kernel)
                        for v in [*head, *variants]})
         with torch.inference_mode():
             ref = run(launch["new"], "new")
@@ -237,15 +272,17 @@ def _compare(before: Optional[Path], runs: Dict[str, Callable], dev, reps: int,
                 out = run(launch[v], v)
                 torch.cuda.synchronize(dev)
                 rows[v] = {"ms": []}
-                if kernel in close:
-                    rows[v]["tol_ratio"] = close[kernel](out)
+                if key in close:
+                    rows[v]["tol_ratio"] = close[key](out)
                 else:
                     rows[v]["bytes_equal_new"] = _bytes_equal(out, ref)
+                if digests:
+                    rows[v]["digest"] = digest(out)
                 if v != "new":
                     rows[v]["ptxas"] = builds[v]["ptxas"][src]
             for v in order:
                 rows[v]["ms"].append(mean_ms(lambda v=v: run(launch[v], v), dev, reps=reps))
-        result[kernel] = {"order": order, **rows}
+        result[key] = {"order": order, **rows}
     return result
 
 
@@ -328,22 +365,41 @@ def compare_reduce(before: Optional[Path], ids, rows, p: int, close: Callable,
     dev = rows.device
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def run(fn, variant):
-        # each build's tables as its wrapper allocates them: the earlier
-        # sources add into a zeroed (16, P) table, the present ones into a
-        # zeroed (P, 16) scratch table and write every value of the result
-        if variant == "before":
-            acc = torch.zeros(rb.NROWS, p, device=dev)
-            err = fn(ids.data_ptr(), rows.data_ptr(), rows.shape[1], ids.shape[0], p,
-                     acc.data_ptr(), dev.index, stream)
-        else:
-            acc = torch.empty(rb.NROWS, p, device=dev)
-            scratch = torch.zeros(p, rb.NROWS, device=dev)
-            err = fn(ids.data_ptr(), rows.data_ptr(), rows.shape[1], ids.shape[0], p,
-                     scratch.data_ptr(), acc.data_ptr(), dev.index, stream)
-        _checked(err, "reduce_compare")
+    def run(fn, _variant):
+        # the tables as the wrapper allocates them: a zeroed (P, 16) scratch
+        # table, and the result, of which the kernel writes every value
+        acc = torch.empty(rb.NROWS, p, device=dev)
+        scratch = torch.zeros(p, rb.NROWS, device=dev)
+        _checked(fn(ids.data_ptr(), rows.data_ptr(), rows.shape[1], ids.shape[0], p,
+                    scratch.data_ptr(), acc.data_ptr(), dev.index, stream),
+                 "reduce_compare")
         return (acc,)
 
     res = _compare(before, {"reduce_accum": run}, dev, reps,
                    close={"reduce_accum": lambda out: close(out[0])})
     return res["reduce_accum"]
+
+
+def compare_ablate(before: Optional[Path], inst_T, starts, counts, x0, y0,
+                   reps: int = 10) -> dict:
+    """Kernel #8 of every build (``before`` when given, production, the
+    walk's `ABLATE_WALK_ABLATIONS` and `ABLATE_ABLATIONS`) in each of its
+    six modes on one slab (its script's) → {mode: {"order", variant:
+    {"bytes_equal_new", "digest", "ms", "ptxas"}}}."""
+    dev = inst_T.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    num_tiles = counts.shape[0]
+
+    def runner(mode):
+        def run(fn, _variant):
+            out = torch.empty(num_tiles, 3, ka.PX, device=dev)
+            _checked(fn(ka.MODES.index(mode), inst_T.data_ptr(), inst_T.shape[1],
+                        starts.data_ptr(), counts.data_ptr(), x0.data_ptr(), y0.data_ptr(),
+                        num_tiles, out.data_ptr(), dev.index, stream),
+                     f"ablate_compare {mode}")
+            return (out,)
+        return run
+
+    res = _compare(before, {f"kernel_ablate/{m}": runner(m) for m in ka.MODES}, dev, reps,
+                   digests=True)
+    return {key.split("/")[1]: v for key, v in res.items()}

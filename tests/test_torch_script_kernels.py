@@ -187,7 +187,7 @@ def test_kernel_ablate_plain_matches_tpu_kernel(jscripts, mode):
     slab, starts, counts, x0, y0 = ablate_slab_np(62)
     ref = _tpu_ablate(jscripts["kernel_ablate"], mode, slab, starts, counts, x0, y0)
     args = [torch.from_numpy(a) for a in (slab, starts, counts, x0, y0)]
-    got, visited = tka.kernel_ablate_plain(mode, *args)
+    got, visited, live, walked = tka.kernel_ablate_plain(mode, *args)
     np.testing.assert_array_equal(tka.kernel_ablate(mode, *args).numpy(), got.numpy())
     bar = 1e-5 * max(1.0, float(np.abs(ref).max()))
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=bar, err_msg=mode)
@@ -200,6 +200,16 @@ def test_kernel_ablate_plain_matches_tpu_kernel(jscripts, mode):
         # the dense tiles stop before their last chunk; the empty one is 0
         assert (visited.numpy() < n_chunks).any()
         assert not got[counts == 0].any()
+    # the work counts: live pairs lie below the count in the visited chunks,
+    # and a warp walks at most those lanes (full: fewer where it stopped)
+    below = np.minimum(counts, visited.numpy() * 128)
+    walked = walked.numpy()
+    assert (walked <= below[:, None]).all() and (live.numpy() <= below * 256).all()
+    if mode == "dma":
+        assert not live.any()
+    else:
+        assert (live.numpy()[counts > 0] > 0).all()
+        assert (walked == below[:, None]).all() or mode == "full"
 
 
 def test_script_mains_on_cpu():
