@@ -7,7 +7,10 @@ check them.
 Phases, each printed as one JSON line; any failed check raises, so the
 script exits non-zero:
 
-1. device — the card's name and power limit (nvidia-smi) and PyTorch's view.
+1. device — the card's name and power limit (nvidia-smi), PyTorch's view,
+   and whether PIL and cv2 import and the native image loader loads (the
+   training CLI path reads and writes its PNGs through PIL; cv2 and the
+   loader are information only).
 2. build  — every CUDA kernel of the paths, built from the repository's
    sources in parallel (`omnigs_torch/cuda_build.py`), with nvcc's register
    and shared-memory report; the compositing kernels #1-#4 (the two
@@ -138,6 +141,26 @@ script exits non-zero:
    same rows beside them.
 18. card_tests — `tests/test_torch_kernels_gpu.py -m gpu` in a child
    process: every test must pass, none skip.
+19. scene_synth — the quality gate's pinned scene (seed 1234, 512×256, 12
+   train / 4 test views) through the port's script
+   (`omnigs_torch/scripts/make_synthetic_scene.py`, its renders on the
+   tile-major forward kernel): seconds, and the sha256 of points.ply and of
+   both sfm_data JSONs without root_path, which must equal the JAX
+   script's (PINNED_SHA256).
+20. quality — `omnigs_torch/scripts/quality_check.sh` step for step through
+   the CLIs' `main`s (launch counters set to 0 before each, read after):
+   the training CLI for seeds 1 and 2 (1,500 iterations of
+   cfg/lonlat/synthetic_medium.yaml, windows of `Tpu.fuse_steps`), the test
+   CLI on each run's last PLY, then the port's `psnr_gate` at GATE_BAR
+   (16.57). Per seed: host ms/iteration, windows and single steps, EMA
+   loss, live Gaussians, launches, peak memory, held-out PSNR; then the
+   median and the verdict. Raises when the gate fails.
+21. cli_full — a 1920×960 scene from the port's script; the training CLI
+   with cfg/lonlat/synthetic_fullres.yaml for 200 iterations (windows, the
+   densify at 200, the shutdown record) and the test CLI; then a
+   full-width `Trainer` saved at iteration 100, run to 124, loaded and run
+   to 124 again: every parameter and Adam moment `torch.equal`.
+   ms/iteration, PSNR, peak memory and `DevicePeakUsageMB.txt`.
 
 Then the `kernels` line, nvidia-smi's line, and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -151,6 +174,7 @@ import functools
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -2324,6 +2348,260 @@ def ablate_compare_phase(torch, ares, slab):
     return line
 
 
+# the CLI phases: the pinned scene of the quality gate (seed 1234, 512×256,
+# 12 train / 4 test views) and the sha256 of its points.ply and of its
+# sfm_data_{train,test}.json with root_path removed (json.dumps(indent=1)),
+# as the JAX script (scripts/make_synthetic_scene.py through
+# scripts/cpu_run.py, on a CPU host) writes them
+PINNED_SEED = 1234
+PINNED_SHA256 = {
+    "points.ply": "d37166be804144f7d32bbac26d585b1cf7d4ecbf4c3381279af48ca1fac99285",
+    "sfm_data_train.json": "d1cd4627b79a2d4e40a64273dcff9b520509002815953aafc233b7e1981126d3",
+    "sfm_data_test.json": "9cf341c2f1b9017fe59d190c61acc535bb5fc94c60b277280db69e39f6fe8869",
+}
+# the gate: GATE_PSNR of scripts/quality_check.sh (the JAX package's bar,
+# measured on a TPU) − 0.5 dB, on the median of seeds 1 and 2 at 1,500
+# iterations of cfg/lonlat/synthetic_medium.yaml
+GATE_BAR = 17.07 - 0.5
+GATE_ITERS = 1500
+GATE_SEEDS = (1, 2)
+GATE_CONFIG = REPO / "cfg" / "lonlat" / "synthetic_medium.yaml"
+# cli_full: a 1920×960 scene trained 200 iterations with synthetic_fullres.yaml
+# (windows, the densify at 200, the shutdown record), then the checkpoint
+# round trip at 100 → 124
+FULL_CONFIG = REPO / "cfg" / "lonlat" / "synthetic_fullres.yaml"
+FULL_SCENE_ARGS = ("--width", "1920", "--height", "960", "--gaussians", "65536",
+                   "--train-views", "6", "--test-views", "2", "--seed", "7")
+FULL_ITERS = 200
+CKPT_AT, CKPT_TO = 100, 124
+CLI_DIR = REPO / "build" / "chip_smoke_cli"
+
+
+def optional_imports():
+    """Whether PIL and cv2 import and whether the native image loader
+    (native/libomnigs_loader.so) loads. The CLI path's PNGs go through PIL;
+    cv2 and the loader are information only (the loader's library is not
+    committed, so only non-PNG datasets would need it)."""
+    import ctypes
+    import importlib
+
+    out = {}
+    for mod in ("PIL", "cv2"):
+        try:
+            importlib.import_module(mod)
+            out[mod] = True
+        except ImportError:
+            out[mod] = False
+    try:
+        ctypes.CDLL(str(REPO / "native" / "libomnigs_loader.so"))
+        out["native_loader"] = True
+    except OSError:
+        out["native_loader"] = False
+    return out
+
+
+def _sha256_scene(scene_dir):
+    import hashlib
+
+    out = {"points.ply": hashlib.sha256((scene_dir / "points.ply").read_bytes()).hexdigest()}
+    for name in ("sfm_data_train.json", "sfm_data_test.json"):
+        root = json.loads((scene_dir / name).read_text())
+        root.pop("root_path")
+        out[name] = hashlib.sha256(json.dumps(root, indent=1).encode()).hexdigest()
+    return out
+
+
+def scene_synth_phase(torch):
+    """The pinned scene through the port's script on the card (its renders
+    take the tile-major forward kernel); its files' hashes must be the JAX
+    script's."""
+    import shutil
+
+    from omnigs_torch.scripts import make_synthetic_scene
+
+    scene = CLI_DIR / "scene_pinned"
+    shutil.rmtree(scene, ignore_errors=True)
+    t0 = time.perf_counter()
+    _, _, launches = _script_main(
+        torch, make_synthetic_scene, [str(scene), "--seed", str(PINNED_SEED), "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    sha = _sha256_scene(scene)
+    line = {"phase": "scene_synth", "seconds": seconds, "sha256": sha,
+            "matches_jax": sha == PINNED_SHA256, "launches": launches}
+    emit(line)
+    if sha != PINNED_SHA256:
+        raise RuntimeError(f"the pinned scene differs from the JAX script's: {sha}")
+    if not launches["composite_tile_fwd"]:
+        raise RuntimeError(f"scene synthesis launched {launches}")
+    return scene, launches
+
+
+def _cli_train(torch, argv):
+    """The port's training CLI through its `main`, launch counters set to 0
+    just before and read just after, the peak memory reset before."""
+    from omnigs_torch.examples import train_openmvg_lonlat
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats, printed, launches = _script_main(torch, train_openmvg_lonlat,
+                                            [*argv, "--device", "cuda"])
+    stats["wall_s"] = time.perf_counter() - t0
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    stats["ms_per_iteration"] = stats["loop_s"] / stats["iterations"] * 1e3
+    stats["launches"] = launches
+    stats["log"] = [x for x in printed if x.startswith(("iter ", "[autosize]"))]
+    return stats
+
+
+def _cli_test(torch, argv):
+    from omnigs_torch.examples import test_openmvg_lonlat
+
+    means, _, launches = _script_main(torch, test_openmvg_lonlat, [*argv, "--device", "cuda"])
+    return means, launches
+
+
+def quality_phase(torch, scene):
+    """`omnigs_torch/scripts/quality_check.sh` on the card, step for step
+    through the CLIs' `main`s: seeds 1 and 2, 1,500 iterations of
+    synthetic_medium.yaml each, the test CLI on each run's last PLY, then
+    the port's psnr_gate at GATE_BAR. Raises when the gate fails."""
+    import contextlib
+    import io
+
+    from omnigs_torch.scripts import psnr_gate
+
+    dirs, seeds, totals = [], [], {}
+    for seed in GATE_SEEDS:
+        run = CLI_DIR / "quality" / f"run{seed}"
+        st = _cli_train(torch, [
+            str(GATE_CONFIG), str(run), str(scene / "sfm_data_train.json"),
+            str(scene / "points.ply"), "--image-root", str(scene / "images"),
+            "--iters", str(GATE_ITERS), "--log-every", "500", "--seed", str(seed)])
+        ply = run / str(GATE_ITERS) / "ply" / "point_cloud.ply"
+        means, test_launches = _cli_test(torch, [
+            str(GATE_CONFIG), str(run / "test"), str(scene / "sfm_data_test.json"), str(ply)])
+        line = {"phase": "quality_run", "seed": seed,
+                "ms_per_iteration": st["ms_per_iteration"], "loop_s": st["loop_s"],
+                "wall_s": st["wall_s"], "windows": st["windows"],
+                "window_steps": st["window_steps"], "single_steps": st["single_steps"],
+                "ema_loss": st["ema_loss"], "live_gaussians": st["live"],
+                "truncated": st["truncated"], "launches_train": st["launches"],
+                "launches_test": test_launches, "peak_mem_gib": st["peak_mem_gib"],
+                "heldout_psnr": means["psnr"], "heldout_ssim": means["ssim"],
+                "render_ms": means["render_time_ms"], "log": st["log"]}
+        emit(line)
+        seeds.append(line)
+        dirs.append(str(run / "test"))
+        for launches in (st["launches"], test_launches):
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = psnr_gate.main(GATE_BAR, dirs)
+    psnrs = [x["heldout_psnr"] for x in seeds]
+    summary = {"phase": "quality", "bar": GATE_BAR, "median_psnr": statistics.median(psnrs),
+               "psnrs": psnrs, "gate": buf.getvalue().strip(), "passed": rc == 0,
+               "launches": totals}
+    emit(summary)
+    if rc != 0:
+        raise RuntimeError(f"quality gate failed: {summary['gate']}")
+    bad = [x["seed"] for x in seeds if not (x["launches_train"]["composite_seg_fwd"]
+                                          and x["launches_train"]["composite_seg_bwd"]
+                                          and x["launches_test"]["composite_seg_fwd"])]
+    if bad or any(x["truncated"] or not x["windows"] for x in seeds):
+        raise RuntimeError(f"quality runs {bad}: kernels not launched, truncation or no windows")
+    return totals
+
+
+def _trainer_state(torch, tr):
+    out = {f"model/{k}": v.detach().clone() for k, v in tr.model.params().items()}
+    for k in tr.opt_state.mu:
+        out[f"mu/{k}"] = tr.opt_state.mu[k].clone()
+        out[f"nu/{k}"] = tr.opt_state.nu[k].clone()
+    out["count"] = tr.opt_state.count.clone()
+    return out
+
+
+def cli_full_phase(torch):
+    """A 1920×960 scene from the port's script; the training CLI with
+    synthetic_fullres.yaml for 200 iterations (windows, the densify at 200,
+    the shutdown record) and the test CLI on its PLY; then the checkpoint
+    round trip on a full-width Trainer: save at 100, run to 124, load, run
+    to 124 again, and every parameter and Adam moment `torch.equal`."""
+    import shutil
+
+    from omnigs_torch.config import load_config
+    from omnigs_torch.io.openmvg import load_openmvg_scene
+    from omnigs_torch.scripts import make_synthetic_scene
+    from omnigs_torch.train.trainer import Trainer
+
+    scene = CLI_DIR / "scene_full"
+    shutil.rmtree(scene, ignore_errors=True)
+    t0 = time.perf_counter()
+    _, _, synth_launches = _script_main(torch, make_synthetic_scene,
+                                        [str(scene), *FULL_SCENE_ARGS, "--device", "cuda"])
+    synth_s = time.perf_counter() - t0
+    run = CLI_DIR / "full"
+    st = _cli_train(torch, [
+        str(FULL_CONFIG), str(run), str(scene / "sfm_data_train.json"),
+        str(scene / "points.ply"), "--image-root", str(scene / "images"),
+        "--iters", str(FULL_ITERS), "--log-every", "50"])
+    means, test_launches = _cli_test(torch, [
+        str(FULL_CONFIG), str(run / "test"), str(scene / "sfm_data_test.json"),
+        str(run / str(FULL_ITERS) / "ply" / "point_cloud.ply")])
+
+    cfg = load_config(FULL_CONFIG)
+    tr = Trainer(load_openmvg_scene(scene / "sfm_data_train.json", scene / "points.ply"),
+                 cfg, seed=3, device="cuda")
+    tr.init_from_sfm()
+    tr.train(CKPT_AT)
+    ckpt = run / "ckpt.pt"
+    tr.save_checkpoint(ckpt)
+    # the sampler's and densify's random states are not part of a checkpoint
+    rng, gen = tr.sampler.rng.getstate(), tr.generator.get_state()
+    charges = {f: kf.remaining_times_of_use for f, kf in tr.scene.keyframes.items()}
+    t0 = time.perf_counter()
+    tr.train(CKPT_TO - CKPT_AT)
+    torch.cuda.synchronize()
+    resume_ms = (time.perf_counter() - t0) / (CKPT_TO - CKPT_AT) * 1e3
+    first = _trainer_state(torch, tr)
+    tr.load_checkpoint(ckpt)
+    loaded_at = tr.iteration
+    tr.sampler.rng.setstate(rng)
+    tr.generator.set_state(gen)
+    for f, kf in tr.scene.keyframes.items():
+        kf.remaining_times_of_use = charges[f]
+    tr.train(CKPT_TO - CKPT_AT)
+    again = _trainer_state(torch, tr)
+    unequal = [k for k in first if not torch.equal(first[k], again[k])]
+    line = {"phase": "cli_full", "synth_s": synth_s, "synth_launches": synth_launches,
+            "ms_per_iteration": st["ms_per_iteration"], "wall_s": st["wall_s"],
+            "windows": st["windows"], "window_steps": st["window_steps"],
+            "single_steps": st["single_steps"], "ema_loss": st["ema_loss"],
+            "live_gaussians": st["live"], "truncated": st["truncated"],
+            "launches_train": st["launches"], "launches_test": test_launches,
+            "peak_mem_gib": st["peak_mem_gib"], "heldout_psnr": means["psnr"],
+            "render_ms": means["render_time_ms"], "log": st["log"],
+            "device_peak_usage_mb": (run / "DevicePeakUsageMB.txt").read_text().splitlines(),
+            "checkpoint": {"loaded_iteration": loaded_at, "iteration": tr.iteration,
+                           "ms_per_iteration": resume_ms, "tensors": len(first),
+                           "unequal": unequal}}
+    emit(line)
+    if unequal or loaded_at != CKPT_AT or tr.iteration != CKPT_TO:
+        raise RuntimeError(f"checkpoint round trip: {line['checkpoint']}")
+    if not (st["windows"] and st["launches"]["composite_seg_fwd"]
+            and st["launches"]["composite_seg_bwd"] and test_launches["composite_seg_fwd"]):
+        raise RuntimeError(f"cli_full: windows {st['windows']}, launches {st['launches']}, "
+                           f"{test_launches}")
+    if st["truncated"] or not math.isfinite(means["psnr"]):
+        raise RuntimeError(f"cli_full: truncated {st['truncated']}, psnr {means['psnr']}")
+    totals = dict(st["launches"])
+    for k, v in test_launches.items():
+        totals[k] += v
+    return totals, synth_launches
+
+
 def main() -> int:
     import torch
 
@@ -2350,6 +2628,7 @@ def main() -> int:
         "count": torch.cuda.device_count(),
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
+        "optional_imports": optional_imports(),
     })
 
     sources = ["composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
@@ -2423,6 +2702,12 @@ def main() -> int:
     del ablate_slab
     card_test_phase(torch)
 
+    # the training CLI path: the pinned scene, the quality gate, full width
+    scene, synth_launches = scene_synth_phase(torch)
+    quality_launches = quality_phase(torch, scene)
+    full_launches, full_synth_launches = cli_full_phase(torch)
+    cli_launches = {k: quality_launches[k] + full_launches[k] for k in quality_launches}
+
     emit({"kernels": [
         {
             "name": "composite_seg_fwd",
@@ -2431,12 +2716,14 @@ def main() -> int:
             "replaces": "omnigs_tpu/ops/pallas_seg.py:237",
             "tpu_kernel": "omnigs_tpu/ops/pallas_seg.py::_fwd_seg_kernel",
             # render path (4 requests) + training path (12 iterations) + the
-            # no-presort segmented requests (4)
+            # no-presort segmented requests (4) + the CLIs (quality gate and
+            # cli_full: training steps and eval renders)
             "launches": render_launches + train_launches["composite_seg_fwd"]
-            + fallback_launches["segmented"],
+            + fallback_launches["segmented"] + cli_launches["composite_seg_fwd"],
             "launches_render": render_launches,
             "launches_train": train_launches["composite_seg_fwd"],
             "launches_fallback": fallback_launches["segmented"],
+            "launches_cli": cli_launches["composite_seg_fwd"],
             "max_abs_err": kres["max_abs_err"],
             "ms": kres["kernel_ms"],
             "plain_ms": kres["plain_ms"],
@@ -2451,7 +2738,10 @@ def main() -> int:
             "source": "omnigs_torch/csrc/composite_seg_bwd.cu",
             "replaces": "omnigs_tpu/ops/pallas_seg.py:400",
             "tpu_kernel": "omnigs_tpu/ops/pallas_seg.py::_bwd_seg_kernel",
-            "launches": train_launches["composite_seg_bwd"],
+            "launches": train_launches["composite_seg_bwd"]
+            + cli_launches["composite_seg_bwd"],
+            "launches_train": train_launches["composite_seg_bwd"],
+            "launches_cli": cli_launches["composite_seg_bwd"],
             "max_abs_err": gres["max_abs_err"],
             "max_rel_err": gres["max_rel_err"],
             "ms": gres["kernel_ms"],
@@ -2468,11 +2758,15 @@ def main() -> int:
             "replaces": "omnigs_tpu/ops/pallas_raster.py:192",
             "tpu_kernel": "omnigs_tpu/ops/pallas_raster.py::_fwd_kernel",
             # tile-major render (4 requests), training (6 iterations), the
-            # fused training step (1), the ghost-aligned requests and step
-            # and the no-presort tile-major requests
+            # fused training step (1), the ghost-aligned requests and step,
+            # the no-presort tile-major requests and the synthetic scenes'
+            # renders (the pinned and the 1920×960 one)
             "launches": tile_launches + tile_train_launches["composite_tile_fwd"]
             + fused_launches["composite_tile_fwd"] + ghost_launches
-            + fallback_launches["tile"],
+            + fallback_launches["tile"] + synth_launches["composite_tile_fwd"]
+            + full_synth_launches["composite_tile_fwd"],
+            "launches_scene_synth": synth_launches["composite_tile_fwd"]
+            + full_synth_launches["composite_tile_fwd"],
             "launches_render": tile_launches,
             "launches_train": tile_train_launches["composite_tile_fwd"],
             "launches_fused_step": fused_launches["composite_tile_fwd"],

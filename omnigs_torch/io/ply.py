@@ -7,6 +7,8 @@ written by either package loads in the other.
   x,y,z, nx,ny,nz (zeros), f_dc_0..2, f_rest_0..44 (features transposed to
   channel-major before flattening), opacity, scale_0..2, rot_0..3 — all raw
   (pre-activation) values. Only active slots are written.
+* SfM sparse clouds: float (360Roam) or double (EgoNeRF) xyz with optional
+  uchar rgb; written as float xyz, zero normals and uchar rgb.
 
 Implemented on numpy structured arrays (no external ply dependency).
 """
@@ -164,3 +166,35 @@ def load_gaussian_ply(
         m[k][:n] = val
     m["active"][:n] = True
     return GaussianModel.from_numpy(m, device=device)
+
+
+def load_points_ply(path: Union[str, Path]) -> Tuple[np.ndarray, np.ndarray]:
+    """SfM sparse cloud → ((N, 3) float32 points, (N, 3) float32 colors in
+    [0, 1]); float or double xyz, mid-grey where the file has no rgb."""
+    v = _read_ply_vertices(path)
+    pts = np.stack([v["x"], v["y"], v["z"]], axis=-1).astype(np.float32)
+    if "red" in v:
+        cols = (
+            np.stack([v["red"], v["green"], v["blue"]], axis=-1).astype(np.float32)
+            / 255.0
+        )
+    else:
+        cols = np.full_like(pts, 0.5)
+    return pts, cols
+
+
+def save_points_ply(
+    path: Union[str, Path], points: np.ndarray, colors: np.ndarray
+) -> None:
+    """Write a sparse cloud: float xyz, zero normals, uchar rgb of the
+    colors clipped to [0, 1] (``saveSparsePointsPly``)."""
+    pts = np.asarray(points, np.float32)
+    rgb = (np.clip(np.asarray(colors), 0, 1) * 255).astype(np.uint8)
+    cols: List[Tuple[str, str, np.ndarray]] = []
+    for i, name in enumerate("xyz"):
+        cols.append((name, "float", pts[:, i]))
+    for name in ("nx", "ny", "nz"):
+        cols.append((name, "float", np.zeros(pts.shape[0], np.float32)))
+    for i, name in enumerate(("red", "green", "blue")):
+        cols.append((name, "uchar", rgb[:, i]))
+    _write_ply(path, cols)

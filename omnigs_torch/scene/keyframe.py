@@ -25,6 +25,9 @@ class Keyframe:
     t_cw: np.ndarray  # (3,)
     image: Optional[np.ndarray] = None  # (H, W, 3) float32 in [0, 1]
     img_filename: str = ""
+    # clip planes of the pinhole projection (the lonlat one has none)
+    znear: float = 0.01
+    zfar: float = 100.0
     # keyframe-use budget of the sampler
     remaining_times_of_use: int = 0
 

@@ -20,15 +20,21 @@ in place (the JAX step returns new ones). Nothing in a step reads a value
 back to the host: losses and capacity counters stay on the device and
 `drain_losses` folds them in later.
 
+`Trainer.train_window(k)` takes up to k steps between event iterations
+(densify, opacity reset, SH bump, phase boundaries), as the JAX trainer's
+scanned window does; here it is a loop over `train_iteration`. `train`,
+the live-tunable parameters and full-state checkpoints
+(`train/checkpoint.py`) complete the API the training CLI calls.
+
 Not ported yet, raising `NotImplementedError`: the coarse-to-fine pyramid
-and checkpoints (ROADMAP queue 1 item 5), and the fused multi-step windows
-(`train_window`), which exist to cut TPU dispatches.
+(ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -367,13 +373,146 @@ class Trainer:
                 )
         return self.last_loss
 
+    # -- multi-step windows --
+
+    def _next_event_iter(self, it: int) -> int:
+        """First iteration > ``it`` that needs the single-step path (densify,
+        opacity reset, SH-degree bump, phase boundary, final iteration)."""
+        cfg = self.config
+
+        def nxt(m):
+            return (it // m + 1) * m
+
+        events = [nxt(1000)]  # SH degree bump cadence
+        if cfg.opt.densification_interval:
+            events.append(nxt(cfg.opt.densification_interval))
+        if cfg.opt.opacity_reset_interval:
+            events.append(nxt(cfg.opt.opacity_reset_interval))
+        for b in (
+            cfg.opt.densify_from_iter,
+            cfg.opt.densify_until_iter,
+            cfg.opt.max_num_iterations,
+        ):
+            if b > it:
+                events.append(b)
+        return min(events)
+
     def train_window(self, max_steps: int) -> int:
-        raise _unported(
-            "train_window (fused multi-step windows)", "queue 1 item 5"
-        )
+        """Take up to ``max_steps`` iterations before the next event
+        iteration and return how many were taken: 0 means the next
+        iteration is an event (call `train_iteration`), or the pyramid is
+        on. A window is that many `train_iteration` calls: it ends before
+        every event, so none of its steps densifies or resets, each steps
+        Adam, and the statistics accumulate exactly as the JAX trainer's
+        scanned window accumulates them."""
+        cfg = self.config
+        if cfg.pyramid.do and cfg.pyramid.num_sub_levels > 0:
+            return 0
+        it = self.iteration
+        k = min(max_steps, self._next_event_iter(it) - 1 - it)
+        if k <= 0:
+            return 0
+        for _ in range(k):
+            self.train_iteration()
+        return k
+
+    # -- live-tunable training parameters (the reference's
+    #    `VariableParameters`) --
+
+    VARIABLE_PARAMS = (
+        ("position_lr_init", "lr"),
+        ("feature_lr", "lr"),
+        ("opacity_lr", "lr"),
+        ("scaling_lr", "lr"),
+        ("rotation_lr", "lr"),
+        ("percent_dense", "opt"),
+        ("lambda_dssim", "opt"),
+        ("opacity_reset_interval", "opt"),
+        ("densify_grad_threshold", "opt"),
+        ("densification_interval", "opt"),
+        ("new_keyframe_times_of_use", "mapper"),
+    )
+
+    def get_variable_parameters(self) -> Dict[str, float]:
+        out = {}
+        for name, kind in self.VARIABLE_PARAMS:
+            if kind == "lr":
+                out[name] = getattr(self.lr_cfg, name)
+            elif kind == "opt":
+                out[name] = getattr(self.config.opt, name)
+            else:
+                out[name] = getattr(self.config.mapper, name)
+        return out
+
+    def set_variable_parameters(self, updates: Dict[str, float]):
+        """Apply live updates mid-training (each value cast to the type of
+        the one it replaces); an unknown name raises `KeyError`."""
+        kinds = dict(self.VARIABLE_PARAMS)
+        lr_updates = {}
+        for name, val in updates.items():
+            if name not in kinds:
+                raise KeyError(name)
+            kind = kinds[name]
+            if kind == "lr":
+                lr_updates[name] = type(getattr(self.lr_cfg, name))(val)
+            elif kind == "opt":
+                cur = getattr(self.config.opt, name)
+                setattr(self.config.opt, name, type(cur)(val))
+            else:
+                cur = getattr(self.config.mapper, name)
+                setattr(self.config.mapper, name, type(cur)(val))
+                if name == "new_keyframe_times_of_use":
+                    self.sampler.times_of_use = int(val)
+        if lr_updates:
+            self.lr_cfg = dataclasses.replace(self.lr_cfg, **lr_updates)
+
+    # -- full-state checkpoints --
 
     def save_checkpoint(self, path):
-        raise _unported("checkpoints", "queue 1 item 5")
+        from omnigs_torch.train.checkpoint import save_checkpoint
+
+        save_checkpoint(path, self.model, self.opt_state, self.iteration)
 
     def load_checkpoint(self, path):
-        raise _unported("checkpoints", "queue 1 item 5")
+        from omnigs_torch.train.checkpoint import load_checkpoint
+
+        self.model, self.opt_state, self.iteration = load_checkpoint(
+            path, self.config.tpu.capacity, device=self.device
+        )
+
+    def train(
+        self,
+        num_iterations: Optional[int] = None,
+        log_every: int = 0,
+        fuse: Optional[int] = None,
+    ):
+        """Run ``num_iterations`` (the config's maximum by default) in
+        windows of up to ``fuse`` steps (``Tpu.fuse_steps``), logging every
+        ``log_every`` iterations."""
+        n = num_iterations or self.config.opt.max_num_iterations
+        fuse = self.config.tpu.fuse_steps if fuse is None else fuse
+        t0 = time.time()
+        end = self.iteration + n
+        while self.iteration < end:
+            budget = end - self.iteration
+            if log_every:
+                budget = min(budget, log_every - self.iteration % log_every)
+            took = self.train_window(min(budget, fuse)) if fuse > 1 else 0
+            if took == 0:
+                self.train_iteration()
+            if log_every and self.iteration % log_every == 0:
+                self.drain_losses()
+                pressure = (
+                    f" truncated={self.total_truncated}"
+                    f" overflow={self.total_overflow}"
+                    if self.total_truncated or self.total_overflow
+                    else ""
+                )
+                print(
+                    f"iter {self.iteration}: loss={self.last_loss:.4f} "
+                    f"ema={self.ema_loss:.4f} "
+                    f"n_active={int(self.model.num_active)} "
+                    f"({(time.time() - t0):.1f}s)" + pressure,
+                    flush=True,
+                )
+        return self.model

@@ -10,12 +10,16 @@ Counterpart of the first half of `omnigs_tpu/utils/profiling.py`:
 * `device_peak_memory_mb` / `PeakMemoryTracker` — peak and current device
   memory from `torch.cuda`'s allocator statistics. A CPU device has none:
   the dict is empty.
+* `write_peak_memory` — those statistics as `DevicePeakUsageMB.txt`, the
+  file of the JAX package's training CLI (the reference's
+  `GpuPeakUsageMB.txt`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+from pathlib import Path
 from typing import Dict, Optional
 
 import torch
@@ -105,3 +109,26 @@ class PeakMemoryTracker:
             self.peak[k] = max(self.peak.get(k, 0.0), v)
         self.samples += 1
         return stats
+
+
+def write_peak_memory(result_dir: Path, tracker: Optional[PeakMemoryTracker] = None) -> None:
+    """Write ``DevicePeakUsageMB.txt`` into ``result_dir``: one ``<stat>
+    <MB>`` line per statistic of the final snapshot of the tracker's device
+    (the current CUDA device without one) and, with a ``tracker``, one
+    ``<stat>_peak`` line per across-run maximum (the final snapshot folded
+    in). A device without allocator statistics gets one ``unavailable``
+    line naming it, never an empty file."""
+    device = tracker.device if tracker is not None else None
+    stats = device_peak_memory_mb(device)
+    lines = [f"{k} {v:.1f}" for k, v in stats.items()]
+    if tracker is not None and tracker.samples:
+        for k, v in stats.items():
+            tracker.peak[k] = max(tracker.peak.get(k, 0.0), v)
+        lines += [
+            f"{k}_peak {v:.1f}  (max of {tracker.samples} samples at "
+            "densify/reset boundaries + final)"
+            for k, v in tracker.peak.items()
+        ]
+    if not lines:
+        lines = [f"unavailable: no memory stats on backend {torch.device(device or 'cpu')}"]
+    (Path(result_dir) / "DevicePeakUsageMB.txt").write_text("\n".join(lines) + "\n")

@@ -197,7 +197,7 @@ def test_trajectory_matches_jax():
 
 def test_port_training_reduces_loss():
     """Port only, 40 iterations through densify (as tests/test_trainer.py):
-    the loss drops and everything stays finite."""
+    the loss drops and everything stays finite; then a window of 4."""
     _, ts = _scenes(2)
     _, cfg = _configs(densify_from_iter=10, densification_interval=10,
                       densify_until_iter=35, opacity_reset_interval=0,
@@ -211,5 +211,7 @@ def test_port_training_reduces_loss():
     assert np.mean(losses[35:]) < np.mean(losses[:5]), losses
     for k, v in tr.model.to_numpy().items():
         assert v.dtype == bool or np.isfinite(v).all(), k
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.train_window(4)
+    # then windows: steps up to the next event, parameters still finite
+    assert tr.train_window(4) == 4 and tr.iteration == 44
+    for k, v in tr.model.to_numpy().items():
+        assert v.dtype == bool or np.isfinite(v).all(), k

@@ -5,6 +5,10 @@ JAX reference and the port see bit-identical data. JAX stays on the CPU
 (conftest) and the port runs with ``device="cpu"``.
 """
 
+import runpy
+import sys
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -94,3 +98,36 @@ def ablate_slab_np(seed, counts=(0, 5, 128, 200, 300, 77, 260, 129), gx=4, gaps=
     slab[5] = rng.uniform(0.05, 0.99, lanes)
     slab[6:9] = rng.uniform(0.0, 1.0, (3, lanes))
     return slab, starts, counts, x0, y0
+
+
+REPO = Path(__file__).resolve().parent.parent
+# the small synthetic scene the CLI-path tests share (64×32 lonlat)
+SCENE_ARGS = ("--width", "64", "--height", "32", "--gaussians", "96",
+              "--train-views", "3", "--test-views", "1", "--seed", "5")
+
+
+def run_jax_script(rel_path, argv):
+    """Run a script of the JAX package's tree (``scripts/…``,
+    ``examples/…``) as ``__main__`` in this process, JAX on the CPU."""
+    old = sys.argv
+    sys.argv = [str(REPO / rel_path), *map(str, argv)]
+    try:
+        runpy.run_path(str(REPO / rel_path), run_name="__main__")
+    finally:
+        sys.argv = old
+
+
+def tiny_yaml(path, **keys):
+    """cfg/lonlat/synthetic_medium.yaml with small capacities and the given
+    ``Section.key`` overrides (``Tpu__fuse_steps=4``), written to ``path``."""
+    keys = {"Tpu.capacity": 256, "Tpu.max_instances": 16384,
+            **{k.replace("__", "."): v for k, v in keys.items()}}
+    lines = []
+    for line in (REPO / "cfg" / "lonlat" / "synthetic_medium.yaml").read_text().splitlines():
+        key = line.split(":", 1)[0].strip()
+        if key in keys:
+            line = f"{key}: {keys.pop(key)}"
+        lines.append(line)
+    lines += [f"{k}: {v}" for k, v in keys.items()]
+    Path(path).write_text("\n".join(lines) + "\n")
+    return Path(path)
