@@ -161,6 +161,39 @@ script exits non-zero:
    full-width `Trainer` saved at iteration 100, run to 124, loaded and run
    to 124 again: every parameter and Adam moment `torch.equal`.
    ms/iteration, PSNR, peak memory and `DevicePeakUsageMB.txt`.
+22. pinhole — the render model through a distorted pinhole camera
+   (1920×1080, f = 1200, k1 = 0.3, k2 = 0.05) from the four request poses,
+   `full_proj` from a `Keyframe`, the production segmented config: host ms,
+   truncated 0, one #1 launch a request, each image and final_T bitwise
+   the render through the plain versions (`plain_segmented_kernels`); one
+   L1 + SSIM backward of the masked render through #2, every gradient
+   bitwise the plain path's, finite and nonzero; the time of cv2's maps and
+   mask and of undistorting one frame.
+23. pinhole_scene — a four-view `pinhole_radial_k3` openMVG scene written
+   from those renders and loaded: the mask, each loaded frame
+   `torch.equal` to `undistort_image` of its PNG, and
+   `Trainer.train_iteration` raising the JAX package's ValueError
+   ("pinhole camera requires full_proj": neither trainer passes it).
+24. pyramid — cli_full's scene through the training CLI with
+   `GausPyramid.do: 1`, two sub-levels of 8 uses: 200 iterations, each
+   timed (synchronised) under its level (480×240, 960×480, 1920×960),
+   `train_window` 0 throughout, #1/#2 launched, finite loss.
+25. viewer — `omnigs_torch.examples.view_result` serving the render
+   model's PLY at 1920×960 on 127.0.0.1 from a thread: eight POST /render
+   (color and depth, scale 1 and 0.5, two poses), each a JPEG and one #3
+   launch; host ms per request, render and encode timed apart; the first
+   color frame within JPEG error of `render_model` (PSNR ≥ 30 dB).
+26. live_viewer — `start_live_viewer` on a full-width Trainer of that
+   scene: 210 iterations (across the densify at 200) while a client thread
+   requests frames, POST /params changing lambda_dssim at iteration 100;
+   then the same run without the viewer: every parameter and Adam moment
+   `torch.equal`; frames served and their host ms.
+27. trace — one `train_window` of that Trainer under `profiling.trace`:
+   from the Chrome trace, the device busy share of the window, kernels and
+   launch calls per step, the five longest device ops and idle gaps.
+28. examples — `omnigs_torch.examples.simple_cloud` at 2000×1000 (one #3
+   launch, truncated 0, the image's sha256) and `ImagePool` over the pinned
+   scene's PNGs, each image `torch.equal` to `load_image`.
 
 Then the `kernels` line, nvidia-smi's line, and last the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -169,6 +202,7 @@ package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -2602,6 +2636,597 @@ def cli_full_phase(torch):
     return totals, synth_launches
 
 
+# ---------------------------------------------------------------------------
+# The remaining single-device entry points: the pinhole camera, the
+# coarse-to-fine pyramid, the viewer, the live viewer, `profiling.trace`
+# and the last examples.
+
+PINHOLE_CAM_KW = dict(width=1920, height=1080, fx=1200.0, fy=1200.0, cx=960.0, cy=540.0,
+                      distortion=(0.3, 0.05, 0.0, 0.0, 0.0))
+PINHOLE_DIR = CLI_DIR / "pinhole_scene"
+PYRAMID_ITERS = 200
+PYRAMID_KEYS = {"GausPyramid.do": 1, "GausPyramid.num_sub_levels": 2,
+                "GausPyramid.sub_level_times_of_use": 8}
+VIEWER_W, VIEWER_H = 1920, 960
+VIEWER_PSNR_BAR = 30.0
+LIVE_ITERS = 210  # across the densify at 200 (from 150, every 100)
+LIVE_PARAMS_AT = 100
+LIVE_WIDTH = 960
+TRACE_DIR = REPO / "build" / "chip_smoke_trace"
+
+
+@contextlib.contextmanager
+def plain_segmented_kernels():
+    """`composite_seg`'s two kernel wrappers replaced by their plain
+    versions (the same PyTorch code the CPU runs, here on the card's
+    tensors) for the block: what a render or a backward gives without the
+    kernels. Their launch counters are not touched."""
+    from omnigs_torch.ops import composite_seg as cs
+
+    fwd, bwd = cs.composite_seg_fwd, cs.composite_seg_bwd
+
+    def plain_fwd(inst, starts8, counts, live8, num_tiles, gx, tile_lo=0):
+        color, final_t, _, _ = cs.composite_seg_fwd_plain(inst, starts8, counts, num_tiles,
+                                                          gx, tile_lo)
+        return color, final_t
+
+    def plain_bwd(inst, starts8, counts, live8, color_full, dcolor, num_tiles, gx, tile_lo=0):
+        return cs.composite_seg_bwd_plain(inst, starts8, counts, color_full, dcolor,
+                                          num_tiles, gx, tile_lo)
+
+    cs.composite_seg_fwd, cs.composite_seg_bwd = plain_fwd, plain_bwd
+    try:
+        yield
+    finally:
+        cs.composite_seg_fwd, cs.composite_seg_bwd = fwd, bwd
+
+
+def _rel_err(torch, got, ref):
+    scale = float(ref.abs().max()) or 1.0
+    return float((got - ref).abs().max()) / scale
+
+
+def pinhole_phase(torch, np, model, pose_list, cfg):
+    """The render model through the distorted 1920×1080 pinhole camera from
+    the four request poses (`full_proj` from a `Keyframe`, the production
+    segmented config): host ms, truncated, #1's launches, each image
+    bitwise the plain versions' render. Then one L1 + SSIM backward with
+    the undistort mask through #2, its gradients bitwise the plain path's;
+    the time of the maps and mask and of undistorting one frame →
+    (renders, the launches of the requests and the backward together)."""
+    from omnigs_torch.cameras import (
+        Camera,
+        CameraType,
+        init_undistort_map_and_mask,
+        undistort_image,
+    )
+    from omnigs_torch.ops import loss as loss_ops
+    from omnigs_torch.scene.keyframe import Keyframe
+    from omnigs_torch.train.renderer import render_model
+
+    cam = Camera(CameraType.PINHOLE, **PINHOLE_CAM_KW)
+    bg = torch.zeros(3, device="cuda")
+    kfs = [Keyframe(k, cam, vm[:3, :3].cpu().numpy(), vm[:3, 3].cpu().numpy())
+           for k, (vm, _) in enumerate(pose_list)]
+    fps = [torch.from_numpy(kf.full_proj).to("cuda") for kf in kfs]
+
+    def render(k):
+        vm, campos = pose_list[k]
+        with torch.inference_mode():
+            return render_model(model, cam, vm, campos, bg, SH_DEGREE, cfg, full_proj=fps[k])
+
+    render(0)  # warm-up of the new image shape's caches
+    torch.cuda.synchronize()
+    reset_launches()
+    renders, host_ms = [], []
+    for k in range(len(pose_list)):
+        t0 = time.perf_counter()
+        res = render(k)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        renders.append(res)
+    fwd_launches = read_launches()
+    with plain_segmented_kernels():
+        plain = [render(k) for k in range(len(pose_list))]
+    equal = [bool(torch.equal(r.image, p.image) and torch.equal(r.final_T, p.final_T))
+             for r, p in zip(renders, plain)]
+
+    t0 = time.perf_counter()
+    m1, m2, mask_np = init_undistort_map_and_mask(cam)
+    maps_ms = (time.perf_counter() - t0) * 1e3
+    frame = np.ascontiguousarray(renders[1].image.permute(1, 2, 0).cpu().numpy())
+    t0 = time.perf_counter()
+    undistort_image(frame, m1, m2)
+    undistort_ms = (time.perf_counter() - t0) * 1e3
+    mask = torch.from_numpy(mask_np).to("cuda")
+    gt = plain[1].image.clone()
+
+    def grads():
+        vm, campos = pose_list[0]
+        params = model.params()
+        res = render_model(model, cam, vm, campos, bg, SH_DEGREE, cfg, full_proj=fps[0])
+        loss = loss_ops.training_loss(res.image * mask, gt)
+        out = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        return loss.detach(), dict(zip(params, out))
+
+    reset_launches()
+    loss, g = grads()
+    bwd_launches = read_launches()
+    with plain_segmented_kernels():
+        ploss, pg = grads()
+    line = {
+        "phase": "pinhole", "camera": {k: v for k, v in PINHOLE_CAM_KW.items()},
+        "host_ms": host_ms, "truncated": [int(r.truncated) for r in renders],
+        "launches_requests": fwd_launches, "launches_backward": bwd_launches,
+        "bitwise_plain": equal,
+        "image_mean": [float(r.image.mean()) for r in renders],
+        "covered": [float((r.final_T < 0.5).float().mean()) for r in renders],
+        "loss": float(loss), "loss_plain": float(ploss),
+        "grads_bitwise_plain": {k: bool(torch.equal(g[k], pg[k])) for k in g},
+        "grads_rel_err": {k: _rel_err(torch, g[k], pg[k]) for k in g},
+        "grads_finite": {k: bool(torch.isfinite(v).all()) for k, v in g.items()},
+        "grads_nonzero": {k: bool(v.abs().max() > 0) for k, v in g.items()},
+        "maps_and_mask_ms": maps_ms, "undistort_frame_ms": undistort_ms,
+        "mask_corner": float(mask_np[0, 0]),
+        "mask_centre": float(mask_np[cam.height // 2, cam.width // 2]),
+    }
+    emit(line)
+    if any(line["truncated"]) or not all(equal):
+        raise RuntimeError(f"pinhole requests: truncated {line['truncated']}, bitwise {equal}")
+    if not _only(fwd_launches, {"composite_seg_fwd": len(pose_list)}):
+        raise RuntimeError(f"pinhole requests launched {fwd_launches}")
+    if not _only(bwd_launches, {"composite_seg_fwd": 1, "composite_seg_bwd": 1}):
+        raise RuntimeError(f"pinhole backward launched {bwd_launches}")
+    if not (all(line["grads_bitwise_plain"].values()) and all(line["grads_finite"].values())
+            and all(line["grads_nonzero"].values())):
+        raise RuntimeError(f"pinhole gradients: {line}")
+    return renders, {k: fwd_launches[k] + bwd_launches[k] for k in fwd_launches}
+
+
+def pinhole_scene_phase(torch, np, renders, pose_list, model):
+    """A four-view pinhole openMVG scene (``pinhole_radial_k3``) written
+    from the pinhole renders, loaded with `load_openmvg_scene`: the mask,
+    each loaded frame `torch.equal` to `undistort_image` of its PNG, and
+    `Trainer.train_iteration` raising the JAX package's ValueError (neither
+    package's trainer passes `full_proj`)."""
+    import shutil
+
+    from omnigs_torch.cameras import init_undistort_map_and_mask, undistort_image
+    from omnigs_torch.config import load_config
+    from omnigs_torch.io.native_loader import load_image
+    from omnigs_torch.io.openmvg import load_openmvg_scene
+    from omnigs_torch.io.ply import save_points_ply
+    from omnigs_torch.scripts.make_synthetic_scene import _sfm_json
+    from omnigs_torch.train.eval import save_image
+    from omnigs_torch.train.trainer import Trainer
+
+    shutil.rmtree(PINHOLE_DIR, ignore_errors=True)
+    (PINHOLE_DIR / "images").mkdir(parents=True)
+    views = []
+    for k, (res, (vm, campos)) in enumerate(zip(renders, pose_list)):
+        fname = f"pin_{k}.png"
+        save_image(PINHOLE_DIR / "images" / fname, res.image.cpu().numpy())
+        views.append((vm[:3, :3].cpu().numpy().astype(np.float64),
+                      campos.cpu().numpy().astype(np.float64), fname))
+    w, h = PINHOLE_CAM_KW["width"], PINHOLE_CAM_KW["height"]
+    root = _sfm_json(views, w, h, PINHOLE_DIR / "images")
+    d = PINHOLE_CAM_KW["distortion"]
+    intr = root["intrinsics"][0]["value"]
+    intr["polymorphic_name"] = "pinhole_radial_k3"
+    intr["ptr_wrapper"]["data"] = {
+        "value0": {"value0": {"width": w, "height": h},
+                   "focal_length": PINHOLE_CAM_KW["fx"],
+                   "principal_point": [PINHOLE_CAM_KW["cx"], PINHOLE_CAM_KW["cy"]]},
+        "disto_k3": [d[0], d[1], d[4]],
+    }
+    (PINHOLE_DIR / "sfm_data.json").write_text(json.dumps(root, indent=1))
+    idx = torch.arange(0, P, 32)
+    save_points_ply(PINHOLE_DIR / "points.ply", model.xyz[idx].detach().cpu().numpy(),
+                    np.full((len(idx), 3), 0.5, np.float32))
+
+    t0 = time.perf_counter()
+    scene = load_openmvg_scene(PINHOLE_DIR / "sfm_data.json", PINHOLE_DIR / "points.ply")
+    load_s = time.perf_counter() - t0
+    (cam,) = scene.cameras.values()
+    mask = scene.undistort_mask(cam)
+    m1, m2, _ = init_undistort_map_and_mask(cam)
+    equal = []
+    for kf in scene.keyframes.values():
+        raw = load_image(PINHOLE_DIR / "images" / kf.img_filename, w, h)
+        equal.append(bool(torch.equal(torch.from_numpy(kf.image),
+                                      torch.from_numpy(undistort_image(raw, m1, m2)))))
+    tr = Trainer(scene, load_config(FULL_CONFIG), seed=3, device="cuda")
+    tr.init_from_sfm()
+    try:
+        tr.train_iteration()
+        raised = None
+    except ValueError as e:  # the JAX package's behaviour, checked below
+        raised = str(e)
+    line = {"phase": "pinhole_scene", "camera": [cam.camera_type.name, cam.width, cam.height,
+                                                 cam.fx, cam.cx, cam.cy, list(cam.distortion)],
+            "keyframes": len(scene.keyframes), "load_s": load_s,
+            "mask_shape": list(mask.shape), "mask_corner": float(mask[0, 0]),
+            "mask_mean": float(mask.mean()), "frames_equal_undistort": equal,
+            "trainer_raised": raised}
+    emit(line)
+    if cam.distortion != PINHOLE_CAM_KW["distortion"] or not all(equal) or len(equal) != 4:
+        raise RuntimeError(f"pinhole scene: {line}")
+    if raised != "pinhole camera requires full_proj":
+        raise RuntimeError(f"Trainer.train_iteration on a pinhole scene: {raised!r}")
+
+
+def _yaml_with(path, keys):
+    """FULL_CONFIG with ``keys`` (``Section.key: value``) replaced or
+    appended, written to ``path``."""
+    keys, lines = dict(keys), []
+    for line in FULL_CONFIG.read_text().splitlines():
+        key = line.split(":", 1)[0].strip()
+        if key in keys:
+            line = f"{key}: {keys.pop(key)}"
+        lines.append(line)
+    lines += [f"{k}: {v}" for k, v in keys.items()]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def pyramid_phase(torch):
+    """cli_full's 1920×960 scene through the training CLI with the pyramid
+    on (two sub-levels, 8 uses each per keyframe): 200 iterations, each
+    timed with a synchronise and filed under its level by the image width;
+    `train_window` must return 0 throughout."""
+    from omnigs_torch.train.trainer import Trainer
+
+    scene = CLI_DIR / "scene_full"
+    yaml = _yaml_with(CLI_DIR / "pyramid.yaml", PYRAMID_KEYS)
+    by_width, windows = {}, []
+    orig_it, orig_win = Trainer.train_iteration, Trainer.train_window
+
+    def timed_iteration(self):
+        t0 = time.perf_counter()
+        aux = orig_it(self)
+        torch.cuda.synchronize()
+        by_width.setdefault(int(aux["image"].shape[-1]), []).append(
+            (time.perf_counter() - t0) * 1e3)
+        return aux
+
+    def recorded_window(self, k):
+        took = orig_win(self, k)
+        windows.append(took)
+        return took
+
+    Trainer.train_iteration, Trainer.train_window = timed_iteration, recorded_window
+    try:
+        st = _cli_train(torch, [
+            str(yaml), str(CLI_DIR / "pyramid"), str(scene / "sfm_data_train.json"),
+            str(scene / "points.ply"), "--image-root", str(scene / "images"),
+            "--iters", str(PYRAMID_ITERS), "--log-every", "50"])
+    finally:
+        Trainer.train_iteration, Trainer.train_window = orig_it, orig_win
+    levels = {w: {"iterations": len(v), "ms_mean": statistics.mean(v),
+                  "ms_median": statistics.median(v), "ms_max": max(v)}
+              for w, v in sorted(by_width.items())}
+    line = {"phase": "pyramid", "config": PYRAMID_KEYS, "levels_by_width": levels,
+            "ms_per_iteration": st["ms_per_iteration"], "windows": st["windows"],
+            "single_steps": st["single_steps"], "train_window_nonzero": sum(map(bool, windows)),
+            "train_window_calls": len(windows), "ema_loss": st["ema_loss"],
+            "live_gaussians": st["live"], "truncated": st["truncated"],
+            "launches": st["launches"], "peak_mem_gib": st["peak_mem_gib"], "log": st["log"]}
+    emit(line)
+    w = int(FULL_SCENE_ARGS[FULL_SCENE_ARGS.index("--width") + 1])
+    if sorted(by_width) != [w // 4, w // 2, w] or st["windows"]:
+        raise RuntimeError(f"pyramid levels {sorted(by_width)}, windows {st['windows']}")
+    if any(windows) or st["truncated"] or not math.isfinite(st["ema_loss"]):
+        raise RuntimeError(f"pyramid: {line}")
+    if not (st["launches"]["composite_seg_fwd"] and st["launches"]["composite_seg_bwd"]):
+        raise RuntimeError(f"pyramid launched {st['launches']}")
+    return st["launches"]
+
+
+def _post(port, path, obj, timeout=300):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(obj).encode(), method="POST")
+    return urllib.request.urlopen(req, timeout=timeout).read()
+
+
+def viewer_phase(torch, np, model):
+    """`omnigs_torch.examples.view_result` serving the render model's PLY
+    on 127.0.0.1 at 1920×960 from a thread: eight POST /render (color and
+    depth, scale 1.0 and 0.5, two poses), each a JPEG through kernel #3;
+    then each request's render and encode timed apart, and the first color
+    frame against `render_model` (JPEG error only: PSNR ≥ 30 dB)."""
+    import io
+    import threading
+
+    from PIL import Image
+
+    from omnigs_torch.cameras import Camera, CameraType
+    from omnigs_torch.examples import view_result
+    from omnigs_torch.io.ply import load_gaussian_ply, save_gaussian_ply
+    from omnigs_torch.train.renderer import render_model
+    from omnigs_torch.viewer import server
+
+    ply = CLI_DIR / "render_model.ply"
+    ply.parent.mkdir(parents=True, exist_ok=True)
+    save_gaussian_ply(ply, model)
+    httpd = view_result.build_server([str(ply), "--width", str(VIEWER_W), "--height",
+                                      str(VIEWER_H), "--port", "0", "--host", "127.0.0.1",
+                                      "--device", "cuda"])
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    reqs = [{"mode": m, "scale": s, "yaw": y, "pitch": 0.0, "pos": [0, 0, 0]}
+            for y in (0.0, 1.3) for m in ("color", "depth") for s in (1.0, 0.5)]
+    try:
+        _post(port, "/render", reqs[0])  # warm-up of the caches
+        reset_launches()
+        frames, host_ms = [], []
+        for r in reqs:
+            t0 = time.perf_counter()
+            frames.append(_post(port, "/render", r))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        state = httpd.viewer_state
+        split = []
+        for r in reqs:
+            t0 = time.perf_counter()
+            img = server.render_frame(state, r)
+            t1 = time.perf_counter()
+            server.encode_jpeg(img)
+            split.append({"render_ms": (t1 - t0) * 1e3,
+                          "encode_ms": (time.perf_counter() - t1) * 1e3})
+    finally:
+        httpd.shutdown()
+        thread.join()
+    got = np.asarray(Image.open(io.BytesIO(frames[0])).convert("RGB"), np.float32) / 255.0
+    loaded = load_gaussian_ply(ply, device="cuda")
+    vm, campos = server._pose_to_viewmatrix(0.0, 0.0, [0, 0, 0])
+    with torch.inference_mode():
+        ref = render_model(loaded, Camera(CameraType.LONLAT, VIEWER_W, VIEWER_H),
+                           torch.from_numpy(vm).to("cuda"), torch.from_numpy(campos).to("cuda"),
+                           torch.zeros(3, device="cuda"), 3, view_result.RASTER_CONFIG)
+    ref = ref.image.clamp(0, 1).permute(1, 2, 0).cpu().numpy()
+    mse = float(np.mean((got - ref) ** 2))
+    psnr = 10 * math.log10(1.0 / max(mse, 1e-12))
+    line = {"phase": "viewer", "size": [VIEWER_W, VIEWER_H], "requests": len(reqs),
+            "jpeg": [f[:2] == b"\xff\xd8" for f in frames],
+            "jpeg_bytes": [len(f) for f in frames], "host_ms": host_ms, "split": split,
+            "launches": launches, "psnr_vs_render_model": psnr, "psnr_bar": VIEWER_PSNR_BAR,
+            "config": {"segmented": view_result.RASTER_CONFIG.segmented,
+                       "want_ncontrib": view_result.RASTER_CONFIG.want_ncontrib}}
+    emit(line)
+    if not all(line["jpeg"]) or psnr < VIEWER_PSNR_BAR:
+        raise RuntimeError(f"viewer: jpeg {line['jpeg']}, psnr {psnr}")
+    if not _only(launches, {"composite_tile_fwd": len(reqs)}):
+        raise RuntimeError(f"viewer requests launched {launches}")
+    return launches["composite_tile_fwd"]
+
+
+def _live_run(torch, attach):
+    """A Trainer on cli_full's scene, LIVE_ITERS single iterations with
+    lambda_dssim set to 0.3 before iteration LIVE_PARAMS_AT + 1: through
+    the live viewer's POST /params while a client thread requests frames
+    (``attach``), or directly."""
+    import threading
+
+    from omnigs_torch.config import load_config
+    from omnigs_torch.io.openmvg import load_openmvg_scene
+    from omnigs_torch.train.trainer import Trainer
+    from omnigs_torch.viewer.live import start_live_viewer
+
+    scene_dir = CLI_DIR / "scene_full"
+    scene = load_openmvg_scene(scene_dir / "sfm_data_train.json", scene_dir / "points.ply",
+                               image_root=scene_dir / "images")
+    cfg = load_config(FULL_CONFIG)
+    tr = Trainer(scene, cfg, seed=3, device="cuda")
+    tr.init_from_sfm()
+    frame_ms, stop, httpd, client = [], threading.Event(), None, None
+    reset_launches()
+    if attach:
+        httpd = start_live_viewer(tr, scene, cfg, 0, width=LIVE_WIDTH, host="127.0.0.1")
+        port = httpd.server_address[1]
+
+        def frames():
+            k = 0
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                jpg = _post(port, "/render", {"mode": ("color", "depth")[k % 2],
+                                              "yaw": 0.05 * k})
+                frame_ms.append(((time.perf_counter() - t0) * 1e3, jpg[:2] == b"\xff\xd8"))
+                k += 1
+
+        client = threading.Thread(target=frames)
+        client.start()
+    t0 = time.perf_counter()
+    try:
+        for _ in range(LIVE_ITERS):
+            if tr.iteration == LIVE_PARAMS_AT:
+                if attach:
+                    _post(port, "/params", {"lambda_dssim": 0.3})
+                else:
+                    tr.set_variable_parameters({"lambda_dssim": 0.3})
+            tr.train_iteration()
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        if attach:
+            client.join()
+            httpd.shutdown()
+    return tr, (time.perf_counter() - t0) / LIVE_ITERS * 1e3, frame_ms, read_launches()
+
+
+def live_viewer_phase(torch):
+    """The live viewer attached to a full-width Trainer for 210 iterations
+    (across the densify at 200) while a client requests frames, ``/params``
+    reaching the trainer; then the same run without the viewer: every
+    parameter and Adam moment `torch.equal`."""
+    tr, ms_live, frames, launches = _live_run(torch, True)
+    lam = tr.get_variable_parameters()["lambda_dssim"]
+    live_state = _trainer_state(torch, tr)
+    live_active = int(tr.model.num_active)
+    del tr
+    ref, ms_ref, _, ref_launches = _live_run(torch, False)
+    ref_state = _trainer_state(torch, ref)
+    unequal = [k for k in live_state if not torch.equal(live_state[k], ref_state[k])]
+    frame_host = [m for m, _ in frames]
+    line = {"phase": "live_viewer", "iterations": LIVE_ITERS, "frames": len(frames),
+            "frames_jpeg": all(ok for _, ok in frames),
+            "frame_ms_mean": statistics.mean(frame_host) if frames else None,
+            "frame_ms_median": statistics.median(frame_host) if frames else None,
+            "frame_ms_max": max(frame_host) if frames else None,
+            "frame_ms_first": frame_host[:3],
+            "ms_per_iteration_with_viewer": ms_live, "ms_per_iteration_without": ms_ref,
+            "lambda_dssim": lam, "live_gaussians": [live_active, int(ref.model.num_active)],
+            "launches_with_viewer": launches, "launches_without": ref_launches,
+            "tensors": len(live_state), "unequal": unequal}
+    emit(line)
+    if unequal or lam != 0.3 or not frames or not line["frames_jpeg"]:
+        raise RuntimeError(f"live viewer: {line}")
+    if launches["composite_seg_fwd"] != ref_launches["composite_seg_fwd"] + len(frames):
+        raise RuntimeError(f"live viewer launches {launches} vs {ref_launches}")
+    return ref, launches
+
+
+def _merge(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _device_spans(events, lo=float("-inf"), hi=float("inf")):
+    """The device ops of a Chrome trace and the union of their spans
+    clipped to [lo, hi] µs → (ops, merged spans)."""
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = [(max(float(e["ts"]), lo), min(float(e["ts"]) + float(e["dur"]), hi)) for e in dev]
+    return dev, _merge([s for s in spans if s[1] > s[0]])
+
+
+def trace_phase(torch, tr):
+    """One `train_window` of the 1920×960 scene under `profiling.trace`:
+    from the Chrome trace, the device busy share of the window's host span
+    (which ends in a synchronise), device kernels per step, the five
+    longest device ops and the five longest idle gaps. Before it, one
+    window untraced (its host ms a step) and one under a profiler that
+    records CUDA activity only, which costs the host far less than the
+    CPU ops' tracing: its device busy time over its own host span is the
+    busy share nearest an untraced window's."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from omnigs_torch.utils.profiling import trace
+
+    k_max = tr.config.tpu.fuse_steps
+    tr.train_iteration()  # past the densify at 200: a window can start
+    torch.cuda.synchronize()
+    reset_launches()
+    # the same length of window untraced, for the profiler's overhead
+    t0 = time.perf_counter()
+    untraced = tr.train_window(k_max)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3 / max(untraced, 1)
+    # CUDA activity only: every device op of the trace lies in this window,
+    # which starts and ends with a synchronise
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cuda_only = tr.train_window(k_max)
+        torch.cuda.synchronize()
+        cuda_only_us = (time.perf_counter() - t0) * 1e6
+    prof.export_chrome_trace(str(TRACE_DIR / "trace_cuda_only.json"))
+    _, cuda_busy = _device_spans(
+        json.loads((TRACE_DIR / "trace_cuda_only.json").read_text())["traceEvents"])
+    cuda_busy_us = sum(b - a for a, b in cuda_busy)
+    with trace(TRACE_DIR) as log_dir:
+        with record_function("train_window"):
+            took = tr.train_window(k_max)
+            torch.cuda.synchronize()
+    counted = read_launches()
+    events = json.loads((Path(log_dir) / "trace.json").read_text())["traceEvents"]
+    (win,) = [e for e in events if e.get("name") == "train_window" and e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"]
+    lo, hi = float(win["ts"]), float(win["ts"]) + float(win["dur"])
+    dev, busy = _device_spans(events, lo, hi)
+    busy_us = sum(b - a for a, b in busy)
+    gaps = [(b[0] - a[1], a[1] - lo) for a, b in zip(busy, busy[1:])]
+    if busy:
+        gaps += [(busy[0][0] - lo, 0.0), (hi - busy[-1][1], busy[-1][1] - lo)]
+    kernels = [e for e in dev if e.get("cat") == "kernel"]
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in str(e.get("name", ""))]
+    by_name = {}
+    for e in kernels:
+        by_name.setdefault(e["name"], [0, 0.0])
+        by_name[e["name"]][0] += 1
+        by_name[e["name"]][1] += float(e["dur"])
+    line = {"phase": "trace", "steps": took, "window_ms": (hi - lo) / 1e3,
+            "ms_per_step": (hi - lo) / 1e3 / max(took, 1),
+            "untraced_steps": untraced, "untraced_ms_per_step": untraced_ms,
+            "device_events": len(dev), "device_busy_ms": busy_us / 1e3,
+            "device_busy_ms_per_step": busy_us / 1e3 / max(took, 1),
+            "device_busy_share": busy_us / (hi - lo) if hi > lo else None,
+            "cuda_only": {"steps": cuda_only,
+                          "ms_per_step": cuda_only_us / 1e3 / max(cuda_only, 1),
+                          "device_busy_ms_per_step": cuda_busy_us / 1e3 / max(cuda_only, 1),
+                          "device_busy_share": cuda_busy_us / cuda_only_us},
+            "kernels_per_step": len(kernels) / max(took, 1),
+            "launch_calls_per_step": len(launches) / max(took, 1),
+            "launches": counted,
+            "longest_device_ops": [
+                {"name": e["name"][:80], "us": float(e["dur"])}
+                for e in sorted(dev, key=lambda e: -float(e["dur"]))[:5]],
+            "top_kernels_by_total_us": sorted(
+                ({"name": n[:80], "count": c, "us": t} for n, (c, t) in by_name.items()),
+                key=lambda x: -x["us"])[:5],
+            "longest_idle_gaps": [{"us": g, "at_us": at} for g, at in sorted(gaps)[::-1][:5]],
+            "trace_file": str(Path(log_dir) / "trace.json")}
+    emit(line)
+    steps = untraced + cuda_only + took
+    if (min(untraced, cuda_only, took) <= 0 or not cuda_busy
+            or not _only(counted, {"composite_seg_fwd": steps, "composite_seg_bwd": steps})):
+        raise RuntimeError(f"trace: train_window took {untraced}, {cuda_only}, {took} steps, "
+                           f"launched {counted}")
+    return counted
+
+
+def examples_phase(torch, np):
+    """`omnigs_torch.examples.simple_cloud` at its default 2000×1000 (kernel
+    #3): truncated and the image's sha256; `ImagePool` over the pinned
+    scene's PNGs, every image `torch.equal` to `load_image`."""
+    import hashlib
+
+    from omnigs_torch.examples import simple_cloud
+    from omnigs_torch.io.native_loader import ImagePool, load_image
+
+    out, printed, launches = _script_main(
+        torch, simple_cloud, [str(CLI_DIR / "simple_cloud"), "--device", "cuda"])
+    pngs = sorted((CLI_DIR / "scene_pinned" / "images").glob("*.png"))
+    pool = ImagePool(512, 256, n_threads=4)
+    t0 = time.perf_counter()
+    got = dict(pool.load_all(pngs))
+    pool_s = time.perf_counter() - t0
+    pool.close()
+    equal = [bool(torch.equal(torch.from_numpy(got[i]),
+                              torch.from_numpy(load_image(p, 512, 256))))
+             for i, p in enumerate(pngs)]
+    line = {"phase": "examples", "simple_cloud": {
+                "size": list(out["image"].shape), "truncated": out["truncated"],
+                "sha256": hashlib.sha256(np.ascontiguousarray(out["image"]).tobytes()).hexdigest(),
+                "image_max": float(out["image"].max()), "launches": launches},
+            "image_pool": {"images": len(pngs), "seconds": pool_s, "equal": all(equal)}}
+    emit(line)
+    if out["truncated"] or not _only(launches, {"composite_tile_fwd": 1}):
+        raise RuntimeError(f"simple_cloud: {line['simple_cloud']}")
+    if not pngs or not all(equal):
+        raise RuntimeError(f"ImagePool: {line['image_pool']}")
+    return launches["composite_tile_fwd"]
+
 def main() -> int:
     import torch
 
@@ -2708,6 +3333,23 @@ def main() -> int:
     full_launches, full_synth_launches = cli_full_phase(torch)
     cli_launches = {k: quality_launches[k] + full_launches[k] for k in quality_launches}
 
+    # the remaining single-device entry points: the pinhole camera, the
+    # pyramid, the viewer and the live viewer, `profiling.trace`, the
+    # last examples
+    pin_renders, pinhole_launches = pinhole_phase(torch, np, model, pose_list, cfg)
+    pinhole_scene_phase(torch, np, pin_renders, pose_list, model)
+    del pin_renders
+    pyramid_launches = pyramid_phase(torch)
+    viewer_launches = viewer_phase(torch, np, model)
+    live_tr, live_launches = live_viewer_phase(torch)
+    trace_launches = trace_phase(torch, live_tr)
+    del live_tr
+    cloud_launches = examples_phase(torch, np)
+    more_fwd = (pinhole_launches["composite_seg_fwd"] + pyramid_launches["composite_seg_fwd"]
+                + live_launches["composite_seg_fwd"] + trace_launches["composite_seg_fwd"])
+    more_bwd = (pinhole_launches["composite_seg_bwd"] + pyramid_launches["composite_seg_bwd"] + live_launches["composite_seg_bwd"]
+                + trace_launches["composite_seg_bwd"])
+
     emit({"kernels": [
         {
             "name": "composite_seg_fwd",
@@ -2719,11 +3361,17 @@ def main() -> int:
             # no-presort segmented requests (4) + the CLIs (quality gate and
             # cli_full: training steps and eval renders)
             "launches": render_launches + train_launches["composite_seg_fwd"]
-            + fallback_launches["segmented"] + cli_launches["composite_seg_fwd"],
+            + fallback_launches["segmented"] + cli_launches["composite_seg_fwd"] + more_fwd,
             "launches_render": render_launches,
             "launches_train": train_launches["composite_seg_fwd"],
             "launches_fallback": fallback_launches["segmented"],
             "launches_cli": cli_launches["composite_seg_fwd"],
+            # pinhole requests + backward, the pyramid CLI run, the live
+            # viewer's training and frames, the traced window
+            "launches_pinhole": pinhole_launches["composite_seg_fwd"],
+            "launches_pyramid": pyramid_launches["composite_seg_fwd"],
+            "launches_live_viewer": live_launches["composite_seg_fwd"],
+            "launches_trace": trace_launches["composite_seg_fwd"],
             "max_abs_err": kres["max_abs_err"],
             "ms": kres["kernel_ms"],
             "plain_ms": kres["plain_ms"],
@@ -2739,9 +3387,13 @@ def main() -> int:
             "replaces": "omnigs_tpu/ops/pallas_seg.py:400",
             "tpu_kernel": "omnigs_tpu/ops/pallas_seg.py::_bwd_seg_kernel",
             "launches": train_launches["composite_seg_bwd"]
-            + cli_launches["composite_seg_bwd"],
+            + cli_launches["composite_seg_bwd"] + more_bwd,
             "launches_train": train_launches["composite_seg_bwd"],
             "launches_cli": cli_launches["composite_seg_bwd"],
+            "launches_pinhole": pinhole_launches["composite_seg_bwd"],
+            "launches_pyramid": pyramid_launches["composite_seg_bwd"],
+            "launches_live_viewer": live_launches["composite_seg_bwd"],
+            "launches_trace": trace_launches["composite_seg_bwd"],
             "max_abs_err": gres["max_abs_err"],
             "max_rel_err": gres["max_rel_err"],
             "ms": gres["kernel_ms"],
@@ -2764,7 +3416,10 @@ def main() -> int:
             "launches": tile_launches + tile_train_launches["composite_tile_fwd"]
             + fused_launches["composite_tile_fwd"] + ghost_launches
             + fallback_launches["tile"] + synth_launches["composite_tile_fwd"]
-            + full_synth_launches["composite_tile_fwd"],
+            + full_synth_launches["composite_tile_fwd"] + viewer_launches + cloud_launches,
+            # view_result's eight requests and simple_cloud's render
+            "launches_viewer": viewer_launches,
+            "launches_simple_cloud": cloud_launches,
             "launches_scene_synth": synth_launches["composite_tile_fwd"]
             + full_synth_launches["composite_tile_fwd"],
             "launches_render": tile_launches,

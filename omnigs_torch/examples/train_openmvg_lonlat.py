@@ -4,10 +4,11 @@ The port's copy of `examples/train_openmvg_lonlat.py`: the same arguments
 and the same output tree (cameras.json, cfg_args, the metric files and
 images of each record and of the shutdown record, the iteration-numbered
 PLYs, `used_times/`, `DevicePeakUsageMB.txt`), plus ``--device``.
+``--viewer PORT`` serves the live viewer (`viewer/live.py`) while training.
 
     python -m omnigs_torch.examples.train_openmvg_lonlat CFG_YAML OUTPUT_DIR \\
         SFM_JSON POINTS_PLY [--image-root DIR] [--iters N] [--seed S] \\
-        [--device cuda]
+        [--viewer PORT] [--viewer-width W] [--device cuda]
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--log-every", type=int, default=100)
     ap.add_argument(
         "--viewer", type=int, default=0, metavar="PORT",
-        help="the live viewer is not ported yet (ROADMAP queue 1 item 7)",
+        help="serve the live viewer (with the variable-parameter editor wired"
+        " to this training run) on PORT while training",
     )
     ap.add_argument("--viewer-width", type=int, default=960)
     ap.add_argument(
@@ -41,11 +43,6 @@ def main(argv=None) -> dict:
     )
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.viewer:
-        raise NotImplementedError(
-            "--viewer: the live viewer is not ported to omnigs_torch yet "
-            "(ROADMAP queue 1 item 7)"
-        )
 
     from omnigs_torch.config import load_config
     from omnigs_torch.io.openmvg import load_openmvg_scene
@@ -82,6 +79,12 @@ def main(argv=None) -> dict:
     save_model_params(
         out, cfg.model.sh_degree, cfg.model.white_background, args.sfm_json, str(out)
     )
+
+    viewer = None
+    if args.viewer:
+        from omnigs_torch.viewer.live import start_live_viewer
+
+        viewer = start_live_viewer(tr, scene, cfg, args.viewer, args.viewer_width)
 
     def record(name_suffix=""):
         return render_and_record_all_keyframes(
@@ -141,6 +144,8 @@ def main(argv=None) -> dict:
     record("_shutdown")
     save_ply_checkpoint(tr.model, out, tr.iteration)
     print("done.", flush=True)
+    if viewer is not None:
+        viewer.shutdown()
     return dict(
         iterations=tr.iteration, windows=windows, window_steps=window_steps,
         single_steps=single_steps, loop_s=loop_s, ema_loss=tr.ema_loss,

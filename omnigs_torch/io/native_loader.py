@@ -8,15 +8,18 @@ that library does not load — no other decoder is tried, since lossy
 decoders differ in their output. Both give the native loader's arithmetic:
 a point-sampled bilinear resize in float32 scaled by ``* (1.0f / 255.0f)``
 (`native/loader.cpp:153-180`), not PIL's resize or ``/ 255``, so a PNG
-loads bit for bit as the JAX package loads it through that library. The
-prefetching pool (`ImagePool`) is not ported yet (ROADMAP queue 1 item 7).
+loads bit for bit as the JAX package loads it through that library.
+`ImagePool` prefetches a list of images on a thread pool over `load_image`
+(the JAX pool's native thread pool is not bound: each image is what
+`load_image` returns).
 """
 
 from __future__ import annotations
 
 import ctypes
+from concurrent.futures import ThreadPoolExecutor, as_completed
 from pathlib import Path
-from typing import Optional
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -92,3 +95,31 @@ def load_image(path, width: int, height: int) -> np.ndarray:
     if rc != 0:
         raise RuntimeError(f"{path}: the native image loader could not decode it")
     return out
+
+
+class ImagePool:
+    """Prefetching image loader: `load_image` on ``n_threads`` threads."""
+
+    def __init__(self, width: int, height: int, n_threads: int = 4):
+        self.width = width
+        self.height = height
+        self._pool: Optional[ThreadPoolExecutor] = ThreadPoolExecutor(n_threads)
+
+    def load_all(self, paths: Iterable) -> Iterator[Tuple[int, np.ndarray]]:
+        """Yield (index, image) for every path, in completion order."""
+        if self._pool is None:
+            raise RuntimeError("ImagePool is closed")
+        futures = {
+            self._pool.submit(load_image, p, self.width, self.height): i
+            for i, p in enumerate(paths)
+        }
+        for fut in as_completed(futures):
+            yield futures[fut], fut.result()
+
+    def close(self):
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+    def __del__(self):
+        self.close()

@@ -5,8 +5,8 @@ holds spherical ("lonlat") intrinsics, views (filename + pose/intrinsic
 ids) and extrinsics (R_cw + camera center); the sparse cloud is a PLY with
 float (360Roam) or double (EgoNeRF) xyz. Images load through
 `io/native_loader.load_image` at the camera's size. Pinhole intrinsics
-(and with them undistortion) are not ported yet: they raise, as the
-pinhole camera does (ROADMAP queue 1 item 7).
+(``pinhole*`` polymorphic names) carry focal, principal point and radial
+distortion; a distorted camera's images are undistorted once at load.
 """
 
 from __future__ import annotations
@@ -17,11 +17,39 @@ from typing import Optional, Union
 
 import numpy as np
 
-from omnigs_torch.cameras import Camera, CameraType
+from omnigs_torch.cameras import (
+    Camera,
+    CameraType,
+    init_undistort_map_and_mask,
+    undistort_image,
+)
 from omnigs_torch.io.native_loader import load_image
 from omnigs_torch.io.ply import load_points_ply
 from omnigs_torch.scene.keyframe import Keyframe, pose_from_center
 from omnigs_torch.scene.scene import Scene
+
+
+def _pinhole_camera(data, v0, resolution_scale: float) -> Camera:
+    """A pinhole intrinsic: size, focal, principal point and openMVG's
+    radial k1 / k3 coefficients in OpenCV order (k1, k2, p1, p2, k3)."""
+    vv = v0.get("value0", v0)
+    w, h = int(vv["width"]), int(vv["height"])
+    f = float(v0.get("focal_length", vv.get("focal_length", 0.0)))
+    pp = v0.get("principal_point", [w / 2.0, h / 2.0])
+    disto = tuple(float(d) for d in data.get("disto_k3", data.get("disto_k1", [])))
+    if len(disto) == 1:
+        distortion = (disto[0], 0.0, 0.0, 0.0, 0.0)
+    elif len(disto) == 3:
+        distortion = (disto[0], disto[1], 0.0, 0.0, disto[2])
+    else:
+        distortion = ()
+    if resolution_scale != 1.0:
+        w = int(round(w * resolution_scale))
+        h = int(round(h * resolution_scale))
+        f *= resolution_scale
+        pp = [p * resolution_scale for p in pp]
+    return Camera(CameraType.PINHOLE, w, h, fx=f, fy=f, cx=float(pp[0]),
+                  cy=float(pp[1]), distortion=distortion)
 
 
 def load_openmvg_scene(
@@ -41,17 +69,18 @@ def load_openmvg_scene(
     """
     root = json.loads(Path(sfm_json).read_text())
     scene = Scene()
+    undistort_maps = {}  # camera → (map1, map2, mask), built once
 
     for intr in root.get("intrinsics", []):
         cam_id = int(intr["key"])
         name = intr["value"].get("polymorphic_name", "spherical")
-        if "pinhole" in name:
-            raise NotImplementedError(
-                f"openMVG intrinsic {name!r}: pinhole cameras and undistortion "
-                "are not ported to omnigs_torch yet (ROADMAP queue 1 item 7)"
-            )
         data = intr["value"]["ptr_wrapper"]["data"]
+        # spherical: {"value0": {"width": W, "height": H}}; the pinhole
+        # variants nest value0.value0 + focal/principal (+ disto)
         v0 = data.get("value0", data)
+        if "pinhole" in name:
+            scene.cameras[cam_id] = _pinhole_camera(data, v0, resolution_scale)
+            continue
         w, h = int(v0["width"]), int(v0["height"])
         if resolution_scale != 1.0:
             w = int(round(w * resolution_scale))
@@ -77,6 +106,12 @@ def load_openmvg_scene(
         image = None
         if load_images and (image_filter is None or image_filter(fid)):
             image = load_image(img_dir / fname, cam.width, cam.height)
+            if cam.distortion:
+                if cam not in undistort_maps:
+                    undistort_maps[cam] = init_undistort_map_and_mask(cam)
+                m1, m2, _ = undistort_maps[cam]
+                if m1 is not None:
+                    image = undistort_image(image, m1, m2)
         scene.add_keyframe(
             Keyframe(fid=fid, camera=cam, R_cw=R_cw, t_cw=t_cw, image=image,
                      img_filename=fname, znear=znear, zfar=zfar)

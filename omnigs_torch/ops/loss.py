@@ -62,7 +62,10 @@ _BANDS: Dict[Tuple[int, int, str, torch.dtype], torch.Tensor] = {}
 def _band_matrix(n: int, window_size: int, device, dtype) -> torch.Tensor:
     key = (n, window_size, str(device), dtype)
     if key not in _BANDS:
-        _BANDS[key] = torch.from_numpy(_band_matrix_np(n, window_size)).to(device, dtype)
+        # a normal tensor even when first built under inference mode, so a
+        # later differentiable SSIM can save it for backward
+        with torch.inference_mode(False):
+            _BANDS[key] = torch.from_numpy(_band_matrix_np(n, window_size)).to(device, dtype)
     return _BANDS[key]
 
 

@@ -16,6 +16,8 @@ from omnigs_torch.cameras import (
     CameraType,
     lonlat_jacobian_rows,
     lonlat_project,
+    pinhole_jacobian_rows,
+    pinhole_project,
     world_to_cam,
 )
 from omnigs_torch.ops import covariance as cov_ops
@@ -28,7 +30,7 @@ class Preprocessed(NamedTuple):
     """Per-Gaussian rasterization state (all tensors length P on dim 0)."""
 
     means2d: torch.Tensor  # (P, 2) pixel coordinates
-    depths: torch.Tensor  # (P,) radial distance (lonlat)
+    depths: torch.Tensor  # (P,) camera z (pinhole) / radial distance (lonlat)
     conic: torch.Tensor  # (P, 3) inverse 2D covariance [A, B, C]
     radii: torch.Tensor  # (P,) float screen radius; 0 ⇒ culled
     rgb: torch.Tensor  # (P, 3) clamped colors
@@ -71,6 +73,7 @@ def preprocess(
     campos: torch.Tensor,
     sh_degree: int,
     scale_modifier: float = 1.0,
+    full_proj: Optional[torch.Tensor] = None,
     colors_precomp: Optional[torch.Tensor] = None,
     cov3d_precomp: Optional[torch.Tensor] = None,
     active_mask: Optional[torch.Tensor] = None,
@@ -84,17 +87,14 @@ def preprocess(
       quats: (P, 4) *activated* (normalized) quaternions, (w, x, y, z).
       opacities: (P,) activated opacities in (0, 1).
       shs: (P, M, 3) SH coefficients.
-      camera: static camera description (lonlat only in this slice).
+      camera: static camera description.
       viewmatrix: (4, 4) T_cw.
       campos: (3,) camera center in world frame.
       sh_degree: active SH degree.
+      full_proj: (4, 4) view·projection of a pinhole camera (required
+        there, ignored for lonlat).
       active_mask: optional (P,) bool of live capacity slots.
     """
-    if camera.camera_type != CameraType.LONLAT:
-        raise NotImplementedError(
-            f"camera_type {camera.camera_type.name}: only LONLAT is ported "
-            "(pinhole: ROADMAP queue 1, side features)"
-        )
     W, H = camera.width, camera.height
     gx, gy = tile_grid(camera)
     t = world_to_cam(means3d, viewmatrix)
@@ -104,10 +104,26 @@ def preprocess(
     # their outputs are masked, so a safe point replaces them before any
     # singular math; `in_front` is computed from the true t.
     safe_point = torch.tensor([0.0, 0.0, 1.0], dtype=t.dtype, device=t.device)
-    in_front = torch.sum(t * t, dim=-1) > 0.04  # `too_close` cull
-    t_safe = torch.where(in_front[..., None], t, safe_point)
-    means2d, depths, _ = lonlat_project(t_safe, W, H)
-    j_rows = lonlat_jacobian_rows(t_safe, W, H)
+    if camera.camera_type == CameraType.LONLAT:
+        in_front = torch.sum(t * t, dim=-1) > 0.04  # `too_close` cull
+        t_safe = torch.where(in_front[..., None], t, safe_point)
+        means2d, depths, _ = lonlat_project(t_safe, W, H)
+        j_rows = lonlat_jacobian_rows(t_safe, W, H)
+    elif camera.camera_type == CameraType.PINHOLE:
+        if full_proj is None:
+            raise ValueError("pinhole camera requires full_proj")
+        in_front = t[..., 2] > 0.2  # `in_frustum` near cull
+        t_safe = torch.where(in_front[..., None], t, safe_point)
+        # the world point too: pinhole projects it through full_proj
+        means3d_safe = torch.where(
+            in_front[..., None], means3d, campos + viewmatrix[:3, :3].T @ safe_point
+        )
+        means2d, depths, _ = pinhole_project(t_safe, W, H, full_proj, means3d_safe)
+        j_rows = pinhole_jacobian_rows(
+            t_safe, camera.fx, camera.fy, camera.tan_fovx, camera.tan_fovy
+        )
+    else:
+        raise NotImplementedError(f"camera_type {camera.camera_type}")
 
     if cov3d_precomp is None:
         cov6 = cov_ops.build_cov3d_components(scales, quats, scale_modifier)

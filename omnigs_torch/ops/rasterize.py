@@ -286,6 +286,7 @@ def rasterize(
     sh_degree: int,
     config: RasterConfig = RasterConfig(),
     scale_modifier: float = 1.0,
+    full_proj: Optional[torch.Tensor] = None,
     means2d_ndc: Optional[torch.Tensor] = None,
     colors_precomp: Optional[torch.Tensor] = None,
     cov3d_precomp: Optional[torch.Tensor] = None,
@@ -295,6 +296,8 @@ def rasterize(
     """Differentiable render of one view.
 
     Args:
+      full_proj: (4, 4) view·projection of a pinhole camera (required
+        there; `Keyframe.full_proj`).
       means2d_ndc: optional (P, 2) zeros whose gradient receives the
         NDC-convention screen-space gradients of the densification
         statistics (the training path).
@@ -314,6 +317,7 @@ def rasterize(
         campos,
         sh_degree,
         scale_modifier,
+        full_proj=full_proj,
         colors_precomp=colors_precomp,
         cov3d_precomp=cov3d_precomp,
         active_mask=active_mask,

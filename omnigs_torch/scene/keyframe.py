@@ -2,9 +2,8 @@
 
 Counterpart of `omnigs_tpu/scene/keyframe.py`: poses are stored as
 (R_cw, t_cw); `viewmatrix` is T_cw (4×4, row-major) and `campos` the camera
-center −R_cwᵀ·t_cw. Only the lonlat camera is ported: `full_proj` raises
-for a pinhole camera (ROADMAP queue 1 item 7), and the pyramid budgets
-wait for the coarse-to-fine pyramid (item 5).
+center −R_cwᵀ·t_cw; for a pinhole camera `full_proj` is the OpenGL-style
+view·projection product (float32, row-major).
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ from typing import Optional
 
 import numpy as np
 
-from omnigs_torch.cameras import Camera, CameraType
+from omnigs_torch.cameras import Camera, CameraType, focal2fov, getProjectionMatrix
 
 
 @dataclasses.dataclass
@@ -30,6 +29,19 @@ class Keyframe:
     zfar: float = 100.0
     # keyframe-use budget of the sampler
     remaining_times_of_use: int = 0
+    # coarse-to-fine pyramid budgets per sub-level (None until first used)
+    pyramid_budgets: Optional[list] = None
+
+    def current_pyramid_level(self, num_sub_levels: int) -> int:
+        """Lowest sub-level with remaining budget (consumed), else the full
+        resolution level == num_sub_levels."""
+        if self.pyramid_budgets is None:
+            return num_sub_levels
+        for i, b in enumerate(self.pyramid_budgets):
+            if b > 0:
+                self.pyramid_budgets[i] -= 1
+                return i
+        return num_sub_levels
 
     @property
     def viewmatrix(self) -> np.ndarray:
@@ -45,12 +57,12 @@ class Keyframe:
     @property
     def full_proj(self) -> Optional[np.ndarray]:
         """view·proj for pinhole; None for lonlat (direct projection)."""
-        if self.camera.camera_type == CameraType.PINHOLE:
-            raise NotImplementedError(
-                "the pinhole camera is not ported to omnigs_torch yet "
-                "(ROADMAP queue 1 item 7)"
-            )
-        return None
+        if self.camera.camera_type != CameraType.PINHOLE:
+            return None
+        fovx = focal2fov(self.camera.fx, self.camera.width)
+        fovy = focal2fov(self.camera.fy, self.camera.height)
+        proj = getProjectionMatrix(self.znear, self.zfar, fovx, fovy).numpy()
+        return (proj @ self.viewmatrix).astype(np.float32)
 
 
 def pose_from_center(R_cw: np.ndarray, center: np.ndarray):

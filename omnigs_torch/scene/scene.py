@@ -4,8 +4,9 @@ Counterpart of `omnigs_tpu/scene/scene.py`: holds the camera and keyframe
 maps and computes the NeRF++-style normalization radius that scales the
 densification thresholds. `KeyframeSampler` draws keyframes with Python's
 ``random.Random(seed)`` exactly as the JAX package does, so both packages
-train on the same keyframe order. Undistortion masks are not ported: a
-distorted camera raises (ROADMAP queue 1 item 7).
+train on the same keyframe order. A distorted camera gets an undistort
+mask (cv2 on the host) that multiplies rendered images in the loss, eval
+and viewer.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from omnigs_torch.cameras import Camera
+from omnigs_torch.cameras import Camera, init_undistort_map_and_mask
 from omnigs_torch.scene.keyframe import Keyframe
 
 
@@ -26,18 +27,32 @@ class Scene:
     keyframes: Dict[int, Keyframe] = dataclasses.field(default_factory=dict)
     points: Optional[np.ndarray] = None  # (N, 3)
     colors: Optional[np.ndarray] = None  # (N, 3) in [0, 1]
+    # per-camera (H, W) float32 undistort masks; none for distortion-free
+    # cameras
+    undistort_masks: Dict[Camera, np.ndarray] = dataclasses.field(
+        default_factory=dict
+    )
 
     def add_keyframe(self, kf: Keyframe):
         self.keyframes[kf.fid] = kf
 
+    def build_undistort_masks(self):
+        """Build the mask of every distorted camera (idempotent); call after
+        the cameras are registered."""
+        cams = set(self.cameras.values()) | {
+            kf.camera for kf in self.keyframes.values()
+        }
+        for cam in cams:
+            if cam.distortion and cam not in self.undistort_masks:
+                _, _, mask = init_undistort_map_and_mask(cam)
+                if mask is not None:
+                    self.undistort_masks[cam] = mask
+
     def undistort_mask(self, camera: Camera) -> Optional[np.ndarray]:
-        """None for a distortion-free camera; a distorted one raises."""
-        if camera.distortion:
-            raise NotImplementedError(
-                f"undistortion masks (camera distortion {camera.distortion}) "
-                "are not ported to omnigs_torch yet (ROADMAP queue 1 item 7)"
-            )
-        return None
+        """(H, W) float mask for this camera, or None (no distortion)."""
+        if camera.distortion and camera not in self.undistort_masks:
+            self.build_undistort_masks()
+        return self.undistort_masks.get(camera)
 
     def nerfpp_norm(self) -> Tuple[np.ndarray, float]:
         """(translate, radius): camera-centroid offset and 1.1× the max

@@ -28,6 +28,7 @@ def render_model(
     sh_degree: int,
     config: RasterConfig,
     *,
+    full_proj: Optional[torch.Tensor] = None,
     means2d_ndc: Optional[torch.Tensor] = None,
     scale_modifier: float = 1.0,
     render_depth: bool = False,
@@ -36,6 +37,9 @@ def render_model(
 ) -> RenderResult:
     """Render the model from a pose (T_cw ``viewmatrix``, camera center
     ``campos``) over background ``bg``; all tensors on the model's device.
+
+    A pinhole camera needs ``full_proj`` (`Keyframe.full_proj`, on the
+    model's device).
 
     ``convert_SHs`` / ``compute_cov3D`` mirror the reference's Pipeline.*
     flags: evaluate SH colors / covariances outside the rasterizer and feed
@@ -74,6 +78,7 @@ def render_model(
         sh_degree=sh_degree,
         config=config,
         scale_modifier=scale_modifier,
+        full_proj=full_proj,
         means2d_ndc=means2d_ndc,
         active_mask=model.active,
         features_override=features_override,

@@ -26,18 +26,34 @@ scanned window does; here it is a loop over `train_iteration`. `train`,
 the live-tunable parameters and full-state checkpoints
 (`train/checkpoint.py`) complete the API the training CLI calls.
 
-Not ported yet, raising `NotImplementedError`: the coarse-to-fine pyramid
-(ROADMAP queue 1 item 5).
+Under the coarse-to-fine pyramid (``GausPyramid.do``) each keyframe's
+first ``sub_level_times_of_use`` uses of each sub-level train at
+0.5^(L−l) of the camera's size, with the ground truth resized by cv2's
+INTER_AREA and the undistort mask by cv2's default on the host, as the
+JAX trainer does; `train_window` then takes no steps. A pinhole keyframe
+raises the JAX package's ValueError at its first step: neither trainer
+passes `full_proj`.
+
+`Trainer.lock` is held for the whole of each `train_iteration` (the Adam
+step, densify/prune and the opacity reset included): the live viewer
+(`viewer/live.py`) renders and reads its frame back under it, so a frame
+never sees a half-applied step, and the render, which draws no random
+number and writes no state, leaves the trajectory as it was. The lock is
+first come, first served: a plain lock released and taken again by the
+training loop would keep a waiting frame out for many iterations.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from omnigs_torch.cameras import Camera
@@ -53,10 +69,37 @@ from omnigs_torch.train.renderer import render_model
 from omnigs_torch.utils.profiling import PeakMemoryTracker
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to omnigs_torch yet (ROADMAP {item})"
-    )
+class FairLock:
+    """A lock that waiting threads take in the order they asked for it (a
+    releasing thread that asks again queues behind them)."""
+
+    def __init__(self):
+        self._cv = threading.Condition(threading.Lock())
+        self._queue = collections.deque()
+        self._held = False
+
+    def acquire(self):
+        with self._cv:
+            ticket = object()
+            self._queue.append(ticket)
+            while self._held or self._queue[0] is not ticket:
+                self._cv.wait()
+            self._queue.popleft()
+            self._held = True
+            return True
+
+    def release(self):
+        with self._cv:
+            if not self._held:
+                raise RuntimeError("FairLock released while not held")
+            self._held = False
+            self._cv.notify_all()
+
+    def __enter__(self):
+        return self.acquire()
+
+    def __exit__(self, *exc):
+        self.release()
 
 
 def train_step(
@@ -174,9 +217,11 @@ class Trainer:
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
         self.model: Optional[GaussianModel] = None
         self.opt_state: Optional[opt_ops.AdamState] = None
-        self._gt_cache: Dict[int, torch.Tensor] = {}
-        self._mask_cache: Dict[Camera, Optional[torch.Tensor]] = {}
+        # device copies per (fid, level width) and (camera, level w, level h)
+        self._gt_cache: Dict[tuple, torch.Tensor] = {}
+        self._mask_cache: Dict[tuple, Optional[torch.Tensor]] = {}
         self._pose_cache: Dict[int, tuple] = {}
+        self.lock = FairLock()
 
     # -- setup --
 
@@ -242,110 +287,140 @@ class Trainer:
         """+1 every 1000 iterations up to the configured maximum."""
         return min(self.iteration // 1000, self.config.model.sh_degree)
 
-    def _gt(self, kf) -> torch.Tensor:
-        """The keyframe's (3, H, W) ground truth on the device (cached)."""
-        if kf.fid not in self._gt_cache:
-            img = torch.as_tensor(kf.image, dtype=torch.float32, device=self.device)
-            # loaders produce HWC; the image convention is channels-first
-            self._gt_cache[kf.fid] = img.permute(2, 0, 1).contiguous()
-        return self._gt_cache[kf.fid]
+    def _gt(self, kf, level_camera=None) -> torch.Tensor:
+        """The keyframe's (3, H, W) ground truth on the device, at the
+        pyramid level's size (cv2 INTER_AREA on the host) when given."""
+        key = (kf.fid, None if level_camera is None else level_camera.width)
+        if key not in self._gt_cache:
+            img = kf.image
+            if level_camera is not None and level_camera.width != kf.camera.width:
+                import cv2
 
-    def _mask(self, camera) -> Optional[torch.Tensor]:
-        """The camera's (H, W) undistort mask on the device, or None."""
-        if camera not in self._mask_cache:
+                img = cv2.resize(
+                    np.asarray(img), (level_camera.width, level_camera.height),
+                    interpolation=cv2.INTER_AREA,
+                )
+            img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+            # loaders produce HWC; the image convention is channels-first
+            self._gt_cache[key] = img.permute(2, 0, 1).contiguous()
+        return self._gt_cache[key]
+
+    def _mask(self, camera, level_camera=None) -> Optional[torch.Tensor]:
+        """The camera's (H, W) undistort mask on the device at the pyramid
+        level's size (cv2's default interpolation), or None."""
+        lc = level_camera or camera
+        key = (camera, lc.width, lc.height)
+        if key not in self._mask_cache:
             m = self.scene.undistort_mask(camera)
-            self._mask_cache[camera] = (
-                None if m is None else torch.as_tensor(m, device=self.device)
-            )
-        return self._mask_cache[camera]
+            if m is not None:
+                if (lc.width, lc.height) != (camera.width, camera.height):
+                    import cv2
+
+                    m = cv2.resize(np.asarray(m), (lc.width, lc.height))
+                m = torch.as_tensor(m, device=self.device)
+            self._mask_cache[key] = m
+        return self._mask_cache[key]
 
     # -- the loop --
 
     def train_iteration(self) -> Dict[str, torch.Tensor]:
-        cfg = self.config
-        self.iteration += 1
-        it = self.iteration
-        kf = self.sampler.sample()
+        with self.lock:
+            cfg = self.config
+            self.iteration += 1
+            it = self.iteration
+            kf = self.sampler.sample()
 
-        in_densify_phase = it < cfg.opt.densify_until_iter
-        do_densify = (
-            in_densify_phase
-            and it > cfg.opt.densify_from_iter
-            and it % cfg.opt.densification_interval == 0
-        )
-        do_reset = in_densify_phase and (
-            (
-                cfg.opt.opacity_reset_interval
-                and it % cfg.opt.opacity_reset_interval == 0
+            in_densify_phase = it < cfg.opt.densify_until_iter
+            do_densify = (
+                in_densify_phase
+                and it > cfg.opt.densify_from_iter
+                and it % cfg.opt.densification_interval == 0
             )
-            or (cfg.model.white_background and it == cfg.opt.densify_from_iter)
-        )
-        if cfg.pyramid.do and cfg.pyramid.num_sub_levels > 0:
-            raise _unported("the coarse-to-fine pyramid", "queue 1 item 5")
-
-        camera = kf.camera
-        skip_bottom_px = (
-            int(round(camera.height * cfg.opt.skip_bottom_ratio))
-            if cfg.opt.skip_bottom_ratio > 0
-            else 0
-        )
-        if kf.fid not in self._pose_cache:
-            self._pose_cache[kf.fid] = (
-                torch.as_tensor(kf.viewmatrix, device=self.device),
-                torch.as_tensor(kf.campos, device=self.device),
+            do_reset = in_densify_phase and (
+                (
+                    cfg.opt.opacity_reset_interval
+                    and it % cfg.opt.opacity_reset_interval == 0
+                )
+                or (cfg.model.white_background and it == cfg.opt.densify_from_iter)
             )
-        vm, campos = self._pose_cache[kf.fid]
-        # a fill kernel, not a host → device copy
-        step = torch.full((), it, dtype=torch.int32, device=self.device)
-        aux = train_step(
-            self.model,
-            self.opt_state,
-            vm,
-            campos,
-            self._gt(kf),
-            step,
-            self._mask(camera),
-            camera=camera,
-            sh_degree=self.sh_degree,
-            raster_cfg=self.raster_cfg,
-            lr_cfg=self.lr_cfg,
-            spatial_lr_scale=self.cameras_extent,
-            bg=self.bg,
-            lambda_dssim=cfg.opt.lambda_dssim,
-            skip_bottom_px=skip_bottom_px,
-            update_stats=in_densify_phase,
-            # reference quirk: replaced tensors skip their Adam update
-            do_adam=not do_densify and it < cfg.opt.max_num_iterations,
-            skip_opacity_update=do_reset,
-        )
 
-        if do_densify:
-            size_threshold = 20 if it > cfg.opt.prune_big_point_after_iter else 0
-            densify_ops.densify_and_prune(
+            # coarse-to-fine pyramid: the level camera of this keyframe's use
+            camera = kf.camera
+            if cfg.pyramid.do and cfg.pyramid.num_sub_levels > 0:
+                if kf.pyramid_budgets is None:
+                    kf.pyramid_budgets = [
+                        cfg.pyramid.sub_level_times_of_use
+                    ] * cfg.pyramid.num_sub_levels
+                level = kf.current_pyramid_level(cfg.pyramid.num_sub_levels)
+                if level < cfg.pyramid.num_sub_levels:
+                    f = cfg.pyramid.factor(level)
+                    camera = dataclasses.replace(
+                        camera,
+                        width=max(int(camera.width * f), 16),
+                        height=max(int(camera.height * f), 16),
+                    )
+            skip_bottom_px = (
+                int(round(camera.height * cfg.opt.skip_bottom_ratio))
+                if cfg.opt.skip_bottom_ratio > 0
+                else 0
+            )
+            if kf.fid not in self._pose_cache:
+                self._pose_cache[kf.fid] = (
+                    torch.as_tensor(kf.viewmatrix, device=self.device),
+                    torch.as_tensor(kf.campos, device=self.device),
+                )
+            vm, campos = self._pose_cache[kf.fid]
+            # a fill kernel, not a host → device copy
+            step = torch.full((), it, dtype=torch.int32, device=self.device)
+            aux = train_step(
                 self.model,
                 self.opt_state,
-                self.generator,
-                max_grad=cfg.opt.densify_grad_threshold,
-                min_opacity=cfg.opt.densify_min_opacity,
-                extent=self.cameras_extent,
-                max_screen_size=size_threshold,
-                percent_dense=cfg.opt.percent_dense,
-                prune_by_extent=cfg.opt.prune_by_extent,
-                iteration=it,
+                vm,
+                campos,
+                self._gt(kf, camera),
+                step,
+                self._mask(kf.camera, camera),
+                camera=camera,
+                sh_degree=self.sh_degree,
+                raster_cfg=self.raster_cfg,
+                lr_cfg=self.lr_cfg,
+                spatial_lr_scale=self.cameras_extent,
+                bg=self.bg,
+                lambda_dssim=cfg.opt.lambda_dssim,
+                skip_bottom_px=skip_bottom_px,
+                update_stats=in_densify_phase,
+                # reference quirk: replaced tensors skip their Adam update
+                do_adam=not do_densify and it < cfg.opt.max_num_iterations,
+                skip_opacity_update=do_reset,
             )
-        if do_reset:
-            densify_ops.reset_opacity(self.model, self.opt_state)
-        if do_densify or do_reset:
-            # where the densification temporaries peak
-            self.peak_memory.sample()
 
-        # the loss stays on the device: reading it here would sync every step
-        self._pending_losses.append(
-            (aux["loss"], aux["overflow"], aux["truncated"])
-        )
-        if len(self._pending_losses) > 512:
-            self.drain_losses()
-        return aux
+            if do_densify:
+                size_threshold = 20 if it > cfg.opt.prune_big_point_after_iter else 0
+                densify_ops.densify_and_prune(
+                    self.model,
+                    self.opt_state,
+                    self.generator,
+                    max_grad=cfg.opt.densify_grad_threshold,
+                    min_opacity=cfg.opt.densify_min_opacity,
+                    extent=self.cameras_extent,
+                    max_screen_size=size_threshold,
+                    percent_dense=cfg.opt.percent_dense,
+                    prune_by_extent=cfg.opt.prune_by_extent,
+                    iteration=it,
+                )
+            if do_reset:
+                densify_ops.reset_opacity(self.model, self.opt_state)
+            if do_densify or do_reset:
+                # where the densification temporaries peak
+                self.peak_memory.sample()
+
+            # the loss stays on the device: reading it here would sync every step
+            self._pending_losses.append(
+                (aux["loss"], aux["overflow"], aux["truncated"])
+            )
+            if len(self._pending_losses) > 512:
+                self.drain_losses()
+            return aux
 
     def drain_losses(self) -> float:
         """Fold the queued device-side losses into the host EMA (0.4/0.6)

@@ -13,6 +13,8 @@ Counterpart of the first half of `omnigs_tpu/utils/profiling.py`:
 * `write_peak_memory` — those statistics as `DevicePeakUsageMB.txt`, the
   file of the JAX package's training CLI (the reference's
   `GpuPeakUsageMB.txt`).
+* `trace` — a `torch.profiler` capture of a block (host and, on a card,
+  device activity) written as a Chrome trace.
 """
 
 from __future__ import annotations
@@ -132,3 +134,24 @@ def write_peak_memory(result_dir: Path, tracker: Optional[PeakMemoryTracker] = N
     if not lines:
         lines = [f"unavailable: no memory stats on backend {torch.device(device or 'cpu')}"]
     (Path(result_dir) / "DevicePeakUsageMB.txt").write_text("\n".join(lines) + "\n")
+
+
+@contextlib.contextmanager
+def trace(log_dir=None):
+    """Profile the enclosed block with `torch.profiler` (CPU activity, and
+    CUDA activity when a card is present) and write it as a Chrome trace,
+    ``log_dir/trace.json`` (``build/omnigs_trace`` of the checkout by
+    default; open it in chrome://tracing or Perfetto: device kernels are
+    the events of category ``kernel``). Yields ``log_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    if log_dir is None:
+        log_dir = Path(__file__).resolve().parents[2] / "build" / "omnigs_trace"
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(str(out / "trace.json"))

@@ -575,3 +575,41 @@ def test_layout_render_on_card_matches_cpu(layout):
     np.testing.assert_allclose(got.image.cpu().numpy(), ref.image.numpy(), atol=1e-5)
     np.testing.assert_allclose(got.final_T.cpu().numpy(), ref.final_T.numpy(), atol=1e-5)
     assert int(got.truncated) == int(ref.truncated) == 0
+
+
+@pytest.mark.gpu
+def test_pinhole_render_kernel_matches_plain():
+    """A 1920×1080 pinhole render (67.5 tile rows: the last half outside
+    the image) through kernel #1 against the plain version on the card's
+    own slab, bit for bit, image and final_T."""
+    from omnigs_torch.scene.keyframe import Keyframe
+
+    dev = _cuda()
+    cam = Camera(CameraType.PINHOLE, 1920, 1080, fx=1200.0, fy=1200.0, cx=960.0, cy=540.0)
+    kf = Keyframe(0, cam, np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+    # 4,096 Gaussians in front of the camera: ~185 k instances
+    fields = random_model_np(52, 4096, 4096, scale_mu=-3.0)
+    fields["xyz"][:, 2] = np.abs(fields["xyz"][:, 2]) + 1.0
+    m = GaussianModel.from_numpy(fields, device=dev)
+    cfg = RasterConfig(max_instances=1 << 19, **PROD_KW)
+    bg = torch.full((3,), 0.1, device=dev)
+    args = (m, cam, torch.eye(4, device=dev), torch.zeros(3, device=dev), bg, 3, cfg)
+    fp = torch.from_numpy(kf.full_proj).to(dev)
+    before = tcs.composite_seg_fwd.launches
+    with torch.inference_mode():
+        res = render_model(*args, full_proj=fp)
+    assert tcs.composite_seg_fwd.launches == before + 1
+    kernel = tcs.composite_seg_fwd
+
+    def plain(inst, starts8, counts, live8, num_tiles, gx, tile_lo=0):
+        return tcs.composite_seg_fwd_plain(inst, starts8, counts, num_tiles, gx, tile_lo)[:2]
+
+    tcs.composite_seg_fwd = plain
+    try:
+        with torch.inference_mode():
+            ref = render_model(*args, full_proj=fp)
+    finally:
+        tcs.composite_seg_fwd = kernel
+    assert tuple(res.image.shape) == (3, 1080, 1920)
+    assert int(res.truncated) == 0 and float(res.final_T.min()) < 0.5
+    assert torch.equal(res.image, ref.image) and torch.equal(res.final_T, ref.final_T)

@@ -89,11 +89,20 @@ def test_compute_rect_and_tile_grid():
 
 
 def test_pinhole_not_ported():
-    cloud = to_torch(random_cloud_np(14, 8))
-    with pytest.raises(NotImplementedError, match="pinhole"):
+    """Without ``full_proj`` the pinhole branch raises the JAX package's
+    ValueError (the pinhole camera itself is ported: test_torch_pinhole.py)."""
+    cloud = random_cloud_np(14, 8)
+    cam_kw = dict(fx=30.0, fy=30.0)
+    with pytest.raises(ValueError, match="pinhole camera requires full_proj"):
+        jpre.preprocess(
+            *[jnp.asarray(cloud[k]) for k in ("means3d", "scales", "quats", "opacities", "shs")],
+            Camera(CameraType.PINHOLE, 64, 32, **cam_kw), jnp.eye(4), jnp.zeros(3), 0,
+        )
+    cloud = to_torch(cloud)
+    with pytest.raises(ValueError, match="pinhole camera requires full_proj"):
         tpre.preprocess(
             cloud["means3d"], cloud["scales"], cloud["quats"],
             cloud["opacities"], cloud["shs"],
-            TCamera(TCameraType.PINHOLE, 64, 32, fx=30.0, fy=30.0),
+            TCamera(TCameraType.PINHOLE, 64, 32, **cam_kw),
             torch.eye(4), torch.zeros(3), 0,
         )

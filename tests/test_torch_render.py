@@ -251,8 +251,8 @@ def test_raster_config_from_production():
 def test_unported_configs_raise():
     """Every `RasterConfig` the JAX package accepts renders (the XLA
     backend, the 2-key binning without a depth presort, segmented or not);
-    the combinations it rejects raise ValueError, and the pinhole camera
-    (not a `RasterConfig` field) still raises naming its ROADMAP item."""
+    the combinations it rejects raise ValueError, and so does the pinhole
+    camera (not a `RasterConfig` field) without ``full_proj``, as in JAX."""
     c = {k: torch.from_numpy(v) for k, v in random_cloud_np(55, 8).items()}
     kw = dict(camera=TCamera(TCameraType.LONLAT, 64, 32), viewmatrix=torch.eye(4),
               campos=torch.zeros(3), bg=torch.zeros(3), sh_degree=0)
@@ -273,7 +273,7 @@ def test_unported_configs_raise():
     ):
         with pytest.raises(ValueError):
             TRasterConfig(**bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="pinhole camera requires full_proj"):
         trasterize(*args, config=TRasterConfig(), **dict(
             kw, camera=TCamera(TCameraType.PINHOLE, 64, 32, fx=50.0, fy=50.0)))
 

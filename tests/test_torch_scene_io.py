@@ -193,9 +193,40 @@ def test_openmvg_scene_matches_jax(jax_scene):
     np.testing.assert_allclose(ts.keyframes[0].image, js.keyframes[0].image, rtol=0, atol=1e-6)
 
 
-def test_openmvg_pinhole_raises(tmp_path, jax_scene):
+def _as_pinhole(jax_scene, out_json, disto_k3=(0.1, 0.01, 0.002)):
+    """The scene's train JSON with its intrinsic made a radial-k3 pinhole."""
     root = json.loads((jax_scene / "sfm_data_train.json").read_text())
-    root["intrinsics"][0]["value"]["polymorphic_name"] = "pinhole_radial_k3"
-    (tmp_path / "sfm.json").write_text(json.dumps(root))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tload(tmp_path / "sfm.json", load_images=False)
+    intr = root["intrinsics"][0]["value"]
+    intr["polymorphic_name"] = "pinhole_radial_k3"
+    v0 = intr["ptr_wrapper"]["data"]["value0"]
+    intr["ptr_wrapper"]["data"] = {
+        "value0": {"value0": v0, "focal_length": 30.0, "principal_point": [31.5, 16.25]},
+        "disto_k3": list(disto_k3),
+    }
+    out_json.write_text(json.dumps(root))
+    return out_json
+
+
+def test_openmvg_pinhole_raises(tmp_path, jax_scene):
+    """A pinhole scene loads in both packages with equal cameras, and then
+    raises at its first training step, in the port as in JAX: neither
+    trainer passes `full_proj` (ROADMAP, reference-side behaviours)."""
+    from omnigs_torch.config import load_config as tload_config
+    from omnigs_torch.train.trainer import Trainer as TTrainer
+    from omnigs_tpu.config import load_config as jload_config
+    from omnigs_tpu.train.trainer import Trainer as JTrainer
+
+    from torch_helpers import tiny_yaml
+
+    sfm = _as_pinhole(jax_scene, tmp_path / "sfm.json")
+    kw = dict(image_root=jax_scene / "images")
+    js = jload(sfm, jax_scene / "points.ply", **kw)
+    ts = tload(sfm, jax_scene / "points.ply", **kw)
+    assert ts.cameras == {k: type(ts.cameras[k])(**vars(c)) for k, c in js.cameras.items()}
+    yaml = tiny_yaml(tmp_path / "cfg.yaml")
+    jt = JTrainer(js, jload_config(yaml))
+    tt = TTrainer(ts, tload_config(yaml), device="cpu")
+    for tr in (jt, tt):
+        tr.init_from_sfm()
+        with pytest.raises(ValueError, match="pinhole camera requires full_proj"):
+            tr.train_iteration()
