@@ -55,6 +55,28 @@ script exits non-zero:
    kernel once per iteration, the forward at least once, densify three
    times, finite losses and parameters, nothing truncated. Then the
    `train_stages` line: device ms per stage of non-densify steps.
+7b. parallel — the multi-device path (`omnigs_torch/parallel/`): a
+   `ParallelTrainer` on a (1, 1) mesh of one NCCL rank in this process,
+   iterations 3001–3012 of the train phase's scene: its losses within
+   rtol 1e-5 and its parameters within the gradient bar (rtol 2e-3, atol
+   1e-4·max) of the `Trainer`'s, host ms per iteration beside the
+   Trainer's, #1/#2 launches. parallel_pair — two spawned processes on
+   cuda:0 joined over gloo (NCCL refuses two ranks on one card), meshes
+   (1, 2) and (2, 1): each mesh's sharded render of pose 0 (segmented and
+   tile-major) within 1e-5 of the single-device render; on rank 1's tile
+   window (`tile_lo` > 0) kernels #1, #2 and #3 against their plain
+   versions bit for bit on the inputs the path gave them, with digests;
+   one step's gathered gradients (Adam's first moments) within the
+   gradient bar of the single-device gradient of the mean loss; four
+   `ParallelTrainer` iterations finite, lock-step bitwise across the ranks,
+   nothing truncated, #1/#2 launched on each rank. The line names the
+   backend and the collectives the path handed gloo, each on CUDA
+   tensors; the port stages no collective through the host. scaling —
+   `omnigs_torch.scripts.scaling_bench --meshes 1x1 --iters 10` through its
+   `main`: pixels/s and the shard tax. point_ops — `model/transform` and
+   `ops/stereo` on the card against the same calls on the CPU (capacity
+   524,288, 4,096 appended points, a 1920×960 depth map, 2,000 keypoints;
+   1e-5 of each array's max, masks and counts equal), device ms.
 
 8. tile_kernel — the tile-major path (`Tpu.want_ncontrib: 1` on the same
    YAML): the compact slab of pose 0 through the port's preprocess, binning
@@ -871,11 +893,9 @@ def train_scene(torch, np, model, camera, pose_list, cfg):
     return scene
 
 
-def train_phase(torch, scene, device):
+def train_config():
+    """The production YAML on the train phase's compressed schedule."""
     from omnigs_torch.config import load_config
-    from omnigs_torch.model import densify as densify_ops
-    from omnigs_torch.ops import composite_seg as cs
-    from omnigs_torch.train.trainer import Trainer
 
     cfg = load_config(CONFIG)
     # compressed schedule: densify at 3004, 3008 and 3012, no opacity reset
@@ -886,6 +906,15 @@ def train_phase(torch, scene, device):
     # (max scale > 0.1·extent ≈ 0.01) would remove nearly every Gaussian of
     # this cloud at the first densify; keep it off so densify grows the model
     cfg.opt.prune_big_point_after_iter = 4000
+    return cfg
+
+
+def train_phase(torch, scene, device):
+    from omnigs_torch.model import densify as densify_ops
+    from omnigs_torch.ops import composite_seg as cs
+    from omnigs_torch.train.trainer import Trainer
+
+    cfg = train_config()
     t0 = time.perf_counter()
     tr = Trainer(scene, cfg, seed=SEED, device=device)
     tr.init_from_sfm()
@@ -958,7 +987,11 @@ def train_phase(torch, scene, device):
         raise RuntimeError("a training iteration skipped a kernel")
     if launches["composite_seg_bwd"] != TRAIN_ITERS or len(densified) != 3:
         raise RuntimeError(f"launches {launches}, densify ran {len(densified)} times")
-    return tr, launches, lines[0]["loss"]
+    # what the parallel phase's (1, 1) ParallelTrainer is held to
+    ref = {"losses": [x["loss"] for x in lines], "host_ms": [x["host_ms"] for x in lines],
+           "model": {k: v.detach().clone() for k, v in tr.model.params().items()}}
+    ref["model"]["active"] = tr.model.active.clone()
+    return tr, launches, lines[0]["loss"], ref
 
 
 def train_stages(torch, tr, reps=3):
@@ -3227,6 +3260,467 @@ def examples_phase(torch, np):
         raise RuntimeError(f"ImagePool: {line['image_pool']}")
     return launches["composite_tile_fwd"]
 
+# ---- the multi-device path and the point ops ----
+
+PAIR_MESHES = ((1, 2), (2, 1))
+PAIR_ITERS = 4  # 3001-3004, across the densify at 3004
+PAIR_TIMEOUT_S = 900
+GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-4  # ROADMAP's gradient bar (atol × max|ref|)
+RENDER_BAR = 1e-5
+KEYPOINTS = 2000  # a SLAM front end's features per frame
+POINT_CAPACITY = 524288
+POINT_NEW = 4096  # points appended by increase_pcd
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _bar_ratio(torch, got, ref):
+    """max |got − ref| in units of the gradient bar (≤ 1 passes)."""
+    bar = GRAD_RTOL * ref.abs() + GRAD_ATOL * float(ref.abs().max())
+    return float(((got - ref).abs() / torch.clamp_min(bar, 1e-30)).max())
+
+
+def parallel_phase(torch, scene, ref):
+    """`ParallelTrainer` on a (1, 1) mesh of one NCCL rank, iterations
+    3001-3012 of the train phase's run: the Trainer's losses (rtol 1e-5)
+    and final parameters (gradient bar), host ms per iteration beside the
+    Trainer's, #1/#2 launches."""
+    import torch.distributed as dist
+
+    from omnigs_torch.model import densify as densify_ops
+    from omnigs_torch.ops import composite_seg as cs
+    from omnigs_torch.parallel.distributed import initialize
+    from omnigs_torch.train.trainer_parallel import ParallelTrainer
+
+    initialize("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    densified = []
+    densify = densify_ops.densify_and_prune
+
+    def counting_densify(*args, **kwargs):
+        densified.append(1)
+        return densify(*args, **kwargs)
+
+    densify_ops.densify_and_prune = counting_densify
+    try:
+        tr = ParallelTrainer(scene, train_config(), seed=SEED, device="cuda")
+        tr.init_from_sfm()
+        tr.iteration = TRAIN_START
+        host_ms, losses = [], []
+        reset_launches()
+        for _ in range(TRAIN_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = tr.train_iteration()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(aux["loss"]))
+        launches = read_launches()
+        tr.drain_losses()
+        params = tr.model.params()
+        ratios = {k: _bar_ratio(torch, params[k].detach(), ref["model"][k]) for k in params}
+        bitwise = {k: bool(torch.equal(params[k].detach(), ref["model"][k])) for k in params}
+        active_equal = bool(torch.equal(tr.model.active, ref["model"]["active"]))
+        truncated = tr.total_truncated
+    finally:
+        densify_ops.densify_and_prune = densify
+        dist.destroy_process_group()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    line = {
+        "phase": "parallel", "mesh": [1, 1], "backend": "nccl", "iterations": TRAIN_ITERS,
+        "host_ms": host_ms, "trainer_host_ms": ref["host_ms"],
+        "mean_host_ms": statistics.mean(host_ms[1:]),
+        "trainer_mean_host_ms": statistics.mean(ref["host_ms"][1:]),
+        "losses_bitwise": losses == ref["losses"], "max_loss_rel": max(rel),
+        "param_bar_ratio": ratios, "params_bitwise": bitwise, "active_equal": active_equal,
+        "densify_calls": len(densified), "truncated": truncated,
+        "launches": {k: launches[k] for k in ("composite_seg_fwd", "composite_seg_bwd")},
+    }
+    emit(line)
+    if max(rel) > LOSS_RTOL or max(ratios.values()) > 1.0 or not active_equal:
+        raise RuntimeError(f"parallel (1, 1) left the Trainer: {line}")
+    if len(densified) != 3 or truncated or launches["composite_seg_bwd"] != TRAIN_ITERS:
+        raise RuntimeError(f"parallel: densify {len(densified)}, truncated {truncated}, "
+                           f"launches {launches}")
+    return launches
+
+
+class _Capture:
+    """Swaps a kernel wrapper of ``module`` for a recorder of its arguments:
+    the last call's are ``args`` / ``kwargs``. The launch count stays the
+    wrapper's own: ``launches`` reads and writes it, so the wrapper's
+    ``+= 1`` (which looks its name up in the module) lands on the real
+    counter when the kernel launches."""
+
+    def __init__(self, module, attr):
+        self.module, self.attr = module, attr
+        self.fn = getattr(module, attr)
+        self.__name__ = self.fn.__name__
+        self.args = self.kwargs = None
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, *args, **kwargs):
+        self.args, self.kwargs = args, kwargs
+        return self.fn(*args, **kwargs)
+
+    def __enter__(self):
+        setattr(self.module, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.fn)
+
+
+def _pair_rank(rank, port, queue):
+    """One of the two gloo ranks on cuda:0: for each mesh of PAIR_MESHES,
+    the sharded render against the single-device one, rank 1's window of
+    kernels #1/#2/#3 against their plain versions, one step's gathered
+    gradients against the single-device mean loss's, and PAIR_ITERS
+    `ParallelTrainer` iterations."""
+    import traceback
+
+    try:
+        queue.put((rank, _pair_work(rank, port)))
+    except BaseException:
+        queue.put((rank, f"rank {rank}:\n{traceback.format_exc()}"))
+
+
+def _pair_work(rank, port):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from omnigs_torch.cameras import Camera, CameraType
+    from omnigs_torch.config import raster_config_from
+    from omnigs_torch.model import optimizer as opt_ops
+    from omnigs_torch.model.gaussians import FIELD_NAMES, GaussianModel
+    from omnigs_torch.ops import composite_seg as cs
+    from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.ops import loss as loss_ops
+    from omnigs_torch.parallel.distributed import initialize
+    from omnigs_torch.parallel.mesh import GAUSS_AXIS, DATA_AXIS, all_gather, axis_index, make_mesh
+    from omnigs_torch.parallel.shard import sharded_render, sharded_train_step
+    from omnigs_torch.train.renderer import render_model
+    from omnigs_torch.train.trainer_parallel import ParallelTrainer
+
+    torch.cuda.set_device(0)
+    initialize("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=2)
+    dev = torch.device("cuda", 0)
+    # which collectives the path hands gloo, on which device's tensors
+    seen = set()
+    for name in ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce"):
+        def recording(*args, _fn=getattr(dist, name), _name=name, **kwargs):
+            seen.add(f"{_name}:{args[0].device.type}")
+            return _fn(*args, **kwargs)
+
+        setattr(dist, name, recording)
+    camera = Camera(CameraType.LONLAT, WIDTH, HEIGHT)
+    cfg = raster_config_from(train_config())
+    tcfg = raster_config_from(tile_yaml())
+    full = synthetic_model(np, dev)
+    pose_list = poses(torch, dev)
+    bg = torch.zeros(3, device=dev)
+    scene = train_scene(torch, np, full, camera, pose_list, cfg)
+    # the stepped model: the render model's means moved by N(0, INIT_NOISE)
+    rng = np.random.default_rng(SEED + 2)
+    moved = full.to_numpy()
+    moved["xyz"] = (moved["xyz"] + rng.normal(size=moved["xyz"].shape) * INIT_NOISE).astype(np.float32)
+    gts = [torch.as_tensor(kf.image, device=dev).permute(2, 0, 1).contiguous()
+           for kf in list(scene.keyframes.values())[:2]]
+    out = []
+    try:
+        for data, gauss in PAIR_MESHES:
+            mesh = make_mesh(data, gauss, device_type="cuda")
+            g, d = axis_index(mesh, GAUSS_AXIS), axis_index(mesh, DATA_AXIS)
+            n = P // gauss
+
+            def shard(arrays):
+                return GaussianModel.from_numpy(
+                    {k: arrays[k][g * n : (g + 1) * n] for k in FIELD_NAMES}, device=dev)
+
+            res = {"mesh": [data, gauss], "rank": rank, "gauss_index": g, "data_index": d}
+            vm, cp = pose_list[0]
+            with torch.inference_mode():
+                ref_img = render_model(full, camera, vm, cp, bg, SH_DEGREE, cfg).image
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            with _Capture(cs, "composite_seg_fwd") as fwd_cap:
+                img = sharded_render(mesh, shard(full.to_numpy()), vm, cp, camera, bg,
+                                     SH_DEGREE, cfg)
+            torch.cuda.synchronize()
+            res["render_host_ms"] = (time.perf_counter() - t0) * 1e3
+            with _Capture(ct, "composite_tile_fwd") as tile_cap:
+                timg = sharded_render(mesh, shard(full.to_numpy()), vm, cp, camera, bg,
+                                      SH_DEGREE, tcfg)
+            res["render_launches"] = read_launches()
+            res["render_max_abs"] = float((img - ref_img).abs().max())
+            res["tile_render_max_abs"] = float((timg - ref_img).abs().max())
+
+            # one step: the gathered gradients (mu = 0.1·g after Adam's first
+            # step) against the single-device gradient of the mean loss
+            model = shard(moved)
+            state = opt_ops.init_adam(model.params())
+            mine = [0, 1] if data == 1 else [d]
+            vms = torch.stack([pose_list[k][0] for k in mine])
+            cps = torch.stack([pose_list[k][1] for k in mine])
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _Capture(cs, "composite_seg_bwd") as bwd_cap:
+                sharded_train_step(
+                    mesh, model, state, vms, cps, torch.stack([gts[k] for k in mine]),
+                    TRAIN_START + 1, camera=camera, sh_degree=SH_DEGREE, raster_cfg=cfg,
+                    lr_cfg=opt_ops.LRConfig(), spatial_lr_scale=1.0, bg=bg,
+                )
+            torch.cuda.synchronize()
+            res["step_host_ms"] = (time.perf_counter() - t0) * 1e3
+            res["step_launches"] = read_launches()
+            ref_model = GaussianModel.from_numpy(moved, device=dev)
+            params = ref_model.params()
+            total = 0.0
+            for k in (0, 1):
+                im = render_model(ref_model, camera, pose_list[k][0], pose_list[k][1], bg,
+                                  SH_DEGREE, cfg).image
+                total = total + 0.8 * loss_ops.l1_loss(im, gts[k]) + 0.2 * (
+                    1.0 - loss_ops.ssim(im, gts[k]))
+            grads = torch.autograd.grad(total / 2, list(params.values()), allow_unused=True)
+            res["grad_bar_ratio"] = {}
+            for (k, p_), gr in zip(params.items(), grads):
+                got = all_gather(state.mu[k], mesh, GAUSS_AXIS) / 0.1
+                refg = torch.zeros_like(p_) if gr is None else gr
+                res["grad_bar_ratio"][k] = _bar_ratio(torch, got, refg)
+            del ref_model, params, grads, total
+
+            # rank 1's window: the kernels against their plain versions on
+            # the inputs the path gave them
+            if g == 1:
+                a = fwd_cap.args
+                kc, kt = cs.composite_seg_fwd(*a)
+                pc, pt, _, _ = cs.composite_seg_fwd_plain(a[0], a[1], a[2], *a[4:])
+                b = bwd_cap.args
+                kb = cs.composite_seg_bwd(*b)
+                pb = cs.composite_seg_bwd_plain(b[0], b[1], b[2], *b[4:])
+                ta, tk = tile_cap.args, tile_cap.kwargs
+                k3 = ct.composite_tile_fwd(*ta, **tk)
+                p3 = ct.composite_tile_fwd_plain(*ta, **tk)[:3]
+                res["window"] = {
+                    "tile_lo": a[6], "tiles": a[4], "tile_lo_bwd": b[8],
+                    "fwd_bitwise": bool(torch.equal(kc, pc) and torch.equal(kt, pt)),
+                    "bwd_bitwise": bool(torch.equal(kb, pb)),
+                    "tile_fwd_bitwise": all(bool(torch.equal(x, y)) for x, y in zip(k3, p3)),
+                    "tile_y0_min": int(ta[4].min()),
+                    "fwd_digest": _digest(kc, kt), "bwd_digest": _digest(kb),
+                    "tile_digest": _digest(*k3),
+                }
+
+            # PAIR_ITERS iterations of the trainer on the train scene
+            tcfg_ = train_config()
+            tcfg_.tpu.mesh_data, tcfg_.tpu.mesh_gauss = data, gauss
+            tr = ParallelTrainer(scene, tcfg_, seed=SEED, device="cuda")
+            tr.init_from_sfm()
+            tr.iteration = TRAIN_START
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [float(tr.train_iteration()["loss"]) for _ in range(PAIR_ITERS)]
+            torch.cuda.synchronize()
+            res["iter_host_ms"] = (time.perf_counter() - t0) * 1e3 / PAIR_ITERS
+            res["train_launches"] = read_launches()
+            tr.drain_losses()
+            res["losses"] = losses
+            res["truncated"] = tr.total_truncated
+            res["finite"] = all(math.isfinite(x) for x in losses) and all(
+                bool(torch.isfinite(p_).all()) for p_ in tr.model.params().values())
+            res["live_gaussians"] = tr.live_gaussians()
+            del tr
+            res["gloo_collectives"] = sorted(seen)
+            out.append(res)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def parallel_pair_phase(torch):
+    """Two processes on cuda:0 joined over gloo (NCCL refuses two ranks on
+    one card), meshes (1, 2) and (2, 1): one line per mesh with both ranks'
+    results. The port stages no collective through the host; gloo moves
+    CUDA tensors through host memory inside its own collectives. Two ranks
+    share one card here, so these times are not scaling numbers."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_pair_rank, args=(r, port, queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(queue.get(timeout=PAIR_TIMEOUT_S) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for r in (0, 1):
+        if isinstance(got[r], str):
+            raise RuntimeError(f"parallel_pair {got[r]}")
+    launches = {k: 0 for k in read_launches()}
+    for i, (data, gauss) in enumerate(PAIR_MESHES):
+        ranks = [got[0][i], got[1][i]]
+        line = {
+            "phase": "parallel_pair", "mesh": [data, gauss], "backend": "gloo",
+            "ranks_on_one_card": 2, "device": "cuda:0",
+            "host_staged": "none in the port (gloo copies CUDA tensors through host "
+                           "memory inside its collectives)",
+            "gloo_collectives": ranks[0]["gloo_collectives"],
+            "seconds": time.perf_counter() - t0, "ranks": ranks,
+            "lockstep_bitwise": ranks[0]["losses"] == ranks[1]["losses"],
+        }
+        emit(line)
+        fails = []
+        for r in ranks:
+            if r["render_max_abs"] > RENDER_BAR or r["tile_render_max_abs"] > RENDER_BAR:
+                fails.append(f"rank {r['rank']} render off the single-device one")
+            if max(r["grad_bar_ratio"].values()) > 1.0:
+                fails.append(f"rank {r['rank']} gradients off the bar: {r['grad_bar_ratio']}")
+            if not r["finite"] or r["truncated"]:
+                fails.append(f"rank {r['rank']} non-finite or truncated")
+            tl = r["train_launches"]
+            if tl["composite_seg_bwd"] != PAIR_ITERS or tl["composite_seg_fwd"] < PAIR_ITERS:
+                fails.append(f"rank {r['rank']} trainer launches {tl}")
+            if r["step_launches"]["composite_seg_bwd"] < 1 or r["render_launches"]["composite_tile_fwd"] < 1:
+                fails.append(f"rank {r['rank']} path skipped a kernel")
+            w = r.get("window")
+            if w is not None and not (w["fwd_bitwise"] and w["bwd_bitwise"] and w["tile_fwd_bitwise"]
+                                      and w["tile_lo"] > 0 and w["tile_lo_bwd"] > 0):
+                fails.append(f"rank {r['rank']} window kernels: {w}")
+            for part in ("render_launches", "step_launches", "train_launches"):
+                for k, v in r[part].items():
+                    launches[k] += v
+        if any(not c.endswith(":cuda") for c in line["gloo_collectives"]):
+            fails.append(f"a collective ran on host tensors: {line['gloo_collectives']}")
+        if gauss == 2 and not any("window" in r for r in ranks):
+            fails.append("no rank checked a window")
+        if not line["lockstep_bitwise"]:
+            fails.append("ranks logged different losses")
+        if fails:
+            raise RuntimeError(f"parallel_pair {data}x{gauss}: {fails}")
+    return launches
+
+
+def scaling_phase(torch):
+    """`omnigs_torch.scripts.scaling_bench --meshes 1x1 --iters 10` through
+    its `main` (one NCCL rank in this process): pixels/s and the shard
+    tax, launches counted."""
+    from omnigs_torch.scripts import scaling_bench
+
+    reset_launches()
+    t0 = time.perf_counter()
+    lines = scaling_bench.main(["--meshes", "1x1", "--iters", "10"])
+    launches = read_launches()
+    one = next(x for x in lines if x["mesh"] == "1x1")
+    emit({"phase": "scaling", "seconds": time.perf_counter() - t0, "lines": lines,
+          "shard_tax": one["shard_tax"], "launches": launches})
+    if launches["composite_seg_bwd"] < 8 or not math.isfinite(one["pixels_per_s"]):
+        raise RuntimeError(f"scaling: {lines}, launches {launches}")
+    return launches
+
+
+def point_ops_phase(torch, np):
+    """`model/transform` and `ops/stereo` on the card against the same calls
+    on the CPU: a capacity-524,288 model with the render model's
+    Gaussians, POINT_NEW points appended, a 1920×960 depth map and
+    KEYPOINTS keypoints; device ms of each op."""
+    from omnigs_torch.cameras import CameraType
+    from omnigs_torch.model import optimizer as opt_ops
+    from omnigs_torch.model import transform as T
+    from omnigs_torch.model.gaussians import FIELD_NAMES, GaussianModel
+    from omnigs_torch.ops import stereo
+
+    rng = np.random.default_rng(SEED + 3)
+    base = GaussianModel.empty(POINT_CAPACITY, device="cpu").to_numpy()
+    src = synthetic_model(np, "cpu").to_numpy()
+    for k in FIELD_NAMES:
+        base[k][:P] = src[k]
+    base["exist_since_iter"][:P] = rng.integers(0, 200, P)
+    c, s_ = math.cos(0.3), math.sin(0.3)
+    Tm = np.array([[c, -s_, 0, 0.2], [s_, c, 0, -0.1], [0, 0, 1, 0.05], [0, 0, 0, 1]], np.float32)
+    new_pts = (rng.normal(size=(POINT_NEW, 3)) * 3).astype(np.float32)
+    new_cols = rng.uniform(size=(POINT_NEW, 3)).astype(np.float32)
+    new_d2 = rng.uniform(1e-4, 1e-2, POINT_NEW).astype(np.float32)
+    depth = rng.uniform(0.5, 8.0, WIDTH * HEIGHT).astype(np.float32)
+    dmask = rng.random(WIDTH * HEIGHT) < 0.7
+    intr = (600.0, 600.0, WIDTH / 2, HEIGHT / 2)
+    # integer pixels, as a detector's keypoints (exact squared distances)
+    kp = np.stack([rng.integers(0, WIDTH, KEYPOINTS), rng.integers(0, HEIGHT, KEYPOINTS)],
+                  -1).astype(np.float32)
+    has3d = rng.random(KEYPOINTS) < 0.5
+    kp3 = rng.uniform(-2, 2, (KEYPOINTS, 3)).astype(np.float32)
+    kp3[:, 2] = rng.uniform(0.3, 6.0, KEYPOINTS)
+    colors = rng.uniform(size=(WIDTH * HEIGHT, 3)).astype(np.float32)
+
+    def run(dev):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        m = GaussianModel.from_numpy(base, device=dev)
+        st = opt_ops.init_adam(m.params())
+        ops = {
+            "apply_scaled_transformation": lambda: T.apply_scaled_transformation(m, st, 1.5, t(Tm)),
+            "scaled_transform_visible_points": lambda: T.scaled_transform_visible_points(
+                m, st, torch.ones(POINT_CAPACITY, dtype=torch.bool, device=dev), t(Tm),
+                torch.eye(4, device=dev), 100, 50, CameraType.LONLAT)[1],
+            "increase_pcd": lambda: T.increase_pcd(m, st, t(new_pts), t(new_cols), t(new_d2), 3100),
+            "reproject_depth_pinhole": lambda: stereo.reproject_depth_pinhole(
+                t(depth), t(dmask), intr, WIDTH),
+            "inactive_geo_densify": lambda: stereo.inactive_geo_densify(
+                t(kp), t(has3d), t(kp3), t(colors), 400.0, intr, WIDTH),
+        }
+        outs = {name: fn() for name, fn in ops.items()}
+        outs["model"] = m.to_numpy()
+        return outs, ops
+
+    cpu, _ = run("cpu")
+    gpu, gpu_ops = run("cuda")
+    worst, exact = {}, True
+    for k in FIELD_NAMES:
+        a, b = gpu["model"][k], cpu["model"][k]
+        if a.dtype.kind in "bi":
+            exact &= bool(np.array_equal(a, b))
+        else:
+            worst[k] = float(np.abs(a - b).max() / (np.abs(b).max() + 1e-30))
+    for name in ("reproject_depth_pinhole",):
+        worst[name] = float((gpu[name].cpu() - cpu[name]).abs().max() / cpu[name].abs().max())
+    gp, gc, gv = (x.cpu() for x in gpu["inactive_geo_densify"])
+    cp_, cc, cv = cpu["inactive_geo_densify"]
+    exact &= bool(torch.equal(gv, cv)) and bool(torch.equal(gc, cc))
+    worst["inactive_geo_densify"] = float((gp - cp_).abs().max() / cp_.abs().max())
+    exact &= int(gpu["increase_pcd"]) == int(cpu["increase_pcd"])
+    exact &= int(gpu["scaled_transform_visible_points"]) == int(cpu["scaled_transform_visible_points"])
+    ms = {name: time_ms(torch, fn, reps=5) for name, fn in gpu_ops.items()}
+    line = {"phase": "point_ops", "capacity": POINT_CAPACITY, "gaussians": P,
+            "new_points": POINT_NEW, "keypoints": KEYPOINTS, "depth_pixels": WIDTH * HEIGHT,
+            "ms": ms, "max_rel_vs_cpu": worst, "masks_counts_equal": exact,
+            "dropped": int(gpu["increase_pcd"]),
+            "transformed": int(gpu["scaled_transform_visible_points"])}
+    emit(line)
+    # float32 on two devices: 1e-5 of each array's max
+    if not exact or max(worst.values()) > 1e-5:
+        raise RuntimeError(f"point_ops: the card left the CPU: {line}")
+
+
 def main() -> int:
     import torch
 
@@ -3289,9 +3783,16 @@ def main() -> int:
     renders, render_launches = render_phase(torch, model, camera, pose_list, cfg)
     ply_phase(torch, model, camera, pose_list[0], cfg, renders[0].image)
     scene = train_scene(torch, np, model, camera, pose_list, cfg)
-    tr, train_launches, seg_loss = train_phase(torch, scene, "cuda")
+    tr, train_launches, seg_loss, train_ref = train_phase(torch, scene, "cuda")
     train_stages(torch, tr)
     del tr
+    # the multi-device path: one NCCL rank against the Trainer, two gloo
+    # ranks sharing the card, the scaling harness, and the point ops
+    par_launches = parallel_phase(torch, scene, train_ref)
+    del train_ref
+    pair_launches = parallel_pair_phase(torch)
+    scaling_launches = scaling_phase(torch)
+    point_ops_phase(torch, np)
 
     # the tile-major path (n_contrib on)
     tcfg = raster_config_from(tile_yaml())
@@ -3349,6 +3850,9 @@ def main() -> int:
                 + live_launches["composite_seg_fwd"] + trace_launches["composite_seg_fwd"])
     more_bwd = (pinhole_launches["composite_seg_bwd"] + pyramid_launches["composite_seg_bwd"] + live_launches["composite_seg_bwd"]
                 + trace_launches["composite_seg_bwd"])
+    # the multi-device path: the (1, 1) trainer, both gloo ranks' renders,
+    # steps and trainer iterations, the scaling harness
+    multi = {k: par_launches[k] + pair_launches[k] + scaling_launches[k] for k in par_launches}
 
     emit({"kernels": [
         {
@@ -3361,7 +3865,11 @@ def main() -> int:
             # no-presort segmented requests (4) + the CLIs (quality gate and
             # cli_full: training steps and eval renders)
             "launches": render_launches + train_launches["composite_seg_fwd"]
-            + fallback_launches["segmented"] + cli_launches["composite_seg_fwd"] + more_fwd,
+            + fallback_launches["segmented"] + cli_launches["composite_seg_fwd"] + more_fwd
+            + multi["composite_seg_fwd"],
+            "launches_parallel": par_launches["composite_seg_fwd"],
+            "launches_parallel_pair": pair_launches["composite_seg_fwd"],
+            "launches_scaling": scaling_launches["composite_seg_fwd"],
             "launches_render": render_launches,
             "launches_train": train_launches["composite_seg_fwd"],
             "launches_fallback": fallback_launches["segmented"],
@@ -3387,7 +3895,10 @@ def main() -> int:
             "replaces": "omnigs_tpu/ops/pallas_seg.py:400",
             "tpu_kernel": "omnigs_tpu/ops/pallas_seg.py::_bwd_seg_kernel",
             "launches": train_launches["composite_seg_bwd"]
-            + cli_launches["composite_seg_bwd"] + more_bwd,
+            + cli_launches["composite_seg_bwd"] + more_bwd + multi["composite_seg_bwd"],
+            "launches_parallel": par_launches["composite_seg_bwd"],
+            "launches_parallel_pair": pair_launches["composite_seg_bwd"],
+            "launches_scaling": scaling_launches["composite_seg_bwd"],
             "launches_train": train_launches["composite_seg_bwd"],
             "launches_cli": cli_launches["composite_seg_bwd"],
             "launches_pinhole": pinhole_launches["composite_seg_bwd"],
@@ -3416,7 +3927,10 @@ def main() -> int:
             "launches": tile_launches + tile_train_launches["composite_tile_fwd"]
             + fused_launches["composite_tile_fwd"] + ghost_launches
             + fallback_launches["tile"] + synth_launches["composite_tile_fwd"]
-            + full_synth_launches["composite_tile_fwd"] + viewer_launches + cloud_launches,
+            + full_synth_launches["composite_tile_fwd"] + viewer_launches + cloud_launches
+            + multi["composite_tile_fwd"],
+            # the gloo ranks' tile-major sharded renders
+            "launches_parallel_pair": pair_launches["composite_tile_fwd"],
             # view_result's eight requests and simple_cloud's render
             "launches_viewer": viewer_launches,
             "launches_simple_cloud": cloud_launches,

@@ -9,9 +9,12 @@ decoders differ in their output. Both give the native loader's arithmetic:
 a point-sampled bilinear resize in float32 scaled by ``* (1.0f / 255.0f)``
 (`native/loader.cpp:153-180`), not PIL's resize or ``/ 255``, so a PNG
 loads bit for bit as the JAX package loads it through that library.
-`ImagePool` prefetches a list of images on a thread pool over `load_image`
-(the JAX pool's native thread pool is not bound: each image is what
-`load_image` returns).
+`ImagePool` prefetches a list of images on the native library's thread
+pool (``loader_create`` / ``loader_submit`` / ``loader_fetch`` /
+``loader_destroy``, as the JAX package binds them); a file the library
+fails to decode is loaded by `load_image`, and where the library does not
+load the pool is a Python thread pool over `load_image`. The images are
+the same either way.
 """
 
 from __future__ import annotations
@@ -41,6 +44,14 @@ def _load_native() -> Optional[ctypes.CDLL]:
         ctypes.c_int,
         ctypes.c_int,
     ]
+    lib.loader_create.restype = ctypes.c_void_p
+    lib.loader_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.loader_destroy.restype = None
+    lib.loader_destroy.argtypes = [ctypes.c_void_p]
+    lib.loader_submit.restype = None
+    lib.loader_submit.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    lib.loader_fetch.restype = ctypes.c_int
+    lib.loader_fetch.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
     return lib
 
 
@@ -98,25 +109,57 @@ def load_image(path, width: int, height: int) -> np.ndarray:
 
 
 class ImagePool:
-    """Prefetching image loader: `load_image` on ``n_threads`` threads."""
+    """Prefetching image loader on ``n_threads`` threads: the native
+    library's pool where it loads, else a Python thread pool over
+    `load_image`."""
 
     def __init__(self, width: int, height: int, n_threads: int = 4):
         self.width = width
         self.height = height
-        self._pool: Optional[ThreadPoolExecutor] = ThreadPoolExecutor(n_threads)
+        self._lib = _load_native()
+        self._handle = None
+        self._pool: Optional[ThreadPoolExecutor] = None
+        if self._lib is not None:
+            self._handle = self._lib.loader_create(n_threads, width, height)
+        else:
+            self._pool = ThreadPoolExecutor(n_threads)
+
+    @property
+    def native(self) -> bool:
+        """Whether the native library's pool decodes."""
+        return self._handle is not None
 
     def load_all(self, paths: Iterable) -> Iterator[Tuple[int, np.ndarray]]:
         """Yield (index, image) for every path, in completion order."""
-        if self._pool is None:
+        paths = list(paths)
+        if self._handle is None and self._pool is None:
             raise RuntimeError("ImagePool is closed")
-        futures = {
-            self._pool.submit(load_image, p, self.width, self.height): i
-            for i, p in enumerate(paths)
-        }
-        for fut in as_completed(futures):
-            yield futures[fut], fut.result()
+        if self._handle is None:
+            futures = {
+                self._pool.submit(load_image, p, self.width, self.height): i
+                for i, p in enumerate(paths)
+            }
+            for fut in as_completed(futures):
+                yield futures[fut], fut.result()
+            return
+        for i, p in enumerate(paths):
+            self._lib.loader_submit(self._handle, str(p).encode(), i)
+        out = np.empty((self.height, self.width, 3), np.float32)
+        for _ in paths:
+            rc = self._lib.loader_fetch(
+                self._handle, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+            )
+            if rc < 0:
+                # the library could not decode it: the file's own path
+                idx = -1 - rc
+                yield idx, load_image(paths[idx], self.width, self.height)
+            else:
+                yield rc, out.copy()
 
     def close(self):
+        if self._handle is not None:
+            self._lib.loader_destroy(self._handle)
+            self._handle = None
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None

@@ -13,9 +13,11 @@ bookkeeping fields are buffers:
   * ``opacity``        (P, 1)    logits (activation: sigmoid)
 
 `from_numpy` / `to_numpy` carry the eleven fields over from and to the JAX
-model (``{k: np.asarray(getattr(m, k))}``). Training updates the fields in
-place (`model/optimizer.py`, `model/densify.py`), where the JAX package
-returns new arrays; the capacity never changes, so nothing is reallocated.
+model (``{k: np.asarray(getattr(m, k))}``); `shard_numpy` cuts such arrays
+into one gauss rank's rows.
+Training updates the fields in place (`model/optimizer.py`,
+`model/densify.py`), where the JAX package returns new arrays; the
+capacity never changes, so nothing is reallocated.
 """
 
 from __future__ import annotations
@@ -131,6 +133,24 @@ class GaussianModel(nn.Module):
     def params(self) -> Dict[str, torch.Tensor]:
         """The learnable fields handed to the optimizer."""
         return {k: getattr(self, k) for k in PARAM_NAMES}
+
+
+def shard_numpy(arrays: Mapping[str, np.ndarray], index: int, count: int) -> Dict[str, np.ndarray]:
+    """Rows [index·P/count, (index+1)·P/count) of every array with a leading
+    capacity dimension P (a model's eleven fields, an Adam state's
+    ``mu/…`` and ``nu/…``): gauss rank ``index`` of ``count``'s shard.
+    0-d entries (the Adam ``count``) are kept whole."""
+    out = {}
+    for k, v in arrays.items():
+        v = np.asarray(v)
+        if v.ndim == 0:
+            out[k] = v
+            continue
+        if v.shape[0] % count:
+            raise ValueError(f"{k}: {v.shape[0]} rows do not split into {count} shards")
+        n = v.shape[0] // count
+        out[k] = v[index * n : (index + 1) * n]
+    return out
 
 
 def from_pcd(

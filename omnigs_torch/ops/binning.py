@@ -397,6 +397,8 @@ def bin_instances_packed(
     grid_x: int,
     grid_y: int,
     max_instances: int,
+    tile_lo: int = 0,
+    n_tiles: Optional[int] = None,
     tile_cull: bool = False,
     with_emission: bool = False,
 ) -> BinnedInstances:
@@ -406,14 +408,15 @@ def bin_instances_packed(
     gaussian-major emission depth-ordered, so the per-instance sort needs
     one unique key ``tile << RANK_BITS | depth_rank``. ``sorted_g`` holds
     depth RANKS; map them to Gaussians with ``perm``. Requires P ≤
-    2^RANK_BITS and num_tiles < 2^(32−RANK_BITS) − 1.
+    2^RANK_BITS and num_tiles < 2^(32−RANK_BITS) − 1. Bins into the tile
+    window [tile_lo, tile_lo + n_tiles) (the whole grid by default).
 
     When emission exceeds ``max_instances`` the tail is dropped in depth
     order and counted in ``truncated``. ``with_emission`` also returns the
     survivor-rank payload ``sorted_e`` and the per-rank ``seg_lo`` /
     ``seg_hi`` of the gather reduction.
     """
-    num_tiles = grid_x * grid_y
+    num_tiles = n_tiles if n_tiles is not None else grid_x * grid_y
     P = prep.depths.shape[0]
     dev = prep.depths.device
     if P > (1 << RANK_BITS):
@@ -440,7 +443,8 @@ def bin_instances_packed(
     g = torch.clamp(g, 0, P - 1)
     gl = g.to(_I64)
     tid, _ = _expand(
-        prep, cull, perm_l[gl], j - offsets_d[gl], j < total, grid_x, num_tiles
+        prep, cull, perm_l[gl], j - offsets_d[gl], j < total, grid_x, num_tiles,
+        tile_lo,
     )
     key = (tid.to(_I64) << RANK_BITS) | g.to(_I64)
     bound = _live_chunk_bound(max_instances, total)

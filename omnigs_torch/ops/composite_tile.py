@@ -88,9 +88,11 @@ _SB = 128
 _E_LIVE = 1 << 29
 
 
-def tile_origins(gx: int, gy: int, device=None):
-    """(x0, y0) int32 pixel origins of the gx·gy tiles, row-major."""
-    t = torch.arange(gx * gy, dtype=torch.int32, device=device)
+def tile_origins(gx: int, gy: int, device=None, tile_lo: int = 0, n_tiles=None):
+    """(x0, y0) int32 pixel origins of the tiles [tile_lo, tile_lo +
+    n_tiles) of the row-major gx·gy grid (all of it by default)."""
+    n = gx * gy if n_tiles is None else n_tiles
+    t = tile_lo + torch.arange(n, dtype=torch.int32, device=device)
     return (t % gx) * TILE, (t // gx) * TILE
 
 

@@ -5,7 +5,9 @@ with an 11×11 σ = 1.5 Gaussian window over (C, H, W) float32 images
 (float64 ones for a reference step), zero-padded at the border. The separable window runs as two banded matrix
 products per image (B_v · img · B_h), like the JAX package, through
 `torch.matmul`, which on the card is full float32 (the package switches
-TF32 off; a cuDNN convolution would be TF32 by default).
+TF32 off; a cuDNN convolution would be TF32 by default). `ssim_rows` gives
+a row block of the SSIM map from the block and its window halo alone, the
+piece each rank of the sharded loss computes (`parallel/shard.py`).
 """
 
 from __future__ import annotations
@@ -99,6 +101,53 @@ def ssim(
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
     )
     return ssim_map.mean() if size_average else ssim_map
+
+
+def ssim_rows(
+    img1: torch.Tensor,
+    img2: torch.Tensor,
+    row0: int,
+    nrows: int,
+    total_rows: int,
+    window_size: int = 11,
+) -> torch.Tensor:
+    """Rows [row0, row0 + nrows) of the SAME-padded `ssim` map of two
+    (C, H, W) images, from the rows of that block and its (window − 1)-row
+    halo only → (C, nrows, W). Rows at or past ``total_rows`` (the last
+    block of a ceil split) come out as garbage: the caller masks them. The
+    whole image (row0 0, nrows H) is the full map of `ssim`, computed as
+    `ssim` computes it, so a one-rank split rounds as the unsplit loss."""
+    h = window_size // 2
+    c, H, W = img1.shape
+    if H != total_rows:
+        raise ValueError(f"image has {H} rows, total_rows is {total_rows}")
+    if row0 == 0 and nrows == H:
+        return ssim(img1, img2, window_size, size_average=False)
+
+    def block(img):
+        # zero rows above (the SAME padding) and below (halo + tail), then
+        # the block with its halo
+        p = torch.nn.functional.pad(img, (0, 0, h, h + nrows))
+        return p[:, row0 : row0 + nrows + 2 * h]
+
+    s1, s2 = block(img1), block(img2)
+    # vertical VALID over the pre-padded halo, horizontal SAME: the rows of
+    # the full-image SAME conv
+    Bv = _band_matrix(nrows + 2 * h, window_size, img1.device, img1.dtype)[h : h + nrows]
+    Bh = _band_matrix(W, window_size, img1.device, img1.dtype)
+
+    def conv(x):
+        return torch.matmul(torch.matmul(Bv, x), Bh)
+
+    mu1, mu2 = conv(s1), conv(s2)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = conv(s1 * s1) - mu1_sq
+    sigma2_sq = conv(s2 * s2) - mu2_sq
+    sigma12 = conv(s1 * s2) - mu1_mu2
+    c1, c2 = 0.01**2, 0.03**2
+    return ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
+    )
 
 
 def training_loss(

@@ -114,9 +114,13 @@ class RenderResult(NamedTuple):
     truncated: torch.Tensor  # () int32 instances dropped by any cap
 
 
-def _tile_pixel_coords(grid_x: int, grid_y: int, device=None) -> torch.Tensor:
-    """(num_tiles, TILE², 2) f32 integer pixel coordinates, tiles row-major."""
-    t = torch.arange(grid_x * grid_y, device=device)
+def _tile_pixel_coords(
+    grid_x: int, grid_y: int, device=None, tile_lo: int = 0, n_tiles=None
+) -> torch.Tensor:
+    """(n_tiles, TILE², 2) f32 integer pixel coordinates of the tiles
+    [tile_lo, tile_lo + n_tiles) of the row-major grid (all by default)."""
+    n = grid_x * grid_y if n_tiles is None else n_tiles
+    t = tile_lo + torch.arange(n, device=device)
     p = torch.arange(TILE * TILE, device=device)
     x = (t % grid_x)[:, None] * TILE + (p % TILE)[None, :]
     y = (t // grid_x)[:, None] * TILE + (p // TILE)[None, :]
@@ -346,17 +350,23 @@ def rasterize(
     )
 
 
-def _composite(config, prep, means2d, rgb, bg, gx, gy):
+def _composite(config, prep, means2d, rgb, bg, gx, gy, tile_lo=0, n_tiles=None):
     """Bin ``prep`` (read detached) into the config's layout and composite
     ``means2d``, ``prep.conic``, ``rgb`` and ``prep.opacity`` over ``bg`` →
     (color (T, 3, PX), final_T (T, PX), n_contrib (T, PX), overflow,
-    truncated), differentiable in those four."""
+    truncated), differentiable in those four. T is the tile window
+    [tile_lo, tile_lo + n_tiles) of the grid (all of it by default: a
+    rank of the sharded render composites its own window)."""
+    num_tiles = gx * gy if n_tiles is None else n_tiles
+    window = dict(tile_lo=tile_lo, n_tiles=num_tiles)
     prep_sg = Preprocessed(*(t.detach() for t in prep))
     if config.backend == "xla":
-        binned = bin_gaussians(prep_sg, gx, gy, config.max_instances, config.tile_cap)
+        binned = bin_gaussians(
+            prep_sg, gx, gy, config.max_instances, config.tile_cap, **window
+        )
         color_t, T_t, n_t = _CompositeTiles.apply(
             means2d, prep.conic, rgb, prep.opacity, bg, binned.tile_ids,
-            binned.tile_mask, _tile_pixel_coords(gx, gy, means2d.device),
+            binned.tile_mask, _tile_pixel_coords(gx, gy, means2d.device, **window),
             config.chunk,
         )
         # the dense compositor keeps its channels-minor scan layout
@@ -383,8 +393,8 @@ def _composite(config, prep, means2d, rgb, bg, gx, gy):
     else:
         bin_fn = bin_instances
     inst = bin_fn(
-        prep_sg, gx, gy, config.max_instances, tile_cull=config.tile_culling,
-        with_emission=gather_reduce,
+        prep_sg, gx, gy, config.max_instances, **window,
+        tile_cull=config.tile_culling, with_emission=gather_reduce,
     )
     truncated = inst.truncated
     if config.segmented:
@@ -397,7 +407,7 @@ def _composite(config, prep, means2d, rgb, bg, gx, gy):
         color_t, T_t, n_t = composite_instances_seg(
             means2d, prep.conic, rgb, prep.opacity, bg, seg.sorted_g8,
             seg.starts8, seg.counts, seg.live8, seg.ride_d, seg.ride_t,
-            inst.perm, inst.inv_perm, gx * gy, gx,
+            inst.perm, inst.inv_perm, num_tiles, gx, tile_lo,
         )
         return color_t, T_t, n_t, overflow, truncated + seg.truncated
     # trim the slab to its live prefix under aligned_cap (dropped tiles
@@ -414,10 +424,10 @@ def _composite(config, prep, means2d, rgb, bg, gx, gy):
         counts = torch.where(fits, counts, 0)
         starts = torch.clamp(starts, 0, cap - 1)
         sorted_g = sorted_g[:cap]
-    x0, y0 = tile_origins(gx, gy, means2d.device)
+    x0, y0 = tile_origins(gx, gy, means2d.device, **window)
     color_t, T_t, n_t = composite_instances(
         means2d, prep.conic, rgb, prep.opacity, bg, sorted_g, starts, counts,
         x0, y0, inst.sorted_e, inst.seg_lo, inst.seg_hi, inst.perm,
-        inst.inv_perm, gx * gy, config.want_ncontrib, config.fused_reduce,
+        inst.inv_perm, num_tiles, config.want_ncontrib, config.fused_reduce,
     )
     return color_t, T_t, n_t, overflow, truncated

@@ -6,13 +6,15 @@ content as an orbax tree. Here one file holds a flat dict of tensors
 ``iteration``), written with `torch.save` and read with
 ``torch.load(weights_only=True)``. `checkpoint_from_numpy` turns a JAX
 trainer's state, as numpy arrays, into such a file, so that a run begun
-in the JAX package continues in the port.
+in the JAX package continues in the port; `read_checkpoint` gives a file's
+state as numpy arrays (each rank of a sharded run keeps its own rows,
+`train/trainer_parallel.py`).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Mapping, Tuple, Union
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,17 +49,25 @@ def checkpoint_from_numpy(model_np: Mapping[str, np.ndarray],
     _write(path, model_np, {k: np.asarray(v) for k, v in opt_np.items()}, iteration)
 
 
-def load_checkpoint(path: PathLike, capacity: int, device="cuda"
-                    ) -> Tuple[GaussianModel, AdamState, int]:
-    """Restore (model, Adam state, iteration) onto ``device``. ``capacity``
-    must match the saved arrays' leading dimension."""
+def read_checkpoint(path: PathLike, capacity: int
+                    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray], int]:
+    """(the eleven model fields, the Adam state as `AdamState.from_numpy`
+    takes it, iteration) as numpy arrays. ``capacity`` must match the saved
+    arrays' leading dimension."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     saved = blob["model/xyz"].shape[0]
     if saved != capacity:
         raise ValueError(f"{path}: checkpoint capacity {saved} != {capacity}")
     arrays = {k: v.numpy() for k, v in blob.items()}
-    model = GaussianModel.from_numpy(
-        {k: arrays[f"model/{k}"] for k in FIELD_NAMES}, device=device
-    )
-    opt_state = AdamState.from_numpy(arrays, device=device)
-    return model, opt_state, int(blob["iteration"])
+    model_np = {k: arrays[f"model/{k}"] for k in FIELD_NAMES}
+    opt_np = {k: v for k, v in arrays.items() if k.startswith(("mu/", "nu/")) or k == "count"}
+    return model_np, opt_np, int(blob["iteration"])
+
+
+def load_checkpoint(path: PathLike, capacity: int, device="cuda"
+                    ) -> Tuple[GaussianModel, AdamState, int]:
+    """Restore (model, Adam state, iteration) onto ``device``. ``capacity``
+    must match the saved arrays' leading dimension."""
+    model_np, opt_np, iteration = read_checkpoint(path, capacity)
+    model = GaussianModel.from_numpy(model_np, device=device)
+    return model, AdamState.from_numpy(opt_np, device=device), iteration

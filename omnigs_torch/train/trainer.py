@@ -323,26 +323,56 @@ class Trainer:
 
     # -- the loop --
 
+    def _schedule(self, it: int):
+        """(in_densify_phase, do_densify, do_reset) of iteration ``it``."""
+        cfg = self.config
+        in_densify_phase = it < cfg.opt.densify_until_iter
+        do_densify = (
+            in_densify_phase
+            and it > cfg.opt.densify_from_iter
+            and it % cfg.opt.densification_interval == 0
+        )
+        do_reset = in_densify_phase and bool(
+            (
+                cfg.opt.opacity_reset_interval
+                and it % cfg.opt.opacity_reset_interval == 0
+            )
+            or (cfg.model.white_background and it == cfg.opt.densify_from_iter)
+        )
+        return in_densify_phase, do_densify, do_reset
+
+    def _densify_kwargs(self, it: int) -> dict:
+        cfg = self.config
+        return dict(
+            max_grad=cfg.opt.densify_grad_threshold,
+            min_opacity=cfg.opt.densify_min_opacity,
+            extent=self.cameras_extent,
+            max_screen_size=20 if it > cfg.opt.prune_big_point_after_iter else 0,
+            percent_dense=cfg.opt.percent_dense,
+            prune_by_extent=cfg.opt.prune_by_extent,
+            iteration=it,
+        )
+
+    def _pose(self, kf):
+        """The keyframe's (viewmatrix, campos) on the device, cached."""
+        if kf.fid not in self._pose_cache:
+            self._pose_cache[kf.fid] = (
+                torch.as_tensor(kf.viewmatrix, device=self.device),
+                torch.as_tensor(kf.campos, device=self.device),
+            )
+        return self._pose_cache[kf.fid]
+
+    def _skip_bottom_px(self, camera) -> int:
+        ratio = self.config.opt.skip_bottom_ratio
+        return int(round(camera.height * ratio)) if ratio > 0 else 0
+
     def train_iteration(self) -> Dict[str, torch.Tensor]:
         with self.lock:
             cfg = self.config
             self.iteration += 1
             it = self.iteration
             kf = self.sampler.sample()
-
-            in_densify_phase = it < cfg.opt.densify_until_iter
-            do_densify = (
-                in_densify_phase
-                and it > cfg.opt.densify_from_iter
-                and it % cfg.opt.densification_interval == 0
-            )
-            do_reset = in_densify_phase and (
-                (
-                    cfg.opt.opacity_reset_interval
-                    and it % cfg.opt.opacity_reset_interval == 0
-                )
-                or (cfg.model.white_background and it == cfg.opt.densify_from_iter)
-            )
+            in_densify_phase, do_densify, do_reset = self._schedule(it)
 
             # coarse-to-fine pyramid: the level camera of this keyframe's use
             camera = kf.camera
@@ -359,17 +389,7 @@ class Trainer:
                         width=max(int(camera.width * f), 16),
                         height=max(int(camera.height * f), 16),
                     )
-            skip_bottom_px = (
-                int(round(camera.height * cfg.opt.skip_bottom_ratio))
-                if cfg.opt.skip_bottom_ratio > 0
-                else 0
-            )
-            if kf.fid not in self._pose_cache:
-                self._pose_cache[kf.fid] = (
-                    torch.as_tensor(kf.viewmatrix, device=self.device),
-                    torch.as_tensor(kf.campos, device=self.device),
-                )
-            vm, campos = self._pose_cache[kf.fid]
+            vm, campos = self._pose(kf)
             # a fill kernel, not a host → device copy
             step = torch.full((), it, dtype=torch.int32, device=self.device)
             aux = train_step(
@@ -387,7 +407,7 @@ class Trainer:
                 spatial_lr_scale=self.cameras_extent,
                 bg=self.bg,
                 lambda_dssim=cfg.opt.lambda_dssim,
-                skip_bottom_px=skip_bottom_px,
+                skip_bottom_px=self._skip_bottom_px(camera),
                 update_stats=in_densify_phase,
                 # reference quirk: replaced tensors skip their Adam update
                 do_adam=not do_densify and it < cfg.opt.max_num_iterations,
@@ -395,18 +415,9 @@ class Trainer:
             )
 
             if do_densify:
-                size_threshold = 20 if it > cfg.opt.prune_big_point_after_iter else 0
                 densify_ops.densify_and_prune(
-                    self.model,
-                    self.opt_state,
-                    self.generator,
-                    max_grad=cfg.opt.densify_grad_threshold,
-                    min_opacity=cfg.opt.densify_min_opacity,
-                    extent=self.cameras_extent,
-                    max_screen_size=size_threshold,
-                    percent_dense=cfg.opt.percent_dense,
-                    prune_by_extent=cfg.opt.prune_by_extent,
-                    iteration=it,
+                    self.model, self.opt_state, self.generator,
+                    **self._densify_kwargs(it),
                 )
             if do_reset:
                 densify_ops.reset_opacity(self.model, self.opt_state)
@@ -421,6 +432,10 @@ class Trainer:
             if len(self._pending_losses) > 512:
                 self.drain_losses()
             return aux
+
+    def live_gaussians(self) -> int:
+        """The model's live Gaussians (reading the count syncs)."""
+        return int(self.model.num_active)
 
     def drain_losses(self) -> float:
         """Fold the queued device-side losses into the host EMA (0.4/0.6)
@@ -586,7 +601,7 @@ class Trainer:
                 print(
                     f"iter {self.iteration}: loss={self.last_loss:.4f} "
                     f"ema={self.ema_loss:.4f} "
-                    f"n_active={int(self.model.num_active)} "
+                    f"n_active={self.live_gaussians()} "
                     f"({(time.time() - t0):.1f}s)" + pressure,
                     flush=True,
                 )

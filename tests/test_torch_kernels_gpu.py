@@ -613,3 +613,71 @@ def test_pinhole_render_kernel_matches_plain():
     assert tuple(res.image.shape) == (3, 1080, 1920)
     assert int(res.truncated) == 0 and float(res.final_T.min()) < 0.5
     assert torch.equal(res.image, ref.image) and torch.equal(res.final_T, ref.final_T)
+
+
+def _window_prep(seed=42, n=512, squeeze=(0.2, 0.2, 1.0)):
+    """A seeded cloud's preprocess at 256×128 (16×8 tiles) and rank 1's
+    window of a two-rank gauss split: tiles [64, 128)."""
+    c = to_torch(random_cloud_np(seed, n))
+    c["means3d"] = c["means3d"] * torch.tensor(squeeze)
+    prep = preprocess(
+        c["means3d"], c["scales"], c["quats"], c["opacities"], c["shs"],
+        Camera(CameraType.LONLAT, 256, 128), torch.eye(4), torch.zeros(3), 2,
+        tight_culling=True,
+    )
+    return prep, 64, 64
+
+
+@pytest.mark.gpu
+def test_seg_kernels_on_a_tile_window_match_plain():
+    """#1 and #2 with ``tile_lo`` > 0 (a sharded render's window) against
+    their plain versions bit for bit."""
+    dev = _cuda()
+    prep, tile_lo, n_tiles = _window_prep()
+    inst = bin_instances_packed(prep, 16, 8, 1 << 14, tile_lo=tile_lo, n_tiles=n_tiles,
+                                tile_cull=True)
+    seg = segment_relay(inst.sorted_g, inst.starts, inst.counts, 1 << 14, 512, inst.sorted_key)
+    slab = tcs._build_inst_seg(prep.means2d, prep.conic, prep.rgb, prep.opacity,
+                               seg.sorted_g8, inst.perm, seg.ride_d, seg.ride_t)
+    args = [t.to(dev) for t in (slab, seg.starts8, seg.counts, seg.live8)]
+    assert int(seg.counts.sum()) > 0
+    kc, kt = tcs.composite_seg_fwd(*args, n_tiles, 16, tile_lo)
+    pc, pt, _, _ = tcs.composite_seg_fwd_plain(args[0], args[1], args[2], n_tiles, 16, tile_lo)
+    assert torch.equal(kc, pc) and torch.equal(kt, pt)
+    # the window's pixels are the grid's lower half: not the upper half's
+    c0, _ = tcs.composite_seg_fwd(*args, n_tiles, 16, 0)
+    assert not torch.equal(c0, kc)
+    color_full = (kc + kt[:, None, :] * 0.2).contiguous()
+    dcolor = torch.from_numpy(
+        np.random.default_rng(7).normal(size=(n_tiles, 3, 256)).astype(np.float32)
+    ).to(dev)
+    got = tcs.composite_seg_bwd(*args, color_full, dcolor, n_tiles, 16, tile_lo)
+    ref = tcs.composite_seg_bwd_plain(args[0], args[1], args[2], color_full, dcolor,
+                                      n_tiles, 16, tile_lo)
+    assert float(ref[: tcs.NGRAD].abs().max()) > 0
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_tile_kernels_on_a_tile_window_match_plain():
+    """#3 (with n_contrib) and #4 on a window's tiles, placed by the
+    window's x0 / y0, against their plain versions bit for bit."""
+    dev = _cuda()
+    prep, tile_lo, n_tiles = _window_prep()
+    inst = bin_instances_packed(prep, 16, 8, 1 << 14, tile_lo=tile_lo, n_tiles=n_tiles,
+                                tile_cull=True)
+    slab = tct._build_inst(prep.means2d, prep.conic, prep.rgb, prep.opacity, inst.sorted_g,
+                           torch.amax(inst.starts + inst.counts), inst.perm)
+    x0, y0 = tct.tile_origins(16, 8, tile_lo=tile_lo, n_tiles=n_tiles)
+    assert int(y0.min()) == 64
+    args = [t.to(dev) for t in (slab, inst.starts, inst.counts, x0, y0)]
+    kc, kt, kn = tct.composite_tile_fwd(*args, n_tiles)
+    pc, pt, pn, _, _ = tct.composite_tile_fwd_plain(*args, n_tiles)
+    assert torch.equal(kc, pc) and torch.equal(kt, pt) and torch.equal(kn, pn)
+    assert int(kn.max()) > 0
+    color_full = (kc + kt[:, None, :] * 0.2).contiguous()
+    dcolor = torch.from_numpy(
+        np.random.default_rng(8).normal(size=(n_tiles, 3, 256)).astype(np.float32)
+    ).to(dev)
+    assert torch.equal(tct.composite_tile_bwd(*args, color_full, dcolor, n_tiles),
+                       tct.composite_tile_bwd_plain(*args, color_full, dcolor, n_tiles))
