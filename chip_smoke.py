@@ -161,6 +161,22 @@ script exits non-zero:
    tile-major slab (`tile_grad`'s ids and rows), each against the float64
    sum at the reduction bar, ms in turns, with `_scatter_reduce` of the
    same rows beside them.
+17b. the measurement layer, each script through its `main` at the JAX
+   script's sizes (launch counters set to 0 just before, read just
+   after): kernel_bench — `omnigs_torch/scripts/kernel_bench.py` (P =
+   2^17, 1920×960): every line of the JAX script printed, each stage's ms
+   and what it measures (`device`, `launch` with the card's busy ms, or
+   `host`), nothing truncated or dropped by the cap, #1–#4's first outputs
+   bitwise their plain versions and #5's at the reduction bar, #3's image
+   on the trimmed compact slab within 1e-5 of #1's on the relayed slab,
+   the five reductions within the reduction bar of the float64 sum;
+   bin_bench — the aligned binning's sub-stages, every JAX line printed,
+   and the render's own binning with its two sorts at 2^22 slots;
+   subtile — `subtile_analysis`: the quadrant and half chunk ratios from
+   n_contrib, one #3 launch; roofline — bench.py's forward + backward
+   step of the render model (L1 loss, identity pose, its RasterConfig),
+   10 steps, and `roofline_report` of it: fraction_of_roofline ≤ 1, the
+   last step's gradients within the gradient bar of a plain-#1/#2 step.
 18. card_tests — `tests/test_torch_kernels_gpu.py -m gpu` in a child
    process: every test must pass, none skip.
 19. scene_synth — the quality gate's pinned scene (seed 1234, 512×256, 12
@@ -183,6 +199,10 @@ script exits non-zero:
    full-width `Trainer` saved at iteration 100, run to 124, loaded and run
    to 124 again: every parameter and Adam moment `torch.equal`.
    ms/iteration, PSNR, peak memory and `DevicePeakUsageMB.txt`.
+   converged — `converged_bench` on cli_full's PLY and scene (the
+   repository holds no 32,010-iteration checkpoint): its JSON line,
+   nothing truncated, #1 / #2 once a step, the last step's gradients
+   within the gradient bar of a plain-#1/#2 step.
 22. pinhole — the render model through a distorted pinhole camera
    (1920×1080, f = 1200, k1 = 0.3, k2 = 0.05) from the four request poses,
    `full_proj` from a `Keyframe`, the production segmented config: host ms,
@@ -212,7 +232,11 @@ script exits non-zero:
    `torch.equal`; frames served and their host ms.
 27. trace — one `train_window` of that Trainer under `profiling.trace`:
    from the Chrome trace, the device busy share of the window, kernels and
-   launch calls per step, the five longest device ops and idle gaps.
+   launch calls per step, the five longest device ops and idle gaps. Then
+   `trace_request_step`: under the same CUDA-only profiler, the device
+   busy and idle share of one render request (pose 0) and of one
+   non-densify iteration of a Trainer built as the train phase's
+   (capacity 524,288) after its TRAIN_ITERS iterations.
 28. examples — `omnigs_torch.examples.simple_cloud` at 2000×1000 (one #3
    launch, truncated 0, the image's sha256) and `ImagePool` over the pinned
    scene's PNGs, each image `torch.equal` to `load_image`.
@@ -246,27 +270,6 @@ CONFIG = REPO / "cfg" / "lonlat" / "360roam_lonlat.yaml"
 # an earlier tree's CUDA sources for the seg_compare phase (gitignored; e.g.
 # `git archive <commit> omnigs_torch/csrc | tar -x -C build/seg_before`)
 SEG_BEFORE = REPO / "build" / "seg_before" / "omnigs_torch" / "csrc"
-# H100 SXM published peaks (dense): f32 outside the tensor cores, HBM3
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# fp32 operations per pixel-instance pair in the forward kernel: every
-# visited pair (dx, dy, quadratic form, clamp, exp, opacity, clamp, two
-# tests) and every live pair on top (log1p, exp of the log-T, test, weight,
-# 3 color multiply-adds, 2 log sums); a transcendental counts as one
-OPS_PER_VISITED_PAIR = 17
-OPS_PER_LIVE_PAIR = 13
-# the backward kernel: the forward's 17 per visited pair; per live
-# (contributing) pair log1p, exp, the stop test (3), weight, u (5), the w·u
-# prefix (2), dL·B, dL/dα (3, one division), V, the nine partials (10) and
-# the log-T sum = 30, plus ~9 adds of the nine pixel reductions = 39; per
-# instance the eight warp partials of nine rows (63 adds) and the row
-# combination (9)
-BWD_OPS_PER_LIVE_PAIR = 39
-BWD_OPS_PER_INSTANCE = 72
-# the tile-major forward: one integer move per composited pair for n_contrib
-TILE_NC_OPS_PER_LIVE_PAIR = 1
-# the fused backward: nine atomic adds per instance
-FUSED_OPS_PER_INSTANCE = 9
 MAX_ERR_BAR = 1e-4
 P999_ERR_BAR = 1e-5
 # reductions of the same rows in another order (tests/test_gather_reduce.py)
@@ -461,7 +464,9 @@ def time_ms(torch, fn, reps, warmup=2):
 
 def _bound(ops, nbytes):
     """(bound ms, what bounds it) of work of ``ops`` fp32 operations that
-    moves ``nbytes`` bytes."""
+    moves ``nbytes`` bytes, at the card's published peaks."""
+    from omnigs_torch.utils.profiling import PEAK_BYTES_PER_S, PEAK_F32_FLOPS
+
     t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -537,6 +542,7 @@ def segment_spread(torch, counts):
 def kernel_phase(torch, model, camera, pose, cfg):
     from omnigs_torch.ops import composite_seg as cs
     from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.utils.profiling import OPS_PER_LIVE_PAIR, OPS_PER_VISITED_PAIR
 
     vm, campos = pose
     with torch.inference_mode():
@@ -623,6 +629,9 @@ def grad_phase(torch, kres, slab_data):
     version; timings; work counts and bound; a bitwise repeat of kernel +
     reduction."""
     from omnigs_torch.ops import composite_seg as cs
+    from omnigs_torch.utils.profiling import (
+        BWD_OPS_PER_INSTANCE, BWD_OPS_PER_LIVE_PAIR, OPS_PER_VISITED_PAIR,
+    )
 
     slab, seg, inst, kc, kt, pairs = slab_data
     num_tiles, gx = kres["tiles"], kres["gx"]
@@ -1111,6 +1120,9 @@ def tile_kernel_phase(torch, model, camera, pose, cfg):
     n_contrib; times, work counts, warp pairs, digest and bound."""
     from omnigs_torch.ops import composite_seg as cs
     from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.utils.profiling import (
+        OPS_PER_LIVE_PAIR, OPS_PER_VISITED_PAIR, TILE_NC_OPS_PER_LIVE_PAIR,
+    )
 
     vm, campos = pose
     with torch.inference_mode():
@@ -1208,6 +1220,10 @@ def tile_grad_phase(torch, kres, d):
     against the scatter reduction; all three reductions against the float64
     sum of the same rows; times and bounds."""
     from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.utils.profiling import (
+        BWD_OPS_PER_INSTANCE, BWD_OPS_PER_LIVE_PAIR, FUSED_OPS_PER_INSTANCE,
+        OPS_PER_VISITED_PAIR,
+    )
 
     slab, inst, num_tiles = d["slab"], d["inst"], d["num_tiles"]
     dev = slab.device
@@ -2415,6 +2431,224 @@ def ablate_compare_phase(torch, ares, slab):
     return line
 
 
+# ---------------------------------------------------------------------------
+# The measurement layer: the port's copies of the JAX package's measurement
+# scripts, each through its `main` at the JAX script's sizes (launch
+# counters set to 0 just before and read just after), and `roofline_report`.
+
+# bench.py's committed RasterConfig (`converged_bench.bench_config`): 18·2^16
+# instance slots, an 8,288·128-lane slab
+BENCH_SLOTS, BENCH_CAP = 18 << 16, 8288 * 128
+BENCH_ITERS = 10
+
+
+def _missing_lines(expected, printed):
+    return [label for label in expected if not any(x.startswith(label) for x in printed)]
+
+
+def _vs_plain(torch, name, got, plain):
+    """A kernel wrapper's output ``got`` against ``plain()``, its plain
+    version on the same inputs → (max |Δ|, passes): bitwise, or for the
+    fused backward's atomic sums the reduction bar."""
+    ref = plain()
+    got, ref = (x if isinstance(x, tuple) else (x,) for x in (got, ref))
+    max_abs = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref))
+    if name == "composite_tile_bwd_fused":
+        return max_abs, _reduce_close(torch, got[0], ref[0]) <= 1.0
+    return max_abs, all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def kernel_bench_phase(torch):
+    """`omnigs_torch.scripts.kernel_bench` (P = 2^17, 1920×960, 26·2^16
+    slots, the 8,704·128-lane cap): every stage line of the JAX script
+    printed, nothing truncated or dropped by the cap; each of #1-#5's
+    first output in the script against its plain version on the same
+    inputs (bitwise; #5 at the reduction bar); the tile-major forward's
+    image (#3 on the trimmed compact slab) within RENDER_BAR of the
+    segmented forward's (#1 on the relayed slab): the same instances
+    composited in two layouts; each of the five reductions of #4's rows
+    within the reduction bar of their float64 sum."""
+    from omnigs_torch.scripts import kernel_bench as kb
+
+    out, printed, launches = _script_main(torch, kb, ["--device", "cuda"])
+    with torch.no_grad():
+        vs_plain = {name: _vs_plain(torch, name, got, plain)
+                    for name, (got, plain) in out["kernels"].items()}
+    (color, final_t), (scolor, sfinal_t) = out["fwd_image"], out["seg_image"]
+    img_err = max(float((color - scolor).abs().max()), float((final_t - sfinal_t).abs().max()))
+    missing = _missing_lines(kb.STAGE_LINES, printed)
+    # every reduction variant against the float64 sum of the same rows
+    rows, ids = out["reduced_rows"]
+    exact = torch.zeros(P, rows.shape[0], dtype=torch.float64, device=rows.device)
+    exact.index_add_(0, ids.to(torch.int64), rows.T.double())
+    with torch.no_grad():
+        tol_ratio = {k: _reduce_close(torch, fn()[:, : rows.shape[0]].double(), exact)
+                     for k, fn in out["reductions"].items()}
+    line = {"phase": "kernel_bench", "device": out["device"], "instances": out["instances"],
+            "seg": out["seg"], "ms": out["ms"], "measures": out["measures"],
+            "busy_ms": out["busy_ms"],
+            "vs_plain": {k: {"max_abs_err": e, "passes": ok} for k, (e, ok) in vs_plain.items()},
+            "fwd_vs_seg_max_abs": img_err, "reduction_vs_float64_tol_ratio": tol_ratio,
+            "missing_lines": missing, "launches": launches, "printed": printed}
+    emit(line)
+    kernels = ("composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
+               "composite_tile_bwd", "composite_tile_bwd_fused")
+    if sorted(vs_plain) != sorted(kernels) or not all(ok for _, ok in vs_plain.values()):
+        raise RuntimeError(f"kernel_bench: a kernel disagrees with its plain version: "
+                           f"{line['vs_plain']}")
+    if max(tol_ratio.values()) > 1.0:
+        raise RuntimeError(f"kernel_bench: a reduction misses the float64 sum: {tol_ratio}")
+    inst = out["instances"]
+    if (missing or inst["truncated"] or out["seg"]["truncated"]
+            or inst["emitted"] != inst["composited"]):
+        raise RuntimeError(f"kernel_bench: missing lines {missing}, instances {inst}, "
+                           f"relay {out['seg']}")
+    if img_err > RENDER_BAR:
+        raise RuntimeError(f"kernel_bench: #3 and #1 images differ by {img_err:.3g} "
+                           f"(bar {RENDER_BAR})")
+    if not all(launches[k] for k in kernels):
+        raise RuntimeError(f"kernel_bench: a kernel of #1-#5 never launched: {launches}")
+    return launches
+
+
+def bin_bench_phase(torch, model, camera, pose, cfg):
+    """`omnigs_torch.scripts.bin_bench` (P = 2^17, 1920×960, R = 2^21):
+    every sub-stage line of the JAX script printed. Beside it, the render's
+    own binning (`bin_instances_packed` of the render model's pose at the
+    config's 2^22 slots) and its two sorts: the stable depth presort of the
+    P Gaussians and the int64 sort of its 2^22 packed keys (the pose's
+    keys in a seeded shuffle), each with `profiling.stage_ms`."""
+    from omnigs_torch.ops.binning import bin_instances_packed
+    from omnigs_torch.ops.preprocess import preprocess, tile_grid
+    from omnigs_torch.scripts import bin_bench as bb
+    from omnigs_torch.utils.profiling import stage_ms
+
+    out, printed, launches = _script_main(torch, bb, ["--device", "cuda"])
+    missing = _missing_lines(bb.STAGE_LINES, printed)
+    vm, campos = pose
+    gx, gy = tile_grid(camera)
+    with torch.inference_mode():
+        prep = preprocess(
+            model.xyz, model.get_scaling(), model.get_rotation(), model.get_opacity(),
+            model.get_features(), camera, vm, campos, SH_DEGREE, active_mask=model.active,
+            tight_culling=cfg.tight_culling)
+
+        def binning():
+            return bin_instances_packed(prep, gx, gy, cfg.max_instances,
+                                        tile_cull=cfg.tile_culling)
+
+        keys = binning().sorted_key
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        keys = keys[torch.randperm(keys.numel(), generator=gen, device="cuda")]
+        render = {}
+        for key, fn in (("bin_instances_packed", binning),
+                        ("depth_presort", lambda: torch.sort(prep.depths, stable=True)),
+                        ("packed_key_sort", lambda: torch.sort(keys))):
+            ms, kind, busy = stage_ms(fn, "cuda")
+            render[key] = {"ms": ms, "measures": kind, "busy_ms": busy}
+    emit({"phase": "bin_bench", "device": out["device"], "ms": out["ms"],
+          "measures": out["measures"], "busy_ms": out["busy_ms"], "missing_lines": missing,
+          "launches": launches,
+          "printed": printed,
+          "render_binning": {"slots": cfg.max_instances, "keys": keys.numel(), **render}})
+    if missing:
+        raise RuntimeError(f"bin_bench: missing lines {missing}")
+
+
+def subtile_phase(torch):
+    """`omnigs_torch.scripts.subtile_analysis` (P = 2^17, 1920×960, the
+    tile-major route with n_contrib): its ratios, nothing truncated, one
+    #3 launch."""
+    from omnigs_torch.scripts import subtile_analysis as sa
+
+    out, printed, launches = _script_main(torch, sa, ["--device", "cuda"])
+    nc = out.pop("n_contrib")
+    line = {"phase": "subtile", **out, "n_contrib_max": int(nc.max()),
+            "n_contrib_mean": float(nc.mean()), "launches": launches, "printed": printed}
+    emit(line)
+    if (out["truncated"] or not 0.0 < out["quadrant_ratio"] <= out["half_ratio"] <= 1.0
+            or not _only(launches, {"composite_tile_fwd": 1})):
+        raise RuntimeError(f"subtile: {line}")
+    return launches
+
+
+def _grads_vs_plain(torch, grads, step):
+    """The gradients ``grads`` of a step against those of ``step()`` (→
+    (gradients, truncated)) under `plain_segmented_kernels` → (bar ratio,
+    bitwise equal) per parameter."""
+    with plain_segmented_kernels():
+        ref, _ = step()
+    return ({k: _bar_ratio(torch, grads[k], ref[k]) for k in grads},
+            {k: bool(torch.equal(grads[k], ref[k])) for k in grads})
+
+
+def converged_phase(torch):
+    """`omnigs_torch.scripts.converged_bench` on the PLY and the scene that
+    cli_full wrote (1920×960, FULL_ITERS iterations; the repository holds no
+    32,010-iteration checkpoint): its JSON line, nothing truncated, #1 / #2
+    once a step (2 + 10); the last step's gradients against the same step
+    through the plain versions of #1 / #2 (the gradient bar)."""
+    from omnigs_torch.scripts import converged_bench as cb
+
+    ply = CLI_DIR / "full" / str(FULL_ITERS) / "ply" / "point_cloud.ply"
+    sfm = CLI_DIR / "scene_full" / "sfm_data_train.json"
+    out, printed, launches = _script_main(torch, cb, [str(ply), str(sfm), "--device", "cuda"])
+    grads = out.pop("grads")
+    model, camera, vm, cp = cb.load_view(ply, sfm, "cuda")
+    bar, bitwise = _grads_vs_plain(torch, grads, lambda: cb.grad_step(
+        model, camera, vm, cp, cb.bench_config(cb.MAX_INSTANCES, cb.ALIGNED_CAP)))
+    printed_line = json.loads(printed[-1])
+    emit({"phase": "converged", "result": out, "printed": printed_line, "launches": launches,
+          "iterations_of_ply": FULL_ITERS, "grads_vs_plain_bar_ratio": bar,
+          "grads_bitwise_plain": bitwise})
+    steps = 12
+    if (out["truncated"] or not math.isfinite(out["px_s"]) or out["instances_per_tile"] <= 0
+            or printed_line["metric"] != "converged_scene_px_s"
+            or not _only(launches, {"composite_seg_fwd": steps, "composite_seg_bwd": steps})):
+        raise RuntimeError(f"converged: {out}, launches {launches}")
+    if max(bar.values()) > 1.0:
+        raise RuntimeError(f"converged: gradients miss the plain step's at the bar: {bar}")
+    return launches
+
+
+def roofline_phase(torch, model, camera):
+    """`roofline_report` of the render model's forward + backward step
+    (bench.py's workload: the identity pose, L1 loss against zeros, every
+    parameter's gradient, bench.py's RasterConfig; `converged_bench`'s step
+    timing), BENCH_ITERS steps after one; depth = composited instances per
+    tile of the compact binning at the config's slots, as bench.py counts
+    it. The last step's gradients against the same step through the plain
+    versions of #1 / #2 (the gradient bar)."""
+    from omnigs_torch.ops.preprocess import tile_grid
+    from omnigs_torch.scripts import converged_bench as cb
+    from omnigs_torch.utils.profiling import roofline_report
+
+    cfg = cb.bench_config(BENCH_SLOTS, BENCH_CAP)
+    vm, campos = torch.eye(4, device="cuda"), torch.zeros(3, device="cuda")
+    reset_launches()
+    dt, truncated, grads = cb.time_grad_steps(model, camera, vm, campos, cfg, BENCH_ITERS,
+                                              warmup=1)
+    launches = read_launches()
+    bar, bitwise = _grads_vs_plain(torch, grads,
+                                   lambda: cb.grad_step(model, camera, vm, campos, cfg))
+    gx, gy = tile_grid(camera)
+    depth = cb.composited_per_tile(model, camera, vm, campos, cfg.max_instances)
+    live = round(depth * gx * gy)
+    roof = roofline_report(WIDTH * HEIGHT, dt, depth, num_instances=live)
+    line = {"phase": "roofline", "ms_per_step": dt * 1e3, "steps": BENCH_ITERS,
+            "mean_instances_per_tile": depth, "instances": live, "truncated": truncated,
+            **roof, "launches": launches, "grads_vs_plain_bar_ratio": bar,
+            "grads_bitwise_plain": bitwise}
+    emit(line)
+    steps = BENCH_ITERS + 1
+    if truncated or not 0.0 < roof["fraction_of_roofline"] <= 1.0 or not _only(
+            launches, {"composite_seg_fwd": steps, "composite_seg_bwd": steps}):
+        raise RuntimeError(f"roofline: {line}")
+    if max(bar.values()) > 1.0:
+        raise RuntimeError(f"roofline: gradients miss the plain step's at the bar: {bar}")
+    return launches
+
+
 # the CLI phases: the pinned scene of the quality gate (seed 1234, 512×256,
 # 12 train / 4 test views) and the sha256 of its points.ply and of its
 # sfm_data_{train,test}.json with root_path removed (json.dumps(indent=1)),
@@ -3142,7 +3376,27 @@ def _device_spans(events, lo=float("-inf"), hi=float("inf")):
     return dev, _merge([s for s in spans if s[1] > s[0]])
 
 
-def trace_phase(torch, tr):
+def _cuda_only_window(torch, fn, name):
+    """``fn()`` between two synchronises under a profiler that records CUDA
+    activity only (its trace in TRACE_DIR) → (host µs of the span, device
+    busy µs in it, what fn returned)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host_us = (time.perf_counter() - t0) * 1e6
+    from omnigs_torch.utils.profiling import device_busy_us
+
+    path = TRACE_DIR / f"trace_{name}.json"
+    prof.export_chrome_trace(str(path))
+    return host_us, device_busy_us(json.loads(path.read_text())["traceEvents"]), out
+
+
+def trace_phase(torch, tr, request, make_scene):
     """One `train_window` of the 1920×960 scene under `profiling.trace`:
     from the Chrome trace, the device busy share of the window's host span
     (which ends in a synchronise), device kernels per step, the five
@@ -3150,8 +3404,12 @@ def trace_phase(torch, tr):
     window untraced (its host ms a step) and one under a profiler that
     records CUDA activity only, which costs the host far less than the
     CPU ops' tracing: its device busy time over its own host span is the
-    busy share nearest an untraced window's."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    busy share nearest an untraced window's. Then the same CUDA-only
+    reading of one render ``request()`` (the render phase's request) and of
+    one non-densify `train_iteration` of a Trainer built as the train
+    phase's on the scene ``make_scene()`` (capacity 524,288) after the
+    train phase's TRAIN_ITERS iterations, each beside its untraced host ms."""
+    from torch.profiler import record_function
 
     from omnigs_torch.utils.profiling import trace
 
@@ -3166,16 +3424,8 @@ def trace_phase(torch, tr):
     untraced_ms = (time.perf_counter() - t0) * 1e3 / max(untraced, 1)
     # CUDA activity only: every device op of the trace lies in this window,
     # which starts and ends with a synchronise
-    TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        cuda_only = tr.train_window(k_max)
-        torch.cuda.synchronize()
-        cuda_only_us = (time.perf_counter() - t0) * 1e6
-    prof.export_chrome_trace(str(TRACE_DIR / "trace_cuda_only.json"))
-    _, cuda_busy = _device_spans(
-        json.loads((TRACE_DIR / "trace_cuda_only.json").read_text())["traceEvents"])
-    cuda_busy_us = sum(b - a for a, b in cuda_busy)
+    cuda_only_us, cuda_busy_us, cuda_only = _cuda_only_window(
+        torch, lambda: tr.train_window(k_max), "cuda_only")
     with trace(TRACE_DIR) as log_dir:
         with record_function("train_window"):
             took = tr.train_window(k_max)
@@ -3221,11 +3471,47 @@ def trace_phase(torch, tr):
             "trace_file": str(Path(log_dir) / "trace.json")}
     emit(line)
     steps = untraced + cuda_only + took
-    if (min(untraced, cuda_only, took) <= 0 or not cuda_busy
+    if (min(untraced, cuda_only, took) <= 0 or not cuda_busy_us
             or not _only(counted, {"composite_seg_fwd": steps, "composite_seg_bwd": steps})):
         raise RuntimeError(f"trace: train_window took {untraced}, {cuda_only}, {took} steps, "
                            f"launched {counted}")
-    return counted
+
+    from omnigs_torch.train.trainer import Trainer
+
+    def plain_step():
+        while (step_tr.iteration + 1) % DENSIFY_EVERY == 0:
+            step_tr.train_iteration()  # a densify step: not measured
+        torch.cuda.synchronize()
+
+    reset_launches()
+    step_tr = Trainer(make_scene(), train_config(), seed=SEED, device="cuda")
+    step_tr.init_from_sfm()
+    step_tr.iteration = TRAIN_START
+    for _ in range(TRAIN_ITERS):
+        step_tr.train_iteration()
+    windows = {}
+    for name, fn, before in (("render_request", request, lambda: None),
+                             ("train_step", step_tr.train_iteration, plain_step)):
+        before()
+        fn()  # warm
+        before()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        untraced_ms = (time.perf_counter() - t0) * 1e3
+        before()
+        host_us, busy_us, _ = _cuda_only_window(torch, fn, name)
+        windows[name] = {"untraced_ms": untraced_ms, "ms": host_us / 1e3,
+                         "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / host_us,
+                         "device_idle_share": 1.0 - busy_us / host_us}
+    extra = read_launches()
+    emit({"phase": "trace_request_step", **windows, "launches": extra,
+          "step_iteration": step_tr.iteration, "step_capacity": step_tr.model.capacity})
+    if (not all(w["device_busy_ms"] > 0 for w in windows.values())
+            or not extra["composite_seg_fwd"] or not extra["composite_seg_bwd"]):
+        raise RuntimeError(f"trace: request and step windows {windows}, launched {extra}")
+    return {k: counted[k] + extra[k] for k in counted}
 
 
 def examples_phase(torch, np):
@@ -3737,6 +4023,7 @@ def main() -> int:
     from omnigs_torch import cuda_build
     from omnigs_torch.cameras import Camera, CameraType
     from omnigs_torch.config import load_config, raster_config_from
+    from omnigs_torch.train.renderer import render_model
 
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
@@ -3826,12 +4113,19 @@ def main() -> int:
     abl, ablate_slab = ablate_phase(torch)
     ablate_compare_phase(torch, abl, ablate_slab)
     del ablate_slab
+    # the measurement layer: the JAX package's measurement scripts and the
+    # roofline of the render model's step
+    bench_launches = kernel_bench_phase(torch)
+    bin_bench_phase(torch, model, camera, pose_list[0], cfg)
+    subtile_launches = subtile_phase(torch)
+    roof_launches = roofline_phase(torch, model, camera)
     card_test_phase(torch)
 
     # the training CLI path: the pinned scene, the quality gate, full width
     scene, synth_launches = scene_synth_phase(torch)
     quality_launches = quality_phase(torch, scene)
     full_launches, full_synth_launches = cli_full_phase(torch)
+    conv_launches = converged_phase(torch)
     cli_launches = {k: quality_launches[k] + full_launches[k] for k in quality_launches}
 
     # the remaining single-device entry points: the pinhole camera, the
@@ -3843,7 +4137,15 @@ def main() -> int:
     pyramid_launches = pyramid_phase(torch)
     viewer_launches = viewer_phase(torch, np, model)
     live_tr, live_launches = live_viewer_phase(torch)
-    trace_launches = trace_phase(torch, live_tr)
+    vm0, campos0 = pose_list[0]
+
+    def request():
+        with torch.inference_mode():
+            return render_model(model, camera, vm0, campos0, torch.zeros(3, device="cuda"),
+                                SH_DEGREE, cfg)
+
+    trace_launches = trace_phase(torch, live_tr, request,
+                                 lambda: train_scene(torch, np, model, camera, pose_list, cfg))
     del live_tr
     cloud_launches = examples_phase(torch, np)
     more_fwd = (pinhole_launches["composite_seg_fwd"] + pyramid_launches["composite_seg_fwd"]
@@ -3853,6 +4155,10 @@ def main() -> int:
     # the multi-device path: the (1, 1) trainer, both gloo ranks' renders,
     # steps and trainer iterations, the scaling harness
     multi = {k: par_launches[k] + pair_launches[k] + scaling_launches[k] for k in par_launches}
+    # the measurement layer: kernel_bench (#1-#5), subtile_analysis (#3),
+    # the roofline's steps and converged_bench (#1, #2)
+    measure = {k: bench_launches[k] + subtile_launches[k] + roof_launches[k] + conv_launches[k]
+               for k in bench_launches}
 
     emit({"kernels": [
         {
@@ -3866,7 +4172,7 @@ def main() -> int:
             # cli_full: training steps and eval renders)
             "launches": render_launches + train_launches["composite_seg_fwd"]
             + fallback_launches["segmented"] + cli_launches["composite_seg_fwd"] + more_fwd
-            + multi["composite_seg_fwd"],
+            + multi["composite_seg_fwd"] + measure["composite_seg_fwd"],
             "launches_parallel": par_launches["composite_seg_fwd"],
             "launches_parallel_pair": pair_launches["composite_seg_fwd"],
             "launches_scaling": scaling_launches["composite_seg_fwd"],
@@ -3880,6 +4186,9 @@ def main() -> int:
             "launches_pyramid": pyramid_launches["composite_seg_fwd"],
             "launches_live_viewer": live_launches["composite_seg_fwd"],
             "launches_trace": trace_launches["composite_seg_fwd"],
+            "launches_kernel_bench": bench_launches["composite_seg_fwd"],
+            "launches_roofline": roof_launches["composite_seg_fwd"],
+            "launches_converged": conv_launches["composite_seg_fwd"],
             "max_abs_err": kres["max_abs_err"],
             "ms": kres["kernel_ms"],
             "plain_ms": kres["plain_ms"],
@@ -3895,7 +4204,8 @@ def main() -> int:
             "replaces": "omnigs_tpu/ops/pallas_seg.py:400",
             "tpu_kernel": "omnigs_tpu/ops/pallas_seg.py::_bwd_seg_kernel",
             "launches": train_launches["composite_seg_bwd"]
-            + cli_launches["composite_seg_bwd"] + more_bwd + multi["composite_seg_bwd"],
+            + cli_launches["composite_seg_bwd"] + more_bwd + multi["composite_seg_bwd"]
+            + measure["composite_seg_bwd"],
             "launches_parallel": par_launches["composite_seg_bwd"],
             "launches_parallel_pair": pair_launches["composite_seg_bwd"],
             "launches_scaling": scaling_launches["composite_seg_bwd"],
@@ -3905,6 +4215,9 @@ def main() -> int:
             "launches_pyramid": pyramid_launches["composite_seg_bwd"],
             "launches_live_viewer": live_launches["composite_seg_bwd"],
             "launches_trace": trace_launches["composite_seg_bwd"],
+            "launches_kernel_bench": bench_launches["composite_seg_bwd"],
+            "launches_roofline": roof_launches["composite_seg_bwd"],
+            "launches_converged": conv_launches["composite_seg_bwd"],
             "max_abs_err": gres["max_abs_err"],
             "max_rel_err": gres["max_rel_err"],
             "ms": gres["kernel_ms"],
@@ -3928,7 +4241,7 @@ def main() -> int:
             + fused_launches["composite_tile_fwd"] + ghost_launches
             + fallback_launches["tile"] + synth_launches["composite_tile_fwd"]
             + full_synth_launches["composite_tile_fwd"] + viewer_launches + cloud_launches
-            + multi["composite_tile_fwd"],
+            + multi["composite_tile_fwd"] + measure["composite_tile_fwd"],
             # the gloo ranks' tile-major sharded renders
             "launches_parallel_pair": pair_launches["composite_tile_fwd"],
             # view_result's eight requests and simple_cloud's render
@@ -3941,6 +4254,8 @@ def main() -> int:
             "launches_fused_step": fused_launches["composite_tile_fwd"],
             "launches_ghost": ghost_launches,
             "launches_fallback": fallback_launches["tile"],
+            "launches_kernel_bench": bench_launches["composite_tile_fwd"],
+            "launches_subtile": subtile_launches["composite_tile_fwd"],
             "max_abs_err": tk["max_abs_err"],
             "ms": tk["kernel_ms"],
             "plain_ms": tk["plain_ms"],
@@ -3954,9 +4269,11 @@ def main() -> int:
             "source": "omnigs_torch/csrc/composite_tile_bwd.cu",
             "replaces": "omnigs_tpu/ops/pallas_raster.py:313",
             "tpu_kernel": "omnigs_tpu/ops/pallas_raster.py::_bwd_kernel",
-            # tile-major training (6 iterations) and the ghost-aligned step
+            # tile-major training (6 iterations), the ghost-aligned step and
+            # kernel_bench
             "launches": tile_train_launches["composite_tile_bwd"]
-            + ghost_step["launches"]["composite_tile_bwd"],
+            + ghost_step["launches"]["composite_tile_bwd"] + measure["composite_tile_bwd"],
+            "launches_kernel_bench": bench_launches["composite_tile_bwd"],
             "max_abs_err": tg["max_abs_err"],
             "max_rel_err": tg["max_rel_err"],
             "ms": tg["kernel_ms"],
@@ -3971,8 +4288,11 @@ def main() -> int:
             "source": "omnigs_torch/csrc/composite_tile_bwd.cu",
             "replaces": "omnigs_tpu/ops/pallas_raster.py:573",
             "tpu_kernel": "omnigs_tpu/ops/pallas_raster.py::_bwd_kernel_fused",
-            # the opt-in route (fused_reduce=True, P ≤ 163,840): one step
-            "launches": fused_launches["composite_tile_bwd_fused"],
+            # the opt-in route (fused_reduce=True, P ≤ 163,840): one step;
+            # and kernel_bench
+            "launches": fused_launches["composite_tile_bwd_fused"]
+            + measure["composite_tile_bwd_fused"],
+            "launches_kernel_bench": bench_launches["composite_tile_bwd_fused"],
             "max_abs_err": tg["fused"]["max_abs_err"],
             "tol_ratio": tg["fused"]["vs_plain_tol_ratio"],
             "ms": tg["fused"]["kernel_ms"],

@@ -23,7 +23,8 @@ those are sequential per pixel, so it only adds conversions.
 
 It runs on the ghost-aligned slab of one pose at lonlat 1920×960: P = 2^17
 Gaussians of the JAX package's example model (`__graft_entry__.py`'s
-`_example_model`, drawn here from a seeded `torch.Generator`), the view
+`_example_model`, drawn here from a seeded `torch.Generator` by
+`example.example_model`), the view
 matrix the identity, SH degree 3, tight culling; `bin_instances_aligned`
 with tile culling at R = 2^21, tiles trimmed to a 7·2^18 slab, and
 `composite_tile._build_inst`. It prints ms per mode, and the max |Δ|
@@ -46,13 +47,13 @@ import torch
 
 from omnigs_torch import cuda_build
 from omnigs_torch.cameras import Camera, CameraType
-from omnigs_torch.model.gaussians import GaussianModel
 from omnigs_torch.ops import composite_tile as ct
 from omnigs_torch.ops.binning import bin_instances_aligned
 from omnigs_torch.ops.composite_seg import (
     ALPHA_MAX, ALPHA_MIN, FWD_STRIP, PX, T_STOP, TILE, _warp_bits,
 )
-from omnigs_torch.ops.preprocess import preprocess, tile_grid
+from omnigs_torch.ops.preprocess import tile_grid
+from omnigs_torch.scripts.example import example_model, preprocess_model
 from omnigs_torch.utils.profiling import mean_ms
 
 MODES = ("dma", "alpha", "notrans", "nocumsum", "lowprec", "full")
@@ -205,28 +206,6 @@ def kernel_ablate(mode, inst_T, starts, counts, x0, y0) -> torch.Tensor:
 kernel_ablate.launches = 0
 
 
-def example_model(n: int, device, seed: int = 0) -> GaussianModel:
-    """``__graft_entry__._example_model(capacity=n, n=n)``'s distribution:
-    unit directions at radius 1–5, log-scales N(−3.5, 0.3), rotations and
-    opacity logits N(0, 1), dc N(0, 0.5), no higher SH coefficients."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-
-    def normal(*shape):
-        return torch.randn(*shape, generator=gen, device=device)
-
-    m = GaussianModel.empty(n, device=device)
-    d = normal(n, 3)
-    d = d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + 1e-9)
-    with torch.no_grad():
-        m.xyz.copy_(d * (1.0 + torch.rand(n, 1, generator=gen, device=device) * 4.0))
-        m.scaling.copy_(normal(n, 3) * 0.3 - 3.5)
-        m.rotation.copy_(normal(n, 4))
-        m.opacity.copy_(normal(n, 1))
-        m.features_dc.copy_(normal(n, 1, 3) * 0.5)
-    m.active.fill_(True)
-    return m
-
-
 def build_slab(device, width=1920, height=960, gaussians=1 << 17,
                max_instances=1 << 21, cap=7 << 18, seed=0) -> dict:
     """The aligned slab of the script's pose: preprocess, ghost-aligned
@@ -234,13 +213,8 @@ def build_slab(device, width=1920, height=960, gaussians=1 << 17,
     crosses ``cap`` (their counts zeroed) and the full slab gather."""
     camera = Camera(CameraType.LONLAT, width, height)
     gx, gy = tile_grid(camera)
-    m = example_model(gaussians, device, seed)
+    prep = preprocess_model(example_model(gaussians, device, seed), camera)
     with torch.no_grad():
-        prep = preprocess(
-            m.xyz, m.get_scaling(), m.get_rotation(), m.get_opacity(),
-            m.get_features(), camera, torch.eye(4, device=device),
-            torch.zeros(3, device=device), 3, 1.0, tight_culling=True,
-        )
         inst = bin_instances_aligned(prep, gx, gy, max_instances, CHUNK, tile_cull=True)
         padded = (inst.counts + CHUNK - 1) // CHUNK * CHUNK
         fits = inst.starts + padded <= cap

@@ -3,7 +3,7 @@
 
 The port's copy of `scripts/scaling_bench.py`: the same arguments and the
 same production config (the segmented kernels, packed binning, the
-retuned caps), on the model of `kernel_ablate.example_model` (P Gaussians,
+retuned caps), on the model of `example.example_model` (P Gaussians,
 all active). First the unsharded `train_step` on one device, then
 `parallel/shard.sharded_train_step` per mesh at the same config and loss,
 so the 1x1 mesh's ratio to the unsharded step is the shard tax (what the
@@ -34,7 +34,7 @@ from omnigs_torch.cameras import Camera, CameraType
 from omnigs_torch.model import optimizer as opt_ops
 from omnigs_torch.model.gaussians import FIELD_NAMES, GaussianModel
 from omnigs_torch.ops.rasterize import RasterConfig
-from omnigs_torch.scripts.kernel_ablate import example_model
+from omnigs_torch.scripts.example import example_model
 
 # the production config on both sides, so the 1x1 mesh measures the
 # sharding alone

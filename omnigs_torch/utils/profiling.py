@@ -6,7 +6,10 @@ Counterpart of the first half of `omnigs_tpu/utils/profiling.py`:
   when the device is a CUDA card (PyTorch returns before the card
   finishes, so an unsynchronised span measures the enqueue).
 * `mean_ms` — the mean time of repeated calls: CUDA events on a card
-  (device time of back-to-back calls), the host clock on the CPU.
+  (device time of back-to-back calls), the host clock on the CPU;
+  `stage_ms` adds what the events measured: the card's time, or the
+  host's launch gaps or waits too, and then `device_busy_ms`, the card's
+  busy time from a profiler that records CUDA activity only.
 * `device_peak_memory_mb` / `PeakMemoryTracker` — peak and current device
   memory from `torch.cuda`'s allocator statistics. A CPU device has none:
   the dict is empty.
@@ -15,12 +18,19 @@ Counterpart of the first half of `omnigs_tpu/utils/profiling.py`:
   `GpuPeakUsageMB.txt`).
 * `trace` — a `torch.profiler` capture of a block (host and, on a card,
   device activity) written as a Chrome trace.
+* `roofline_report` — pixels/s of a full forward + backward step against
+  the floor of an H100 for the same work (the JAX function with the card's
+  peaks and the port's per-pair operation and per-instance byte counts,
+  which the kernel bounds of `chip_smoke.py` share).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import math
 import time
+import warnings
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -47,23 +57,21 @@ def step_timer(results: Dict[str, float], key: str, device=None):
 # warm-up and timed calls meanwhile, so that calls shorter than their own
 # launch overhead still run back to back on the device
 QUEUE_AHEAD_CYCLES = 10_000_000
+# the host clock's milliseconds that QUEUE_AHEAD_CYCLES hold the card for,
+# at the H100's ~2 GHz; `stage_ms` scales its second hold from it
+QUEUE_AHEAD_MS = 5.0
+# the largest multiple of QUEUE_AHEAD_CYCLES that `stage_ms` holds for (~1 s)
+QUEUE_AHEAD_MAX = 200
 
 
-def mean_ms(fn, device, reps: int = 10, warmup: int = 2) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` calls after ``warmup``:
-    CUDA events around the calls on a CUDA ``device``, the host clock
-    otherwise. On a card the stream is first held busy (``torch.cuda._sleep``)
-    while the host enqueues every call, so the events measure the calls'
-    device time without the host's launch gaps, as long as the host
-    enqueues them within that time."""
-    if torch.device(device).type != "cuda":
-        for _ in range(warmup):
-            fn()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
-    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+def _event_ms(fn, device, reps: int, warmup: int, cycles: int):
+    """CUDA-event mean milliseconds of ``fn()`` over ``reps`` calls after
+    ``warmup``, the stream first held busy for ``cycles`` → (ms, host ms
+    to enqueue the warm-up and timed calls, queued): ``queued`` when the
+    card had not reached the timed calls once the host had enqueued them
+    all, so that the card never waited for the host between the events."""
+    torch.cuda._sleep(cycles)
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -72,8 +80,97 @@ def mean_ms(fn, device, reps: int = 10, warmup: int = 2) -> float:
     for _ in range(reps):
         fn()
     end.record()
+    queued = not start.query()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host_ms, queued
+
+
+def mean_ms(fn, device, reps: int = 10, warmup: int = 2) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` calls after ``warmup``:
+    CUDA events around the calls on a CUDA ``device``, the host clock
+    otherwise. On a card the stream is first held busy (``torch.cuda._sleep``)
+    while the host enqueues every call, so the events measure the calls'
+    device time without the host's launch gaps, as long as the host
+    enqueues them within that time (`stage_ms` checks that it did)."""
+    if torch.device(device).type != "cuda":
+        for _ in range(warmup):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    return _event_ms(fn, device, reps, warmup, QUEUE_AHEAD_CYCLES)[0]
+
+
+def stage_ms(fn, device, reps: int = 20, warmup: int = 2):
+    """(mean milliseconds of ``fn()`` over ``reps`` calls after ``warmup``,
+    what they measure, the card's busy milliseconds a call or None) on a
+    CUDA ``device``, as `mean_ms` times them:
+
+    * ``"device"``: the card had not reached the timed calls when the host
+      had enqueued them all, so the events read the card's time alone;
+    * ``"launch"``: the card reached them earlier, so the events may hold
+      the host's launch gaps, even after a second, longer hold of the
+      stream sized from the first run's enqueue time; the third value is
+      then `device_busy_ms` of the same calls, which holds none;
+    * ``"host"``: a call makes the host wait for the card (PyTorch's sync
+      debug mode warns at every such wait): the calls cannot queue ahead
+      and the events hold the host's gaps. Always so on any other device,
+      where the host clock times the calls."""
+    if torch.device(device).type != "cuda":
+        return mean_ms(fn, device, reps=reps, warmup=warmup), "host", None
+    torch.cuda.synchronize(device)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    if any("synchroniz" in str(w.message) for w in caught):
+        return mean_ms(fn, device, reps=reps, warmup=warmup), "host", None
+    ms, host_ms, queued = _event_ms(fn, device, reps, warmup, QUEUE_AHEAD_CYCLES)
+    if not queued:
+        scale = min(QUEUE_AHEAD_MAX, math.ceil(2.0 * host_ms / QUEUE_AHEAD_MS))
+        ms, _, queued = _event_ms(fn, device, reps, warmup, QUEUE_AHEAD_CYCLES * scale)
+    if queued:
+        return ms, "device", None
+    return ms, "launch", device_busy_ms(fn, device, reps=reps, warmup=warmup)
+
+
+def device_busy_ms(fn, device, reps: int = 20, warmup: int = 2) -> float:
+    """Milliseconds a call of ``fn()`` keeps a CUDA ``device`` busy: the
+    union of the device ops' spans (kernels, copies, fills) in a Chrome
+    trace of ``reps`` calls after ``warmup`` under a profiler that records
+    CUDA activity only, over ``reps``. The host's gaps between the ops do
+    not count. The trace is written to `TRACE_DIR`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / "device_busy.json"
+    prof.export_chrome_trace(str(path))
+    return device_busy_us(json.loads(path.read_text())["traceEvents"]) / 1e3 / reps
+
+
+def device_busy_us(events) -> float:
+    """Microseconds of the union of the device ops' spans (kernels, copies,
+    fills) among the events of a Chrome trace."""
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy_us, reached = 0.0, float("-inf")
+    for a, b in spans:
+        if b > reached:
+            busy_us += b - max(a, reached)
+            reached = b
+    return busy_us
 
 
 def device_peak_memory_mb(device: Optional[torch.device] = None) -> Dict[str, float]:
@@ -136,6 +233,10 @@ def write_peak_memory(result_dir: Path, tracker: Optional[PeakMemoryTracker] = N
     (Path(result_dir) / "DevicePeakUsageMB.txt").write_text("\n".join(lines) + "\n")
 
 
+# the checkout's directory for traces
+TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "omnigs_trace"
+
+
 @contextlib.contextmanager
 def trace(log_dir=None):
     """Profile the enclosed block with `torch.profiler` (CPU activity, and
@@ -149,9 +250,84 @@ def trace(log_dir=None):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     if log_dir is None:
-        log_dir = Path(__file__).resolve().parents[2] / "build" / "omnigs_trace"
+        log_dir = TRACE_DIR
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
     with profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+# NVIDIA H100 SXM published peaks (dense): float32 outside the tensor cores,
+# HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# fp32 operations per pixel-instance pair in the forward kernel: every
+# visited pair (dx, dy, quadratic form, clamp, exp, opacity, clamp, two
+# tests) and every live pair on top (log1p, exp of the log-T, test, weight,
+# 3 color multiply-adds, 2 log sums); a transcendental counts as one
+OPS_PER_VISITED_PAIR = 17
+OPS_PER_LIVE_PAIR = 13
+# the backward kernel: the forward's 17 per visited pair; per live
+# (contributing) pair log1p, exp, the stop test (3), weight, u (5), the w·u
+# prefix (2), dL·B, dL/dα (3, one division), V, the nine partials (10) and
+# the log-T sum = 30, plus ~9 adds of the nine pixel reductions = 39; per
+# instance the eight warp partials of nine rows (63 adds) and the row
+# combination (9)
+BWD_OPS_PER_LIVE_PAIR = 39
+BWD_OPS_PER_INSTANCE = 72
+# the tile-major forward: one integer move per composited pair for n_contrib
+TILE_NC_OPS_PER_LIVE_PAIR = 1
+# the fused backward: nine atomic adds per instance
+FUSED_OPS_PER_INSTANCE = 9
+
+# The roofline charges every pair of a tile's instances and pixels as
+# visited and live (the kernel bounds count both from the data; a pair
+# that is visited but not live, or never visited, makes the floor lower
+# there): forward 17 + 13, backward 17 + 39 per pair.
+INTRINSIC_OPS_PER_PAIR_FWD = OPS_PER_VISITED_PAIR + OPS_PER_LIVE_PAIR
+INTRINSIC_OPS_PER_PAIR_BWD = OPS_PER_VISITED_PAIR + BWD_OPS_PER_LIVE_PAIR
+INTRINSIC_OPS_PER_PAIR_FWDBWD = INTRINSIC_OPS_PER_PAIR_FWD + INTRINSIC_OPS_PER_PAIR_BWD
+# Device memory traffic per composited instance across one forward +
+# backward step, each byte counted once where it must move: the slab build
+# reads the instance's id and writes its nine f32 rows (x, y, A, B, C,
+# opacity, r, g, b: 4 + 36); the forward reads the nine rows (36); the
+# backward reads them and writes nine f32 gradient rows (36 + 36); the
+# reduction reads the gradient rows and the id (36 + 4); binning writes the
+# packed int64 sort key, the sort reads it and writes it sorted, the relay
+# reads it and writes the slab's int32 id (8 + 8 + 8 + 8 + 4):
+# 40 + 36 + 72 + 40 + 36 = 224 B.
+BYTES_PER_INSTANCE_FWDBWD = 224.0
+PIXELS_PER_TILE = 256
+
+
+def roofline_report(
+    pixels: int,
+    seconds: float,
+    mean_instances_per_tile: float,
+    num_instances: Optional[int] = None,
+) -> Dict[str, float]:
+    """Measured pixels/s of a full forward + backward step of ``seconds``
+    against the floor of the card for its work, summed over the two limits
+    (the stages are serial), as `omnigs_tpu.utils.profiling.roofline_report`
+    does with a TPU's:
+
+      ops_s = pixels · depth · INTRINSIC_OPS_PER_PAIR_FWDBWD / PEAK_F32_FLOPS
+      mem_s = num_instances · BYTES_PER_INSTANCE_FWDBWD / PEAK_BYTES_PER_S
+
+    ``depth`` = mean composited instances per tile = pairs per pixel;
+    ``num_instances`` defaults to pixels · depth / 256 (pixels per tile).
+    Returns ``achieved_px_s``, ``roofline_px_s`` and
+    ``fraction_of_roofline`` (≤ 1 unless the counts are wrong)."""
+    depth = mean_instances_per_tile
+    ops_s = pixels * depth * INTRINSIC_OPS_PER_PAIR_FWDBWD / PEAK_F32_FLOPS
+    if num_instances is None:
+        num_instances = pixels * depth / PIXELS_PER_TILE
+    mem_s = num_instances * BYTES_PER_INSTANCE_FWDBWD / PEAK_BYTES_PER_S
+    achieved = pixels / seconds
+    bound = pixels / (ops_s + mem_s)
+    return {
+        "achieved_px_s": achieved,
+        "roofline_px_s": bound,
+        "fraction_of_roofline": achieved / bound,
+    }

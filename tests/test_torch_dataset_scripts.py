@@ -164,8 +164,9 @@ def test_pool_bench_pools_agree(tmp_path):
 
 
 def test_slice_modules_import_no_jax():
-    """The multi-device modules, the point ops and the scripts import and
-    run with ``jax`` and the JAX package unimportable."""
+    """The multi-device modules, the point ops, the scripts and the
+    measurement layer import and run with ``jax`` and the JAX package
+    unimportable."""
     script = (
         "import sys\n"
         "class Block:\n"
@@ -180,6 +181,11 @@ def test_slice_modules_import_no_jax():
         "from omnigs_torch.ops import stereo, loss\n"
         "from omnigs_torch.scripts import dataset_to_openmvg, pool_bench, run_benchmark, scaling_bench\n"
         "from omnigs_torch.io import native_loader\n"
+        "from omnigs_torch.scripts import (bin_bench, converged_bench, example, kernel_bench,\n"
+        "                                  subtile_analysis)\n"
+        "from omnigs_torch.utils.profiling import roofline_report\n"
+        "assert 0.0 < roofline_report(1920 * 960, 0.03, 142.7)['fraction_of_roofline'] < 1.0\n"
+        "bin_bench.run('cpu', 64, 32, 32, 1 << 10)\n"
         "distributed.initialize()  # one process, no init_method: a no-op\n"
         "assert not torch.distributed.is_initialized()\n"
         "a = torch.rand(3, 32, 48, generator=torch.Generator().manual_seed(0))\n"
