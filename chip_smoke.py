@@ -203,6 +203,18 @@ script exits non-zero:
    repository holds no 32,010-iteration checkpoint): its JSON line,
    nothing truncated, #1 / #2 once a step, the last step's gradients
    within the gradient bar of a plain-#1/#2 step.
+21b. window_graph — the one-program training window (`train_window`: one
+   step captured as a CUDA graph, replayed once a step) for two Trainers,
+   the train phase's (capacity 524,288, 1920×960, SH 3, iterations
+   3001–3024, densify every 1000) and one on cli_full's scene and YAML
+   (iterations 1–24): no synchronizing CUDA call in an iteration (PyTorch's
+   sync debug mode); from one state, a 24-step window `torch.equal` to 24
+   eager `train_iteration`s on every model field, Adam moment and count,
+   the losses and the overflow / truncated totals, with one capture, 24
+   replays and #1 / #2 counted once a replay and once a warm-up step; ms a
+   step of both in turns, capture and warm-up ms, the graph pool's MB, and
+   under `profiling.trace` the card's busy share, kernels, host launch
+   calls and graph launches a step of a window and of 24 eager iterations.
 22. pinhole — the render model through a distorted pinhole camera
    (1920×1080, f = 1200, k1 = 0.3, k2 = 0.05) from the four request poses,
    `full_proj` from a `Keyframe`, the production segmented config: host ms,
@@ -226,11 +238,13 @@ script exits non-zero:
    launch; host ms per request, render and encode timed apart; the first
    color frame within JPEG error of `render_model` (PSNR ≥ 30 dB).
 26. live_viewer — `start_live_viewer` on a full-width Trainer of that
-   scene: 210 iterations (across the densify at 200) while a client thread
+   scene: 210 iterations in graph windows of 24 (single iterations at the
+   events, the densify at 200 among them) while a client thread
    requests frames, POST /params changing lambda_dssim at iteration 100;
    then the same run without the viewer: every parameter and Adam moment
    `torch.equal`; frames served and their host ms.
-27. trace — one `train_window` of that Trainer under `profiling.trace`:
+27. trace — one `train_window` (graph replays) of that Trainer under
+   `profiling.trace`:
    from the Chrome trace, the device busy share of the window, kernels and
    launch calls per step, the five longest device ops and idle gaps. Then
    `trace_request_step`: under the same CUDA-only profiler, the device
@@ -3273,10 +3287,11 @@ def viewer_phase(torch, np, model):
 
 
 def _live_run(torch, attach):
-    """A Trainer on cli_full's scene, LIVE_ITERS single iterations with
-    lambda_dssim set to 0.3 before iteration LIVE_PARAMS_AT + 1: through
-    the live viewer's POST /params while a client thread requests frames
-    (``attach``), or directly."""
+    """A Trainer on cli_full's scene, LIVE_ITERS iterations in windows of
+    up to ``Tpu.fuse_steps`` (graph replays; single iterations at events)
+    with lambda_dssim set to 0.3 before iteration LIVE_PARAMS_AT + 1:
+    through the live viewer's POST /params while a client thread requests
+    frames (``attach``), or directly."""
     import threading
 
     from omnigs_torch.config import load_config
@@ -3309,13 +3324,15 @@ def _live_run(torch, attach):
         client.start()
     t0 = time.perf_counter()
     try:
-        for _ in range(LIVE_ITERS):
+        while tr.iteration < LIVE_ITERS:
             if tr.iteration == LIVE_PARAMS_AT:
                 if attach:
                     _post(port, "/params", {"lambda_dssim": 0.3})
                 else:
                     tr.set_variable_parameters({"lambda_dssim": 0.3})
-            tr.train_iteration()
+            end = LIVE_PARAMS_AT if tr.iteration < LIVE_PARAMS_AT else LIVE_ITERS
+            if not tr.train_window(min(cfg.tpu.fuse_steps, end - tr.iteration)):
+                tr.train_iteration()
         torch.cuda.synchronize()
     finally:
         stop.set()
@@ -3327,9 +3344,10 @@ def _live_run(torch, attach):
 
 def live_viewer_phase(torch):
     """The live viewer attached to a full-width Trainer for 210 iterations
-    (across the densify at 200) while a client requests frames, ``/params``
-    reaching the trainer; then the same run without the viewer: every
-    parameter and Adam moment `torch.equal`."""
+    in graph windows (across the densify at 200) while a client requests
+    frames, ``/params`` reaching the trainer (its λ captured again); then
+    the same run without the viewer: every parameter and Adam moment
+    `torch.equal`."""
     tr, ms_live, frames, launches = _live_run(torch, True)
     lam = tr.get_variable_parameters()["lambda_dssim"]
     live_state = _trainer_state(torch, tr)
@@ -3413,9 +3431,12 @@ def trace_phase(torch, tr, request, make_scene):
 
     from omnigs_torch.utils.profiling import trace
 
+    from omnigs_torch.train.trainer import WARMUP_STEPS
+
     k_max = tr.config.tpu.fuse_steps
     tr.train_iteration()  # past the densify at 200: a window can start
     torch.cuda.synchronize()
+    captures = tr.step_graph.captures
     reset_launches()
     # the same length of window untraced, for the profiler's overhead
     t0 = time.perf_counter()
@@ -3470,7 +3491,8 @@ def trace_phase(torch, tr, request, make_scene):
             "longest_idle_gaps": [{"us": g, "at_us": at} for g, at in sorted(gaps)[::-1][:5]],
             "trace_file": str(Path(log_dir) / "trace.json")}
     emit(line)
-    steps = untraced + cuda_only + took
+    # the windows' graph replays, and the warm-up steps of a capture
+    steps = untraced + cuda_only + took + WARMUP_STEPS * (tr.step_graph.captures - captures)
     if (min(untraced, cuda_only, took) <= 0 or not cuda_busy_us
             or not _only(counted, {"composite_seg_fwd": steps, "composite_seg_bwd": steps})):
         raise RuntimeError(f"trace: train_window took {untraced}, {cuda_only}, {took} steps, "
@@ -3512,6 +3534,216 @@ def trace_phase(torch, tr, request, make_scene):
             or not extra["composite_seg_fwd"] or not extra["composite_seg_bwd"]):
         raise RuntimeError(f"trace: request and step windows {windows}, launched {extra}")
     return {k: counted[k] + extra[k] for k in counted}
+
+
+# the window_graph phase: Tpu.fuse_steps of the YAMLs
+WINDOW_STEPS = 24
+
+
+def _sync_points(torch, fn):
+    """``fn()`` under PyTorch's sync debug mode → each synchronizing CUDA
+    call it made (the host waited for the card, or a pageable copy), with
+    the innermost three frames of the port's code that led to it."""
+    import traceback
+    import warnings
+
+    found = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" not in str(message):
+            return  # the mode's notice that it is a prototype
+        frames = [f for f in traceback.extract_stack()[:-1] if "omnigs_torch" in f.filename]
+        found.append({"warning": str(message)[:100],
+                      "at": [f"{Path(f.filename).relative_to(REPO)}:{f.lineno}"
+                             for f in frames[-3:]]})
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return found
+
+
+def _window_state(torch, tr):
+    """Every model field (parameters, statistics), Adam moment and count."""
+    from omnigs_torch.model.gaussians import FIELD_NAMES
+
+    out = _trainer_state(torch, tr)
+    for k in FIELD_NAMES:
+        out[f"model/{k}"] = getattr(tr.model, k).detach().clone()
+    return out
+
+
+def _pending(torch, tr):
+    """The queued losses in order and the overflow / truncated totals; the
+    queue emptied."""
+    pend, tr._pending_losses = tr._pending_losses, []
+    losses = torch.cat([x.reshape(-1) for x, _, _ in pend])
+    return losses, [int(sum(int(p[i]) for p in pend)) for i in (1, 2)]
+
+
+def _traced_steps(torch, fn, name, steps):
+    """``fn()`` (``steps`` steps, ending in a synchronise) in a
+    `record_function` span under `profiling.trace` → the span's host ms a
+    step, the card's busy share of it, device kernels, host launch calls
+    (kernel and graph launches) and graph launches a step."""
+    from torch.profiler import record_function
+
+    from omnigs_torch.utils.profiling import trace
+
+    torch.cuda.synchronize()
+    with trace(TRACE_DIR / f"window_graph_{name}") as log_dir:
+        with record_function(name):
+            fn()
+            torch.cuda.synchronize()
+    events = json.loads((Path(log_dir) / "trace.json").read_text())["traceEvents"]
+    (win,) = [e for e in events if e.get("name") == name and e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"]
+    lo, hi = float(win["ts"]), float(win["ts"]) + float(win["dur"])
+    dev, busy = _device_spans(events, lo, hi)
+    busy_us = sum(b - a for a, b in busy)
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"
+               and lo <= float(e.get("ts", -1)) <= hi]
+    launch = [e for e in runtime if "Launch" in str(e.get("name", ""))]
+    graph = [e for e in launch if "Graph" in str(e.get("name", ""))]
+    return {"ms_per_step": (hi - lo) / 1e3 / steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_busy_share": busy_us / (hi - lo),
+            "kernels_per_step": sum(e.get("cat") == "kernel" for e in dev) / steps,
+            "launch_calls_per_step": len(launch) / steps,
+            "graph_launches_per_step": len(graph) / steps}
+
+
+def window_graph_phase(torch, np, make_train_scene):
+    """The one-program window on the card for two Trainers: the train
+    phase's (capacity 524,288, 1920×960, SH 3, iterations 3001–3024; densify
+    every 1000, so no event lies in the window) and cli_full's (its scene
+    and synthetic_fullres.yaml, iterations 1–24). For each, from one state
+    (a checkpoint, the sampler's and densify's random states, the
+    keyframes' charges): an eager iteration and one under PyTorch's sync
+    debug mode (no synchronizing call may be found), then back to that
+    state; 24 eager `train_iteration`s; back to that state; one 24-step
+    `train_window` (a capture and 24 graph replays), which must equal the
+    eager run `torch.equal` on every model field, Adam moment and count,
+    the 24 losses and the overflow / truncated totals, with #1 and #2
+    launched once a replay and once a warm-up step. Then in turns a graph
+    window and 24 eager iterations for ms a step, and each again under
+    `profiling.trace` for the card's busy share, kernels and host launch
+    calls a step. Returns the launches of the windows and iterations."""
+    from omnigs_torch.config import load_config
+    from omnigs_torch.io.openmvg import load_openmvg_scene
+    from omnigs_torch.train.trainer import WARMUP_STEPS, Trainer
+
+    def train_trainer():
+        cfg = train_config()
+        cfg.opt.densification_interval = 1000
+        tr = Trainer(make_train_scene(), cfg, seed=SEED, device="cuda")
+        tr.init_from_sfm()
+        tr.iteration = TRAIN_START
+        return tr
+
+    def cli_trainer():
+        scene_dir = CLI_DIR / "scene_full"
+        scene = load_openmvg_scene(scene_dir / "sfm_data_train.json", scene_dir / "points.ply",
+                                   image_root=scene_dir / "images")
+        tr = Trainer(scene, load_config(FULL_CONFIG), seed=3, device="cuda")
+        tr.init_from_sfm()
+        return tr
+
+    total = {"composite_seg_fwd": 0, "composite_seg_bwd": 0}
+    for name, make in (("train", train_trainer), ("cli_full", cli_trainer)):
+        tr = make()
+        ckpt = CLI_DIR / f"window_graph_{name}.pt"
+        tr.save_checkpoint(ckpt)
+        saved = (tr.sampler.rng.getstate(), tr.generator.get_state(),
+                 {f: kf.remaining_times_of_use for f, kf in tr.scene.keyframes.items()})
+
+        def restore():
+            tr.load_checkpoint(ckpt)
+            tr.sampler.rng.setstate(saved[0])
+            tr.generator.set_state(saved[1])
+            for f, kf in tr.scene.keyframes.items():
+                kf.remaining_times_of_use = saved[2][f]
+            tr._pending_losses = []
+
+        def eager():
+            for _ in range(WINDOW_STEPS):
+                tr.train_iteration()
+
+        def window():
+            took = tr.train_window(WINDOW_STEPS)
+            if took != WINDOW_STEPS:
+                raise RuntimeError(f"window_graph {name}: the window took {took} steps")
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / WINDOW_STEPS
+
+        start = tr.iteration
+        tr.train_iteration()  # the first step builds the caches and banks
+        syncs = _sync_points(torch, tr.train_iteration)
+        restore()
+        reset_launches()
+        eager_first_ms = timed(eager)
+        eager_launches = read_launches()
+        ref, (ref_losses, ref_counts) = _window_state(torch, tr), _pending(torch, tr)
+        restore()
+        g = tr.step_graph
+        captures, replays = g.captures, g.replays
+        reset_launches()
+        window_first_ms = timed(window)
+        window_launches = read_launches()
+        got, (losses, counts) = _window_state(torch, tr), _pending(torch, tr)
+        unequal = [k for k in ref if not torch.equal(ref[k], got[k])]
+        losses_equal = torch.equal(ref_losses, losses)
+        first = {"captures": g.captures - captures, "replays": g.replays - replays,
+                 "capture_ms": g.capture_ms, "warmup_ms": g.warmup_ms,
+                 "pool_mb": g.pool_mb}
+        reset_launches()
+        window_ms = timed(window)
+        eager_ms = timed(eager)
+        traced = {"window": _traced_steps(torch, window, f"{name}_window", WINDOW_STEPS),
+                  "eager": _traced_steps(torch, eager, f"{name}_eager", WINDOW_STEPS)}
+        later = read_launches()
+        line = {"phase": "window_graph", "trainer": name, "capacity": tr.model.capacity,
+                "camera": [tr.camera.width, tr.camera.height], "sh_degree": tr.sh_degree,
+                "iterations": [start + 1, start + WINDOW_STEPS],
+                "sync_points": syncs, "tensors": len(ref), "unequal": unequal,
+                "losses_equal": losses_equal, "losses": losses.tolist(),
+                "overflow_truncated": [counts, ref_counts],
+                "eager_ms_per_step": [eager_first_ms, eager_ms],
+                "window_ms_per_step": [window_first_ms, window_ms],
+                "first_window": first, "replays_per_step": first["replays"] / WINDOW_STEPS,
+                "launches_eager": eager_launches, "launches_window": window_launches,
+                "traced": traced, "captures_total": g.captures,
+                "live_gaussians": int(tr.model.num_active)}
+        emit(line)
+        steps = {"composite_seg_fwd": WINDOW_STEPS, "composite_seg_bwd": WINDOW_STEPS}
+        warm = {k: WINDOW_STEPS + WARMUP_STEPS for k in steps}
+        if syncs:
+            raise RuntimeError(f"window_graph {name}: synchronizing calls in a step: {syncs}")
+        if unequal or not losses_equal or counts != ref_counts:
+            raise RuntimeError(f"window_graph {name}: the graph window differs from the eager "
+                               f"iterations in {unequal}, losses equal {losses_equal}, "
+                               f"counters {counts} vs {ref_counts}")
+        if (first["captures"] != 1 or first["replays"] != WINDOW_STEPS
+                or not _only(eager_launches, steps) or not _only(window_launches, warm)
+                or not _only(later, {k: 4 * v for k, v in steps.items()})):
+            raise RuntimeError(f"window_graph {name}: {first}, launches eager {eager_launches}, "
+                               f"window {window_launches}, later {later}, traced {traced}")
+        for k in total:
+            total[k] += eager_launches[k] + window_launches[k] + later[k]
+        del tr, ref, got
+        ckpt.unlink()
+    return total
 
 
 def examples_phase(torch, np):
@@ -4126,6 +4358,9 @@ def main() -> int:
     quality_launches = quality_phase(torch, scene)
     full_launches, full_synth_launches = cli_full_phase(torch)
     conv_launches = converged_phase(torch)
+    # the one-program window: graph windows against eager iterations
+    window_launches = window_graph_phase(
+        torch, np, lambda: train_scene(torch, np, model, camera, pose_list, cfg))
     cli_launches = {k: quality_launches[k] + full_launches[k] for k in quality_launches}
 
     # the remaining single-device entry points: the pinhole camera, the
@@ -4149,9 +4384,11 @@ def main() -> int:
     del live_tr
     cloud_launches = examples_phase(torch, np)
     more_fwd = (pinhole_launches["composite_seg_fwd"] + pyramid_launches["composite_seg_fwd"]
-                + live_launches["composite_seg_fwd"] + trace_launches["composite_seg_fwd"])
-    more_bwd = (pinhole_launches["composite_seg_bwd"] + pyramid_launches["composite_seg_bwd"] + live_launches["composite_seg_bwd"]
-                + trace_launches["composite_seg_bwd"])
+                + live_launches["composite_seg_fwd"] + trace_launches["composite_seg_fwd"]
+                + window_launches["composite_seg_fwd"])
+    more_bwd = (pinhole_launches["composite_seg_bwd"] + pyramid_launches["composite_seg_bwd"]
+                + live_launches["composite_seg_bwd"] + trace_launches["composite_seg_bwd"]
+                + window_launches["composite_seg_bwd"])
     # the multi-device path: the (1, 1) trainer, both gloo ranks' renders,
     # steps and trainer iterations, the scaling harness
     multi = {k: par_launches[k] + pair_launches[k] + scaling_launches[k] for k in par_launches}
@@ -4186,6 +4423,7 @@ def main() -> int:
             "launches_pyramid": pyramid_launches["composite_seg_fwd"],
             "launches_live_viewer": live_launches["composite_seg_fwd"],
             "launches_trace": trace_launches["composite_seg_fwd"],
+            "launches_window_graph": window_launches["composite_seg_fwd"],
             "launches_kernel_bench": bench_launches["composite_seg_fwd"],
             "launches_roofline": roof_launches["composite_seg_fwd"],
             "launches_converged": conv_launches["composite_seg_fwd"],
@@ -4215,6 +4453,7 @@ def main() -> int:
             "launches_pyramid": pyramid_launches["composite_seg_bwd"],
             "launches_live_viewer": live_launches["composite_seg_bwd"],
             "launches_trace": trace_launches["composite_seg_bwd"],
+            "launches_window_graph": window_launches["composite_seg_bwd"],
             "launches_kernel_bench": bench_launches["composite_seg_bwd"],
             "launches_roofline": roof_launches["composite_seg_bwd"],
             "launches_converged": conv_launches["composite_seg_bwd"],

@@ -7,6 +7,7 @@ shapes, so the output has one row per input Gaussian.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -45,6 +46,18 @@ def tile_grid(camera: Camera):
         (camera.width + TILE - 1) // TILE,
         (camera.height + TILE - 1) // TILE,
     )
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device``, built once per (values,
+    device, dtype) and kept: a step builds no tensor from host data, since a
+    pageable host → device copy waits for the card and cannot be captured
+    into a CUDA graph. Callers only read it."""
+    # a normal tensor even when first built under inference mode, so a
+    # later differentiable step can use it
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _floor_tile(v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -103,7 +116,7 @@ def preprocess(
     # origin) would give NaN gradients through the projection even though
     # their outputs are masked, so a safe point replaces them before any
     # singular math; `in_front` is computed from the true t.
-    safe_point = torch.tensor([0.0, 0.0, 1.0], dtype=t.dtype, device=t.device)
+    safe_point = device_constant((0.0, 0.0, 1.0), t.device, t.dtype)
     if camera.camera_type == CameraType.LONLAT:
         in_front = torch.sum(t * t, dim=-1) > 0.04  # `too_close` cull
         t_safe = torch.where(in_front[..., None], t, safe_point)

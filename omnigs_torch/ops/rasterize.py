@@ -53,7 +53,13 @@ from omnigs_torch.ops.composite_seg import (
     composite_instances_seg,
 )
 from omnigs_torch.ops.composite_tile import composite_instances, tile_origins
-from omnigs_torch.ops.preprocess import TILE, Preprocessed, preprocess, tile_grid
+from omnigs_torch.ops.preprocess import (
+    TILE,
+    Preprocessed,
+    device_constant,
+    preprocess,
+    tile_grid,
+)
 
 # above this instance cap the gather reduction demotes to the live-bound
 # scatter: its inversion sort scales with the static cap (the JAX rule)
@@ -329,7 +335,7 @@ def rasterize(
     )
     means2d = prep.means2d
     if means2d_ndc is not None:
-        half = torch.tensor([W * 0.5, H * 0.5], device=means2d.device)
+        half = device_constant((W * 0.5, H * 0.5), means2d.device, torch.get_default_dtype())
         means2d = means2d + means2d_ndc * half
 
     rgb = prep.rgb

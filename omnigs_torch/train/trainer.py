@@ -1,7 +1,7 @@
 """Training orchestration — the `GaussianMapper` analog.
 
-Counterpart of `omnigs_tpu/train/trainer.py` (`train_step` and the
-single-step `Trainer` loop):
+Counterpart of `omnigs_tpu/train/trainer.py` (`train_step`,
+`train_steps_fused` and the `Trainer` loop):
 
 * per iteration: a random keyframe with a times-of-use budget, the SH
   degree raised every 1000 iterations, the log-lerp xyz LR, render →
@@ -17,14 +17,19 @@ single-step `Trainer` loop):
 
 `train_step` updates the model's parameters, statistics and the Adam state
 in place (the JAX step returns new ones). Nothing in a step reads a value
-back to the host: losses and capacity counters stay on the device and
-`drain_losses` folds them in later.
+back to the host or builds a tensor from host data: losses and capacity
+counters stay on the device and `drain_losses` folds them in later.
 
 `Trainer.train_window(k)` takes up to k steps between event iterations
-(densify, opacity reset, SH bump, phase boundaries), as the JAX trainer's
-scanned window does; here it is a loop over `train_iteration`. `train`,
-the live-tunable parameters and full-state checkpoints
-(`train/checkpoint.py`) complete the API the training CLI calls.
+(densify, opacity reset, SH bump, phase boundaries) through
+`train_steps_fused`, JAX's one-program window: the keyframes are sampled
+on the host in the order k `train_iteration` calls would draw them, their
+rows of the pose and ground-truth banks (`Trainer._ensure_banks`) are
+staged, and on the card the k steps are k replays of one step captured as
+a CUDA graph (`StepGraph`), bitwise the eager steps. On the CPU the window
+runs the k steps eagerly (the plain version). `train`, the live-tunable
+parameters and full-state checkpoints (`train/checkpoint.py`) complete the
+API the training CLI calls.
 
 Under the coarse-to-fine pyramid (``GausPyramid.do``) each keyframe's
 first ``sub_level_times_of_use`` uses of each sub-level train at
@@ -35,7 +40,8 @@ raises the JAX package's ValueError at its first step: neither trainer
 passes `full_proj`.
 
 `Trainer.lock` is held for the whole of each `train_iteration` (the Adam
-step, densify/prune and the opacity reset included): the live viewer
+step, densify/prune and the opacity reset included) and for each step of
+a window (each graph replay, and a capture): the live viewer
 (`viewer/live.py`) renders and reads its frame back under it, so a frame
 never sees a half-applied step, and the render, which draws no random
 number and writes no state, leaves the trajectory as it was. The lock is
@@ -46,12 +52,14 @@ training loop would keep a waiting frame out for many iterations.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import gc
 import math
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +68,8 @@ from omnigs_torch.cameras import Camera
 from omnigs_torch.config import Config, raster_config_from
 from omnigs_torch.model import densify as densify_ops
 from omnigs_torch.model import optimizer as opt_ops
-from omnigs_torch.model.gaussians import GaussianModel, from_pcd
+from omnigs_torch.model.gaussians import FIELD_NAMES, PARAM_NAMES, GaussianModel, from_pcd
+from omnigs_torch.ops import composite_seg, composite_tile
 from omnigs_torch.ops import loss as loss_ops
 from omnigs_torch.ops.knn import mean_sq_knn_dist
 from omnigs_torch.ops.rasterize import RasterConfig
@@ -173,6 +182,280 @@ def train_step(
     )
 
 
+# the kernel wrappers a train step can launch, by module and name (a
+# wrapper's own ``launches += 1`` finds it through its module's globals)
+STEP_KERNELS = (
+    (composite_seg, "composite_seg_fwd"),
+    (composite_seg, "composite_seg_bwd"),
+    (composite_tile, "composite_tile_fwd"),
+    (composite_tile, "composite_tile_bwd"),
+    (composite_tile, "composite_tile_bwd_fused"),
+)
+# eager steps on a side stream before a capture (PyTorch's CUDA-graph
+# notes: lazy initialisation, the autograd engine's device threads, the
+# cuBLAS workspace of the stream); their effect on the state is undone
+WARMUP_STEPS = 2
+# graph replays a window keeps queued on the stream: enough that the card
+# never waits for the host, few enough that a live-viewer frame, which
+# takes the lock between two replays, waits for at most this many steps
+# and not for the rest of the window
+REPLAYS_IN_FLIGHT = 2
+
+
+def capture_key(
+    model: GaussianModel,
+    opt_state: opt_ops.AdamState,
+    viewmatrices: torch.Tensor,
+    camposes: torch.Tensor,
+    gt_images: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    bg: torch.Tensor,
+    **static,
+) -> tuple:
+    """What a captured step bakes in: the Python values of its launches
+    (camera, SH degree, update_stats, LRs, λ, crop, raster config — the
+    ``static`` keywords of `train_steps_fused`), the capacity, and the
+    address of every tensor it reads or writes in place (model, Adam
+    state, statistics, banks, mask, background). A graph whose key differs
+    is captured again."""
+    tensors = [getattr(model, k) for k in FIELD_NAMES]
+    tensors += [opt_state.mu[k] for k in PARAM_NAMES] + [opt_state.nu[k] for k in PARAM_NAMES]
+    tensors += [opt_state.count, viewmatrices, camposes, gt_images, bg]
+    if mask is not None:
+        tensors.append(mask)
+    return (
+        tuple(sorted(static.items())),
+        model.capacity,
+        tuple(t.shape for t in (viewmatrices, gt_images)),
+        mask is None,
+        tuple(t.data_ptr() for t in tensors),
+    )
+
+
+class StepGraph:
+    """One `train_step` captured as a CUDA graph: the device program of
+    `train_steps_fused` on the card (JAX's `lax.scan` body).
+
+    The captured step reads its pose row, ground-truth row and step number
+    at a device-side cursor from a (K_max, 3) staged index buffer, gathers
+    pose, campos and ground truth from the banks, writes its loss, overflow
+    and truncated at the cursor into (K_max,) buffers, and advances the
+    cursor. A window of k ≤ K_max steps is one host → device copy of its
+    rows and k replays, at most REPLAYS_IN_FLIGHT of them queued at a time;
+    one capture serves every k. The graph is captured
+    again when `capture_key` changes. Nothing outside the graph keeps a
+    tensor the graph writes: a window returns copies.
+
+    Each wrapper in STEP_KERNELS counts its launches where it launches: the
+    capture launches nothing (its counts are taken back) and each replay
+    adds the launches the graph holds."""
+
+    def __init__(self):
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.key = None
+        self.k_max = 0
+        self.captures = 0
+        self.warmup_steps = 0
+        self.replays = 0
+        self.capture_ms = 0.0  # the last capture, without its warm-up
+        self.warmup_ms = 0.0
+        self.pool_mb = 0.0  # device memory the last capture reserved for its pool
+        self._per_replay: Tuple[tuple, ...] = ()
+        self._gt_stage: Optional[torch.Tensor] = None
+
+    def _alloc(self, device, k_max: int):
+        """The staged index buffer, the cursor and the (K_max,) outputs."""
+        self.k_max = k_max
+        self.rows = torch.zeros(k_max, 3, dtype=torch.int64, device=device)
+        self.cursor = torch.zeros((), dtype=torch.int64, device=device)
+        self.loss = torch.zeros(k_max, dtype=torch.float32, device=device)
+        self.overflow = torch.zeros(k_max, dtype=torch.int32, device=device)
+        self.truncated = torch.zeros(k_max, dtype=torch.int32, device=device)
+        self.graph, self.key = None, None
+
+    def _stage_gt(self, gt_bank: torch.Tensor, gt_rows, device) -> torch.Tensor:
+        """Upload the window's rows of a host ground-truth bank (pinned: the
+        copies run on the stream, no host wait) into a (K_max, 3, H, W)
+        device buffer; row j holds step j's ground truth."""
+        shape = (self.k_max,) + tuple(gt_bank.shape[1:])
+        if self._gt_stage is None or self._gt_stage.shape != shape:
+            self._gt_stage = None
+            self._gt_stage = torch.empty(shape, dtype=gt_bank.dtype, device=device)
+        for j, r in enumerate(gt_rows):
+            self._gt_stage[j].copy_(gt_bank[int(r)], non_blocking=True)
+        return self._gt_stage
+
+    def _step_fn(self, model, opt_state, vms, cps, gts, mask, kw):
+        def step():
+            i = self.cursor.view(1)
+            r = self.rows.index_select(0, i)[0]  # pose row, GT row, step number
+            aux = train_step(
+                model, opt_state,
+                vms.index_select(0, r[0:1])[0],
+                cps.index_select(0, r[0:1])[0],
+                gts.index_select(0, r[1:2])[0],
+                r[2].to(torch.int32),
+                mask,
+                do_adam=True,
+                skip_opacity_update=False,
+                **kw,
+            )
+            self.loss.index_copy_(0, i, aux["loss"].view(1))
+            self.overflow.index_copy_(0, i, aux["overflow"].view(1))
+            self.truncated.index_copy_(0, i, aux["truncated"].view(1))
+            self.cursor += 1
+
+        return step
+
+    def _capture(self, key, step, state):
+        """Warm up on a side stream, undo the warm-up's effect on
+        ``state``, then capture one ``step`` into a graph with its own
+        memory pool."""
+        dev = state[0].device
+        with torch.no_grad():
+            saved = [t.detach().clone() for t in state]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self.cursor.zero_()
+                step()
+            with torch.no_grad():
+                for t, v in zip(state, saved):
+                    t.copy_(v)
+            self.cursor.zero_()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        del saved
+        self.warmup_steps += WARMUP_STEPS
+        self.graph = None  # the previous graph's pool goes back first
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        self.warmup_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = [getattr(m, n).launches for m, n in STEP_KERNELS]
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        # thread-local: a live viewer's request thread may make CUDA calls
+        # of its own while the training thread captures (never into this
+        # stream: it renders under the trainer's lock, which the capture holds)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            step()
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+        per = []
+        for (m, n), b in zip(STEP_KERNELS, before):
+            fn = getattr(m, n)
+            if fn.launches != b:
+                per.append((m, n, fn.launches - b))
+                fn.launches = b
+        self._per_replay = tuple(per)
+        self.graph, self.key = graph, key
+        self.captures += 1
+
+    def run(self, model, opt_state, vms, cps, gts, rows, step0: int, mask, lock,
+            kw) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The window's k = len(rows) steps as graph replays (captured first
+        if the key changed) → (losses (k,), Σoverflow, Σtruncated)."""
+        dev = model.xyz.device
+        k = len(rows)
+        if k > self.k_max:
+            self._alloc(dev, k)
+        gt_rows = rows
+        if gts.device != dev:
+            gts = self._stage_gt(gts, rows, dev)
+            gt_rows = np.arange(k)
+        idx = np.stack([rows, gt_rows, step0 + 1 + np.arange(k)], axis=1).astype(np.int64)
+        # pinned: the copy runs on the stream, and the host allocator keeps
+        # the block until it has
+        self.rows[:k].copy_(torch.from_numpy(idx).pin_memory(), non_blocking=True)
+        key = capture_key(model, opt_state, vms, cps, gts, mask, **kw)
+        if key != self.key:
+            state = [getattr(model, n) for n in FIELD_NAMES]
+            state += [opt_state.mu[n] for n in PARAM_NAMES] + [opt_state.nu[n] for n in PARAM_NAMES]
+            state.append(opt_state.count)
+            with lock:
+                self._capture(key, self._step_fn(model, opt_state, vms, cps, gts, mask, kw),
+                              state)
+        self.cursor.zero_()
+        queued = collections.deque()
+        for _ in range(k):
+            if len(queued) == REPLAYS_IN_FLIGHT:
+                queued.popleft().synchronize()
+            with lock:
+                self.graph.replay()
+                for m, n, c in self._per_replay:
+                    getattr(m, n).launches += c
+                done = torch.cuda.Event()
+                done.record()
+            queued.append(done)
+        self.replays += k
+        return self.loss[:k].clone(), self.overflow[:k].sum(), self.truncated[:k].sum()
+
+
+def train_steps_fused(
+    model: GaussianModel,
+    opt_state: opt_ops.AdamState,
+    viewmatrices: torch.Tensor,
+    camposes: torch.Tensor,
+    gt_images: torch.Tensor,
+    step0: int,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    rows=None,
+    graph: Optional[StepGraph] = None,
+    lock=None,
+    camera: Camera,
+    sh_degree: int,
+    raster_cfg: RasterConfig,
+    lr_cfg: opt_ops.LRConfig,
+    spatial_lr_scale: float,
+    bg: torch.Tensor,
+    lambda_dssim: float = 0.2,
+    skip_bottom_px: int = 0,
+    update_stats: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K train iterations between event iterations, in place (JAX's
+    `train_steps_fused`, one device program). Step i (from 0) takes row
+    ``rows[i]`` of the (V, 4, 4) ``viewmatrices``, the (V, 3) ``camposes``
+    and the (V, 3, H, W) ``gt_images`` and the step number step0 + i + 1, with
+    Adam on and the opacity LR kept: a window ends before every event
+    iteration. Without ``rows`` the banks are the K stacked rows, as in
+    JAX. Returns (losses (K,), Σoverflow, Σtruncated) on the device.
+
+    On CPU tensors the K steps run eagerly (the plain version). On CUDA
+    tensors they are K replays of ``graph`` (a `StepGraph`, captured again
+    when its key changed; a new one when None); a capture or replay that
+    fails raises. ``gt_images`` may then be a pinned host bank, whose K rows
+    are uploaded once. ``lock`` (a context manager) is held for each step."""
+    if rows is None:
+        rows = np.arange(viewmatrices.shape[0])
+    rows = np.asarray(rows, np.int64)
+    lock = contextlib.nullcontext() if lock is None else lock
+    kw = dict(camera=camera, sh_degree=sh_degree, raster_cfg=raster_cfg, lr_cfg=lr_cfg,
+              spatial_lr_scale=spatial_lr_scale, lambda_dssim=lambda_dssim,
+              skip_bottom_px=skip_bottom_px, update_stats=update_stats)
+    dev = model.xyz.device
+    if dev.type == "cpu":
+        out = []
+        for i, r in enumerate(rows.tolist()):
+            with lock:
+                aux = train_step(
+                    model, opt_state, viewmatrices[r], camposes[r], gt_images[r],
+                    torch.full((), step0 + i + 1, dtype=torch.int32),
+                    mask, bg=bg, do_adam=True, skip_opacity_update=False, **kw,
+                )
+            out.append((aux["loss"], aux["overflow"], aux["truncated"]))
+        losses, overflow, truncated = zip(*out)
+        return torch.stack(losses), torch.stack(overflow).sum(), torch.stack(truncated).sum()
+    if dev.type != "cuda":
+        raise ValueError(f"train_steps_fused: unsupported device {dev}")
+    graph = StepGraph() if graph is None else graph
+    return graph.run(model, opt_state, viewmatrices, camposes, gt_images, rows, step0, mask,
+                     lock, dict(kw, bg=bg))
+
+
 @dataclasses.dataclass
 class Trainer:
     scene: Scene
@@ -217,10 +500,17 @@ class Trainer:
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
         self.model: Optional[GaussianModel] = None
         self.opt_state: Optional[opt_ops.AdamState] = None
-        # device copies per (fid, level width) and (camera, level w, level h)
+        # the pyramid's device copies per (fid, level width); the undistort
+        # masks per (camera, level w, level h)
         self._gt_cache: Dict[tuple, torch.Tensor] = {}
         self._mask_cache: Dict[tuple, Optional[torch.Tensor]] = {}
         self._pose_cache: Dict[int, tuple] = {}
+        # ({fid: row}, (V, 4, 4) poses, (V, 3) campos, (V, 3, H, W) ground
+        # truths) and the keyframe ids they were built for
+        self._banks = None
+        self._banks_fids = None
+        self.gt_bank_on_device = None
+        self.step_graph = StepGraph()  # the window's graph on the card
         self.lock = FairLock()
 
     # -- setup --
@@ -289,7 +579,9 @@ class Trainer:
 
     def _gt(self, kf, level_camera=None) -> torch.Tensor:
         """The keyframe's (3, H, W) ground truth on the device, at the
-        pyramid level's size (cv2 INTER_AREA on the host) when given."""
+        pyramid level's size (cv2 INTER_AREA on the host) when given, kept
+        per (keyframe, level): the pyramid's and the sharded trainer's
+        source (the single-device trainer otherwise reads the banks)."""
         key = (kf.fid, None if level_camera is None else level_camera.width)
         if key not in self._gt_cache:
             img = kf.image
@@ -304,6 +596,41 @@ class Trainer:
             # loaders produce HWC; the image convention is channels-first
             self._gt_cache[key] = img.permute(2, 0, 1).contiguous()
         return self._gt_cache[key]
+
+    def _ensure_banks(self):
+        """The (V, ...) pose, campos and ground-truth banks of the keyframes
+        → ({fid: row}, poses, campos, ground truths), built again when the
+        keyframe set changes. The ground-truth bank lives on the device
+        while V·3·H·W·4 bytes fit ``Tpu.gt_bank_mb`` MiB; above that on the
+        host (pinned beside a CUDA device), and a window uploads its rows."""
+        fids = sorted(self.scene.keyframes)
+        if self._banks is not None and self._banks_fids == fids:
+            return self._banks
+        self._banks = None  # the old banks go before the new ones arrive
+        kfs = [self.scene.keyframes[f] for f in fids]
+        dev = torch.device(self.device)
+        vms = torch.as_tensor(np.stack([k.viewmatrix for k in kfs]), device=dev)
+        cps = torch.as_tensor(np.stack([k.campos for k in kfs]), device=dev)
+        # loaders produce HWC; the image convention is channels-first
+        gts = torch.as_tensor(
+            np.stack([np.asarray(k.image) for k in kfs]), dtype=torch.float32
+        ).permute(0, 3, 1, 2).contiguous()
+        self.gt_bank_on_device = gts.numel() * 4 <= self.config.tpu.gt_bank_mb * (1 << 20)
+        if self.gt_bank_on_device:
+            gts = gts.to(dev)
+        elif dev.type == "cuda":
+            gts = gts.pin_memory()
+        self._banks = ({f: i for i, f in enumerate(fids)}, vms, cps, gts)
+        self._banks_fids = fids
+        return self._banks
+
+    def _bank_row(self, kf):
+        """The keyframe's (viewmatrix, campos, (3, H, W) ground truth) from
+        the banks on the device: views of the device banks, the ground
+        truth uploaded from a host bank."""
+        rows, vms, cps, gts = self._ensure_banks()
+        r = rows[kf.fid]
+        return vms[r], cps[r], gts[r].to(self.device, non_blocking=True)
 
     def _mask(self, camera, level_camera=None) -> Optional[torch.Tensor]:
         """The camera's (H, W) undistort mask on the device at the pyramid
@@ -354,7 +681,8 @@ class Trainer:
         )
 
     def _pose(self, kf):
-        """The keyframe's (viewmatrix, campos) on the device, cached."""
+        """The keyframe's (viewmatrix, campos) on the device, cached per
+        keyframe (the pyramid's and the sharded trainer's source)."""
         if kf.fid not in self._pose_cache:
             self._pose_cache[kf.fid] = (
                 torch.as_tensor(kf.viewmatrix, device=self.device),
@@ -365,6 +693,21 @@ class Trainer:
     def _skip_bottom_px(self, camera) -> int:
         ratio = self.config.opt.skip_bottom_ratio
         return int(round(camera.height * ratio)) if ratio > 0 else 0
+
+    def _step_kwargs(self, camera, update_stats: bool) -> dict:
+        """The keywords a step at the current iteration takes, but the
+        event flags."""
+        return dict(
+            camera=camera,
+            sh_degree=self.sh_degree,
+            raster_cfg=self.raster_cfg,
+            lr_cfg=self.lr_cfg,
+            spatial_lr_scale=self.cameras_extent,
+            bg=self.bg,
+            lambda_dssim=self.config.opt.lambda_dssim,
+            skip_bottom_px=self._skip_bottom_px(camera),
+            update_stats=update_stats,
+        )
 
     def train_iteration(self) -> Dict[str, torch.Tensor]:
         with self.lock:
@@ -389,29 +732,24 @@ class Trainer:
                         width=max(int(camera.width * f), 16),
                         height=max(int(camera.height * f), 16),
                     )
-            vm, campos = self._pose(kf)
-            # a fill kernel, not a host → device copy
-            step = torch.full((), it, dtype=torch.int32, device=self.device)
+            if cfg.pyramid.do and cfg.pyramid.num_sub_levels > 0:
+                vm, campos = self._pose(kf)
+                gt = self._gt(kf, camera)
+            else:
+                vm, campos, gt = self._bank_row(kf)
             aux = train_step(
                 self.model,
                 self.opt_state,
                 vm,
                 campos,
-                self._gt(kf, camera),
-                step,
+                gt,
+                # a fill kernel, not a host → device copy
+                torch.full((), it, dtype=torch.int32, device=self.device),
                 self._mask(kf.camera, camera),
-                camera=camera,
-                sh_degree=self.sh_degree,
-                raster_cfg=self.raster_cfg,
-                lr_cfg=self.lr_cfg,
-                spatial_lr_scale=self.cameras_extent,
-                bg=self.bg,
-                lambda_dssim=cfg.opt.lambda_dssim,
-                skip_bottom_px=self._skip_bottom_px(camera),
-                update_stats=in_densify_phase,
                 # reference quirk: replaced tensors skip their Adam update
                 do_adam=not do_densify and it < cfg.opt.max_num_iterations,
                 skip_opacity_update=do_reset,
+                **self._step_kwargs(camera, in_densify_phase),
             )
 
             if do_densify:
@@ -438,11 +776,14 @@ class Trainer:
         return int(self.model.num_active)
 
     def drain_losses(self) -> float:
-        """Fold the queued device-side losses into the host EMA (0.4/0.6)
-        and total the capacity-pressure counters; returns the last loss."""
+        """Fold the queued device-side losses (a window's (k,) losses or a
+        step's loss, in the order they were queued) into the host EMA
+        (0.4/0.6) and total the capacity-pressure counters; returns the
+        last loss."""
         if self._pending_losses:
             pend, self._pending_losses = self._pending_losses, []
-            losses = torch.stack([x for x, _, _ in pend]).tolist()
+            # a window's (k,) losses and a single step's () loss, in order
+            losses = torch.cat([x.reshape(-1) for x, _, _ in pend]).tolist()
             counters = torch.stack(
                 [torch.stack([ov, tr]).to(torch.int64) for _, ov, tr in pend]
             ).sum(0).tolist()
@@ -487,23 +828,51 @@ class Trainer:
                 events.append(b)
         return min(events)
 
-    def train_window(self, max_steps: int) -> int:
-        """Take up to ``max_steps`` iterations before the next event
-        iteration and return how many were taken: 0 means the next
-        iteration is an event (call `train_iteration`), or the pyramid is
-        on. A window is that many `train_iteration` calls: it ends before
-        every event, so none of its steps densifies or resets, each steps
-        Adam, and the statistics accumulate exactly as the JAX trainer's
-        scanned window accumulates them."""
+    def _window_len(self, max_steps: int) -> int:
+        """How many of ``max_steps`` iterations a window takes now: up to the
+        next event iteration, none under the pyramid."""
         cfg = self.config
         if cfg.pyramid.do and cfg.pyramid.num_sub_levels > 0:
             return 0
         it = self.iteration
-        k = min(max_steps, self._next_event_iter(it) - 1 - it)
-        if k <= 0:
+        return max(min(max_steps, self._next_event_iter(it) - 1 - it), 0)
+
+    def _window_inputs(self, k: int):
+        """(banks, mask, keywords) of `train_steps_fused` for a window of
+        ``k`` steps from the current iteration."""
+        _, vms, cps, gts = self._ensure_banks()
+        # a window ends before every event, so none of its steps leaves
+        # the densify phase: its last step's phase is every step's
+        in_densify_phase = self._schedule(self.iteration + k)[0]
+        kw = self._step_kwargs(self.camera, in_densify_phase)
+        return (vms, cps, gts), self._mask(self.camera), kw
+
+    def train_window(self, max_steps: int) -> int:
+        """Take up to ``max_steps`` iterations before the next event
+        iteration through `train_steps_fused` and return how many were
+        taken: 0 means the next iteration is an event (call
+        `train_iteration`), or the pyramid is on. The window samples its
+        keyframes as that many `train_iteration` calls would; none of its
+        steps densifies or resets, each steps Adam, and the statistics
+        accumulate as in the JAX trainer's scanned window. On the card the
+        steps are replays of `step_graph`, bitwise the eager iterations;
+        the lock is held for each."""
+        k = self._window_len(max_steps)
+        if k == 0:
             return 0
-        for _ in range(k):
-            self.train_iteration()
+        (vms, cps, gts), mask, kw = self._window_inputs(k)
+        fid_row = self._banks[0]
+        with self.lock:
+            rows = [fid_row[self.sampler.sample().fid] for _ in range(k)]
+        it = self.iteration
+        losses, overflow, truncated = train_steps_fused(
+            self.model, self.opt_state, vms, cps, gts, it, mask,
+            rows=rows, graph=self.step_graph, lock=self.lock, **kw,
+        )
+        self.iteration = it + k
+        self._pending_losses.append((losses, overflow, truncated))
+        if len(self._pending_losses) > 512:
+            self.drain_losses()
         return k
 
     # -- live-tunable training parameters (the reference's

@@ -146,6 +146,17 @@ class ParallelTrainer(Trainer):
                 self.drain_losses()
             return aux
 
+    def train_window(self, max_steps: int) -> int:
+        """Up to ``max_steps`` `train_iteration` calls before the next event
+        iteration, the `Trainer`'s window length. A sharded step runs
+        collectives, which the single-device window's CUDA graph does not
+        capture (gloo's cannot be captured at all), so a sharded window is
+        a loop of eager steps, with the results of a scanned one."""
+        k = self._window_len(max_steps)
+        for _ in range(k):
+            self.train_iteration()
+        return k
+
     def live_gaussians(self) -> int:
         """Live Gaussians of the whole model, summed over the gauss shards
         (every rank must call it)."""

@@ -21,7 +21,9 @@ kernels #6 (against a float64 sum at the reduction bar, rtol 2e-3, atol
 P that is not a multiple of its transpose tile), #7 (bitwise) and #8
 (each mode bitwise, also at unaligned starts, on a single-lane, an empty
 and a past-the-slab tile); renders through the ghost-aligned,
-no-presort and XLA layouts on the card against the CPU at 1e-5."""
+no-presort and XLA layouts on the card against the CPU at 1e-5; the
+training window's CUDA graph (segmented, tile-major, and with the
+ground-truth bank on the host) bitwise equal to eager iterations."""
 
 import numpy as np
 import pytest
@@ -681,3 +683,79 @@ def test_tile_kernels_on_a_tile_window_match_plain():
     ).to(dev)
     assert torch.equal(tct.composite_tile_bwd(*args, color_full, dcolor, n_tiles),
                        tct.composite_tile_bwd_plain(*args, color_full, dcolor, n_tiles))
+
+
+def _window_trainer(layout):
+    """A Trainer on the card over a three-view 128×64 scene (ground truths
+    the port's renders of a seeded cloud on the CPU), segmented or
+    tile-major, its ground-truth bank on the card or (``host_bank``) on the
+    host."""
+    import dataclasses
+
+    import omnigs_torch.config as tconfig
+    from omnigs_torch.scene.keyframe import Keyframe
+    from omnigs_torch.scene.scene import Scene
+    from omnigs_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(60)
+    f = random_model_np(160, 96, 96)
+    gt_model = GaussianModel.from_numpy(f, device="cpu")
+    cam = Camera(CameraType.LONLAT, 128, 64)
+    scene = Scene()
+    for i in range(3):
+        angle = rng.normal() * 0.2
+        c, s = np.cos(angle), np.sin(angle)
+        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        t = (rng.normal(size=3) * 0.1).astype(np.float32)
+        vm = np.eye(4, dtype=np.float32)
+        vm[:3, :3], vm[:3, 3] = R, t
+        with torch.inference_mode():
+            res = render_model(gt_model, cam, torch.from_numpy(vm), torch.from_numpy(-R.T @ t),
+                               torch.zeros(3), 3, RasterConfig(max_instances=1 << 13, **PROD_KW))
+        scene.add_keyframe(Keyframe(i, cam, R, t, image=res.image.permute(1, 2, 0).numpy().copy()))
+    scene.points = (f["xyz"] + rng.normal(size=f["xyz"].shape) * 0.05).astype(np.float32)
+    scene.colors = np.clip(f["features_dc"][:, 0] * 0.28209479177387814 + 0.5, 0, 1)
+    cfg = tconfig.Config()
+    cfg.tpu = dataclasses.replace(
+        cfg.tpu, capacity=128, max_instances=1 << 13,
+        want_ncontrib=int(layout == "tile_major"),
+        gt_bank_mb=0 if layout == "host_bank" else cfg.tpu.gt_bank_mb,
+    )
+    tr = Trainer(scene, cfg, seed=7, device="cuda")
+    tr.init_from_sfm()
+    return tr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["segmented", "tile_major", "host_bank"])
+def test_graph_window_equals_eager_iterations(layout):
+    """Two 5-step `train_window`s (one capture, ten replays of the step's
+    CUDA graph) against ten `train_iteration`s from the same state: every
+    model field, Adam moment and count and every loss `torch.equal`; the
+    forward kernel counted once a replay and once a warm-up step."""
+    from omnigs_torch.model.gaussians import FIELD_NAMES
+    from omnigs_torch.train.trainer import WARMUP_STEPS
+
+    _cuda()
+    a, b = _window_trainer(layout), _window_trainer(layout)
+    fwd = tct.composite_tile_fwd if layout == "tile_major" else tcs.composite_seg_fwd
+    n0 = fwd.launches
+    for _ in range(2):
+        assert a.train_window(5) == 5
+        for _ in range(5):
+            b.train_iteration()
+    torch.cuda.synchronize()
+    assert a.iteration == b.iteration == 10
+    assert a.step_graph.captures == 1 and a.step_graph.replays == 10
+    assert fwd.launches - n0 == 10 + WARMUP_STEPS + 10
+    for k in FIELD_NAMES:
+        assert torch.equal(getattr(a.model, k), getattr(b.model, k)), k
+    for m in ("mu", "nu"):
+        for k, v in getattr(a.opt_state, m).items():
+            assert torch.equal(v, getattr(b.opt_state, m)[k]), f"{m}/{k}"
+    assert torch.equal(a.opt_state.count, b.opt_state.count)
+    la = torch.cat([x.reshape(-1) for x, _, _ in a._pending_losses])
+    lb = torch.stack([x for x, _, _ in b._pending_losses])
+    assert torch.equal(la, lb) and bool(torch.isfinite(la).all())
+    assert a.drain_losses() == b.drain_losses() and a.ema_loss == b.ema_loss
+    assert a.total_truncated == b.total_truncated == 0

@@ -94,7 +94,8 @@ def test_window_equals_single_iterations_bitwise():
     assert windows >= 3 and a.iteration == b.iteration == 16
     assert a.sampler.used_times == b.sampler.used_times
     _assert_equal_states(_state(a), _state(b))
-    assert torch.equal(torch.stack([x for x, _, _ in a._pending_losses]),
+    # a window queues its (k,) losses, a single iteration its () loss
+    assert torch.equal(torch.cat([x.reshape(-1) for x, _, _ in a._pending_losses]),
                        torch.stack([x for x, _, _ in b._pending_losses]))
     assert a.drain_losses() == b.drain_losses() and a.ema_loss == b.ema_loss
     assert a.total_truncated == b.total_truncated == 0
@@ -112,7 +113,7 @@ def test_windows_match_jax():
         assert jt.train_window(3) == tt.train_window(3) == 3
     assert jorder == torder and jt.iteration == tt.iteration == 6
     jl = np.concatenate([np.atleast_1d(np.asarray(x)) for x, _, _ in jt._pending_losses])
-    tl = [float(x) for x, _, _ in tt._pending_losses]
+    tl = torch.cat([x.reshape(-1) for x, _, _ in tt._pending_losses]).tolist()
     np.testing.assert_allclose(tl, jl, rtol=1e-4)
     jt.drain_losses()
     tt.drain_losses()
