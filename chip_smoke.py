@@ -60,7 +60,22 @@ script exits non-zero:
    iterations 3001–3012 of the train phase's scene: its losses within
    rtol 1e-5 and its parameters within the gradient bar (rtol 2e-3, atol
    1e-4·max) of the `Trainer`'s, host ms per iteration beside the
-   Trainer's, #1/#2 launches. parallel_pair — two spawned processes on
+   Trainer's, #1/#2 launches. parallel_window — the sharded window
+   (`ParallelTrainer.train_window` through `sharded_train_steps_fused`) on
+   that rank, built as window_graph's train Trainer (capacity 524,288,
+   iterations 3001–3024, densify every 1000): in "graph" mode, one capture
+   and 24 replays of the sharded step `torch.equal` to 24 eager
+   iterations on every field, moment, count, loss and counter, no
+   synchronizing call in an iteration (the ones of one `sharded_densify`
+   listed), the `Trainer`'s graph window from the same state reported
+   bitwise and held at the gradient bar; ms a step of both modes in turns,
+   capture / warm-up ms, pool MB, recaptures, the ground-truth bank, the
+   busy share under `profiling.trace`, #1/#2 launches. nccl_capture — each
+   collective the mesh runs (`all_gather_into_tensor`,
+   `reduce_scatter_tensor`, `all_reduce` SUM and MAX), called directly on
+   that one-rank NCCL group and captured into a CUDA graph: three replays
+   on fresh inputs `torch.equal` to the eager call, ms of both, the NCCL
+   version. parallel_pair — two spawned processes on
    cuda:0 joined over gloo (NCCL refuses two ranks on one card), meshes
    (1, 2) and (2, 1): each mesh's sharded render of pose 0 (segmented and
    tile-major) within 1e-5 of the single-device render; on rank 1's tile
@@ -69,7 +84,10 @@ script exits non-zero:
    one step's gathered gradients (Adam's first moments) within the
    gradient bar of the single-device gradient of the mean loss; four
    `ParallelTrainer` iterations finite, lock-step bitwise across the ranks,
-   nothing truncated, #1/#2 launched on each rank. The line names the
+   nothing truncated, #1/#2 launched on each rank; from the same start a
+   `train_window` in "eager" mode (gloo), which stops before the densify
+   at 3004: its three steps bitwise the first three iterations, lock-step
+   across the ranks. The line names the
    backend and the collectives the path handed gloo, each on CUDA
    tensors; the port stages no collective through the host. scaling —
    `omnigs_torch.scripts.scaling_bench --meshes 1x1 --iters 10` through its
@@ -3805,18 +3823,13 @@ def _bar_ratio(torch, got, ref):
 
 
 def parallel_phase(torch, scene, ref):
-    """`ParallelTrainer` on a (1, 1) mesh of one NCCL rank, iterations
-    3001-3012 of the train phase's run: the Trainer's losses (rtol 1e-5)
-    and final parameters (gradient bar), host ms per iteration beside the
-    Trainer's, #1/#2 launches."""
-    import torch.distributed as dist
-
+    """`ParallelTrainer` on a (1, 1) mesh of the script's one NCCL rank,
+    iterations 3001-3012 of the train phase's run: the Trainer's losses
+    (rtol 1e-5) and final parameters (gradient bar), host ms per iteration
+    beside the Trainer's, #1/#2 launches."""
     from omnigs_torch.model import densify as densify_ops
-    from omnigs_torch.ops import composite_seg as cs
-    from omnigs_torch.parallel.distributed import initialize
     from omnigs_torch.train.trainer_parallel import ParallelTrainer
 
-    initialize("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
     densified = []
     densify = densify_ops.densify_and_prune
 
@@ -3847,7 +3860,6 @@ def parallel_phase(torch, scene, ref):
         truncated = tr.total_truncated
     finally:
         densify_ops.densify_and_prune = densify
-        dist.destroy_process_group()
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
     line = {
         "phase": "parallel", "mesh": [1, 1], "backend": "nccl", "iterations": TRAIN_ITERS,
@@ -3866,6 +3878,226 @@ def parallel_phase(torch, scene, ref):
         raise RuntimeError(f"parallel: densify {len(densified)}, truncated {truncated}, "
                            f"launches {launches}")
     return launches
+
+
+PAR_WINDOW_TURNS = 2  # graph window, eager loop, eager loop, graph window
+NCCL_PROBE_N = 1 << 22  # float32 elements a collective moves
+NCCL_PROBE_REPLAYS = 3
+
+
+def _summarize_syncs(found, n=6):
+    """The count of synchronizing calls and the first ``n`` distinct
+    innermost places of the port's code that made them."""
+    places = []
+    for f in found:
+        at = f["at"][-1] if f["at"] else "outside the port"
+        if at not in places:
+            places.append(at)
+    return {"count": len(found), "at": places[:n]}
+
+
+def parallel_window_phase(torch, np, scene):
+    """The sharded window on the script's one NCCL rank: a (1, 1)
+    `ParallelTrainer` built as window_graph's train Trainer (capacity
+    524,288, 1920×960, SH 3, iterations 3001–3024, densify every 1000, so
+    no event lies in the window). From one state (a checkpoint, the
+    sampler's and densify's random states, the keyframes' charges): 24
+    eager `train_iteration`s; back to that state, one iteration under
+    PyTorch's sync debug mode (no synchronizing call may be found) and one
+    `sharded_densify` (listed: densify lies outside a window); back to that
+    state, a 24-step `train_window` in "graph" mode (one capture, 24
+    replays of the sharded step) that must equal the eager run
+    `torch.equal` on every model field, Adam moment and count, the losses
+    and the overflow / truncated totals, with #1 / #2 once a replay and
+    once a warm-up step; the `Trainer`'s 24-step graph window from the same
+    state, reported bitwise and held at the gradient bar; ms a step of the
+    graph window and the eager loop in turns; capture and warm-up ms, the
+    pool's MB, recaptures and ground-truth bank growths; under
+    `profiling.trace` the card's busy share, kernels and host launch calls
+    a step. Returns the #1/#2 launches of the phase."""
+    from omnigs_torch.parallel.shard import sharded_densify
+    from omnigs_torch.train.trainer import WARMUP_STEPS, Trainer
+    from omnigs_torch.train.trainer_parallel import ParallelTrainer
+
+    cfg = train_config()
+    cfg.opt.densification_interval = 1000
+    pt = ParallelTrainer(scene, cfg, seed=SEED, device="cuda")
+    pt.init_from_sfm()
+    pt.iteration = TRAIN_START
+    if pt.window_mode != "graph":
+        raise RuntimeError(f"parallel_window: mode {pt.window_mode} under NCCL on the card")
+    ckpt = CLI_DIR / "parallel_window.pt"
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    pt.save_checkpoint(ckpt)
+    saved = (pt.sampler.rng.getstate(), pt.generator.get_state(),
+             {f: kf.remaining_times_of_use for f, kf in scene.keyframes.items()})
+
+    def restore(tr):
+        tr.load_checkpoint(ckpt)
+        tr.sampler.rng.setstate(saved[0])
+        tr.generator.set_state(saved[1])
+        for f, kf in scene.keyframes.items():
+            kf.remaining_times_of_use = saved[2][f]
+        tr._pending_losses = []
+
+    def eager():
+        for _ in range(WINDOW_STEPS):
+            pt.train_iteration()
+
+    def window(tr=pt):
+        took = tr.train_window(WINDOW_STEPS)
+        if took != WINDOW_STEPS:
+            raise RuntimeError(f"parallel_window: the window took {took} steps")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / WINDOW_STEPS
+
+    reset_launches()
+    eager_first_ms = timed(eager)  # loads the ground truths the steps draw
+    eager_launches = read_launches()
+    ref, (ref_losses, ref_counts) = _window_state(torch, pt), _pending(torch, pt)
+    restore(pt)
+    syncs = _sync_points(torch, pt.train_iteration)
+    densify_syncs = _summarize_syncs(_sync_points(torch, lambda: sharded_densify(
+        pt.mesh, pt.model, pt.opt_state, pt.generator, **pt._densify_kwargs(pt.iteration))))
+    restore(pt)
+    g = pt.step_graph
+    reset_launches()
+    window_first_ms = timed(window)
+    window_launches = read_launches()
+    got, (losses, counts) = _window_state(torch, pt), _pending(torch, pt)
+    unequal = [k for k in ref if not torch.equal(ref[k], got[k])]
+    losses_equal = torch.equal(ref_losses, losses)
+    first = {"captures": g.captures, "replays": g.replays, "capture_ms": g.capture_ms,
+             "warmup_ms": g.warmup_ms, "pool_mb": g.pool_mb}
+
+    # (b) the Trainer's graph window from the same state
+    st = Trainer(scene, cfg, seed=SEED, device="cuda")
+    restore(st)
+    window(st)
+    single, (single_losses, single_counts) = _window_state(torch, st), _pending(torch, st)
+    vs_trainer = {
+        "bitwise": all(torch.equal(got[k], single[k]) for k in got),
+        "losses_bitwise": torch.equal(losses, single_losses),
+        "max_loss_rel": float(((losses - single_losses).abs() / single_losses.abs()).max()),
+        "bar_ratio": {k: _bar_ratio(torch, got[k], single[k])
+                      for k in got if k.startswith(("model/", "mu/"))
+                      and got[k].is_floating_point()},
+        "trainer_pool_mb": st.step_graph.pool_mb,
+    }
+    del st, single
+
+    # (c) ms a step in turns; (e) each under profiling.trace
+    reset_launches()
+    window_ms, eager_ms = [], []
+    for turn in range(PAR_WINDOW_TURNS):
+        for name in (("window", "eager") if turn % 2 == 0 else ("eager", "window")):
+            (window_ms if name == "window" else eager_ms).append(
+                timed(window if name == "window" else eager))
+    traced = {"window": _traced_steps(torch, window, "parallel_window", WINDOW_STEPS),
+              "eager": _traced_steps(torch, eager, "parallel_eager", WINDOW_STEPS)}
+    later = read_launches()
+    line = {
+        "phase": "parallel_window", "mesh": [1, 1], "backend": "nccl",
+        "window_mode": pt.window_mode, "capacity": pt.model.capacity,
+        "camera": [pt.camera.width, pt.camera.height], "sh_degree": pt.sh_degree,
+        "iterations": [TRAIN_START + 1, TRAIN_START + WINDOW_STEPS],
+        "sync_points": syncs, "densify_sync_points": densify_syncs,
+        "tensors": len(ref), "unequal": unequal, "losses_equal": losses_equal,
+        "losses": losses.tolist(), "overflow_truncated": [counts, ref_counts],
+        "vs_trainer_window": vs_trainer,
+        "eager_ms_per_step": [eager_first_ms] + eager_ms,
+        "window_ms_per_step": [window_first_ms] + window_ms,
+        "first_window": first, "recaptures": g.captures - 1,
+        "gt_bank_rows": pt._gt_bank[1].shape[0], "gt_bank_device": str(pt._gt_bank[1].device),
+        "gt_bank_grows": pt.gt_bank_grows,
+        "launches_eager": eager_launches, "launches_window": window_launches,
+        "traced": traced, "nvidia_smi": nvidia_smi_line(),
+    }
+    emit(line)
+    steps = {"composite_seg_fwd": WINDOW_STEPS, "composite_seg_bwd": WINDOW_STEPS}
+    warm = {k: WINDOW_STEPS + WARMUP_STEPS for k in steps}
+    if syncs:
+        raise RuntimeError(f"parallel_window: synchronizing calls in an iteration: {syncs}")
+    if unequal or not losses_equal or counts != ref_counts:
+        raise RuntimeError(f"parallel_window: the graph window differs from the eager "
+                           f"iterations in {unequal}, losses equal {losses_equal}, "
+                           f"counters {counts} vs {ref_counts}")
+    if max(vs_trainer["bar_ratio"].values()) > 1.0:
+        raise RuntimeError(f"parallel_window: off the Trainer's window: {vs_trainer}")
+    if (first["captures"] != 1 or first["replays"] != WINDOW_STEPS or g.captures != 1
+            or not _only(eager_launches, steps) or not _only(window_launches, warm)
+            or not _only(later, {k: (2 * PAR_WINDOW_TURNS + 2) * v for k, v in steps.items()})):
+        raise RuntimeError(f"parallel_window: {first}, captures {g.captures}, launches eager "
+                           f"{eager_launches}, window {window_launches}, later {later}")
+    ckpt.unlink()
+    return {k: eager_launches[k] + window_launches[k] + later[k] for k in steps}
+
+
+def nccl_capture_phase(torch):
+    """Each collective the mesh runs, called directly on the script's
+    one-rank NCCL group (the mesh helpers skip a size-1 dim) on CUDA
+    tensors of NCCL_PROBE_N floats, captured into a CUDA graph after one
+    eager call: `all_gather_into_tensor`, `reduce_scatter_tensor`,
+    `all_reduce` with SUM and with MAX. NCCL_PROBE_REPLAYS replays on fresh
+    inputs, each output `torch.equal` to the eager call on the same input;
+    a replay's and an eager call's ms (CUDA events); the NCCL version."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world = dist.get_world_size()
+    n = NCCL_PROBE_N
+
+    def all_gather(x):
+        out = x.new_empty(n * world)
+        dist.all_gather_into_tensor(out, x)
+        return out
+
+    def reduce_scatter(x):
+        out = x.new_empty(n // world)
+        dist.reduce_scatter_tensor(out, x)
+        return out
+
+    def all_reduce(op):
+        def fn(x):
+            y = x.clone()
+            dist.all_reduce(y, op=op)
+            return y
+        return fn
+
+    ops = {"all_gather_into_tensor": all_gather, "reduce_scatter_tensor": reduce_scatter,
+           "all_reduce_sum": all_reduce(dist.ReduceOp.SUM),
+           "all_reduce_max": all_reduce(dist.ReduceOp.MAX)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name, fn in ops.items():
+        x = torch.randn(n, device=dev, generator=gen)
+        fn(x)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            y = fn(x)
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        equal = []
+        for _ in range(NCCL_PROBE_REPLAYS):
+            x.copy_(torch.randn(n, device=dev, generator=gen))
+            graph.replay()
+            equal.append(bool(torch.equal(y, fn(x.clone()))))
+        out[name] = {"equal": equal, "capture_ms": capture_ms,
+                     "replay_ms": time_ms(torch, graph.replay, 20),
+                     "eager_ms": time_ms(torch, lambda: fn(x), 20)}
+        del graph, y
+    line = {"phase": "nccl_capture", "backend": dist.get_backend(), "world_size": world,
+            "nccl_version": str(torch.cuda.nccl.version()),
+            "elements": n, "ops": out}
+    emit(line)
+    if not all(all(v["equal"]) for v in out.values()):
+        raise RuntimeError(f"nccl_capture: a replay differs from the eager call: {line}")
 
 
 class _Capture:
@@ -4034,7 +4266,7 @@ def _pair_work(rank, port):
                 ta, tk = tile_cap.args, tile_cap.kwargs
                 k3 = ct.composite_tile_fwd(*ta, **tk)
                 p3 = ct.composite_tile_fwd_plain(*ta, **tk)[:3]
-                res["window"] = {
+                res["tile_window"] = {
                     "tile_lo": a[6], "tiles": a[4], "tile_lo_bwd": b[8],
                     "fwd_bitwise": bool(torch.equal(kc, pc) and torch.equal(kt, pt)),
                     "bwd_bitwise": bool(torch.equal(kb, pb)),
@@ -4044,16 +4276,34 @@ def _pair_work(rank, port):
                     "tile_digest": _digest(*k3),
                 }
 
-            # PAIR_ITERS iterations of the trainer on the train scene
+            # PAIR_ITERS iterations of the trainer on the train scene; then
+            # from the same start (a new sampler refills the charges) one
+            # train_window, which stops before the densify at the last
             tcfg_ = train_config()
             tcfg_.tpu.mesh_data, tcfg_.tpu.mesh_gauss = data, gauss
-            tr = ParallelTrainer(scene, tcfg_, seed=SEED, device="cuda")
-            tr.init_from_sfm()
-            tr.iteration = TRAIN_START
+
+            def trainer():
+                tr = ParallelTrainer(scene, tcfg_, seed=SEED, device="cuda")
+                tr.init_from_sfm()
+                tr.iteration = TRAIN_START
+                return tr
+
+            def state(tr):
+                out = {f"model/{k}": getattr(tr.model, k).detach().clone() for k in FIELD_NAMES}
+                for m in ("mu", "nu"):
+                    out.update({f"{m}/{k}": v.clone()
+                                for k, v in getattr(tr.opt_state, m).items()})
+                return out
+
+            tr = trainer()
             reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            losses = [float(tr.train_iteration()["loss"]) for _ in range(PAIR_ITERS)]
+            losses = []
+            for i in range(PAIR_ITERS):
+                losses.append(float(tr.train_iteration()["loss"]))
+                if i == PAIR_ITERS - 2:
+                    before_densify = state(tr)
             torch.cuda.synchronize()
             res["iter_host_ms"] = (time.perf_counter() - t0) * 1e3 / PAIR_ITERS
             res["train_launches"] = read_launches()
@@ -4064,6 +4314,20 @@ def _pair_work(rank, port):
                 bool(torch.isfinite(p_).all()) for p_ in tr.model.params().values())
             res["live_gaussians"] = tr.live_gaussians()
             del tr
+            tw = trainer()
+            reset_launches()
+            took = tw.train_window(PAIR_ITERS)
+            torch.cuda.synchronize()
+            after = state(tw)
+            res["window"] = {
+                "mode": tw.window_mode, "took": took,
+                "losses": tw._pending_losses[0][0].tolist(),
+                "unequal": [k for k in after if not torch.equal(after[k], before_densify[k])],
+                "launches": read_launches(),
+            }
+            res["window"]["bitwise"] = (not res["window"]["unequal"]
+                                        and res["window"]["losses"] == losses[:took])
+            del tw, after, before_densify
             res["gloo_collectives"] = sorted(seen)
             out.append(res)
     finally:
@@ -4106,7 +4370,9 @@ def parallel_pair_phase(torch):
                            "memory inside its collectives)",
             "gloo_collectives": ranks[0]["gloo_collectives"],
             "seconds": time.perf_counter() - t0, "ranks": ranks,
-            "lockstep_bitwise": ranks[0]["losses"] == ranks[1]["losses"],
+            "lockstep_bitwise": ranks[0]["losses"] == ranks[1]["losses"]
+            and ranks[0]["window"]["losses"] == ranks[1]["window"]["losses"],
+            "window_mode": ranks[0]["window"]["mode"],
         }
         emit(line)
         fails = []
@@ -4122,17 +4388,23 @@ def parallel_pair_phase(torch):
                 fails.append(f"rank {r['rank']} trainer launches {tl}")
             if r["step_launches"]["composite_seg_bwd"] < 1 or r["render_launches"]["composite_tile_fwd"] < 1:
                 fails.append(f"rank {r['rank']} path skipped a kernel")
-            w = r.get("window")
+            w = r.get("tile_window")
             if w is not None and not (w["fwd_bitwise"] and w["bwd_bitwise"] and w["tile_fwd_bitwise"]
                                       and w["tile_lo"] > 0 and w["tile_lo_bwd"] > 0):
                 fails.append(f"rank {r['rank']} window kernels: {w}")
+            tw = r["window"]
+            if (tw["mode"] != "eager" or tw["took"] != PAIR_ITERS - 1 or not tw["bitwise"]
+                    or tw["launches"]["composite_seg_bwd"] != tw["took"]):
+                fails.append(f"rank {r['rank']} train_window: {tw}")
             for part in ("render_launches", "step_launches", "train_launches"):
                 for k, v in r[part].items():
                     launches[k] += v
+            for k, v in tw["launches"].items():
+                launches[k] += v
         if any(not c.endswith(":cuda") for c in line["gloo_collectives"]):
             fails.append(f"a collective ran on host tensors: {line['gloo_collectives']}")
-        if gauss == 2 and not any("window" in r for r in ranks):
-            fails.append("no rank checked a window")
+        if gauss == 2 and not any("tile_window" in r for r in ranks):
+            fails.append("no rank checked a tile window")
         if not line["lockstep_bitwise"]:
             fails.append("ranks logged different losses")
         if fails:
@@ -4305,10 +4577,22 @@ def main() -> int:
     tr, train_launches, seg_loss, train_ref = train_phase(torch, scene, "cuda")
     train_stages(torch, tr)
     del tr
-    # the multi-device path: one NCCL rank against the Trainer, two gloo
+    # the multi-device path: one NCCL rank against the Trainer (steps, then
+    # captured windows, then the collectives captured alone), two gloo
     # ranks sharing the card, the scaling harness, and the point ops
-    par_launches = parallel_phase(torch, scene, train_ref)
-    del train_ref
+    import torch.distributed as dist
+
+    from omnigs_torch.parallel.distributed import initialize
+
+    initialize("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        par_launches = parallel_phase(torch, scene, train_ref)
+        del train_ref
+        pwin_launches = parallel_window_phase(
+            torch, np, train_scene(torch, np, model, camera, pose_list, cfg))
+        nccl_capture_phase(torch)
+    finally:
+        dist.destroy_process_group()
     pair_launches = parallel_pair_phase(torch)
     scaling_launches = scaling_phase(torch)
     point_ops_phase(torch, np)
@@ -4389,9 +4673,11 @@ def main() -> int:
     more_bwd = (pinhole_launches["composite_seg_bwd"] + pyramid_launches["composite_seg_bwd"]
                 + live_launches["composite_seg_bwd"] + trace_launches["composite_seg_bwd"]
                 + window_launches["composite_seg_bwd"])
-    # the multi-device path: the (1, 1) trainer, both gloo ranks' renders,
-    # steps and trainer iterations, the scaling harness
-    multi = {k: par_launches[k] + pair_launches[k] + scaling_launches[k] for k in par_launches}
+    # the multi-device path: the (1, 1) trainer's steps and windows, both
+    # gloo ranks' renders, steps, trainer iterations and windows, the
+    # scaling harness
+    multi = {k: par_launches[k] + pair_launches[k] + scaling_launches[k]
+             + pwin_launches.get(k, 0) for k in par_launches}
     # the measurement layer: kernel_bench (#1-#5), subtile_analysis (#3),
     # the roofline's steps and converged_bench (#1, #2)
     measure = {k: bench_launches[k] + subtile_launches[k] + roof_launches[k] + conv_launches[k]
@@ -4411,6 +4697,7 @@ def main() -> int:
             + fallback_launches["segmented"] + cli_launches["composite_seg_fwd"] + more_fwd
             + multi["composite_seg_fwd"] + measure["composite_seg_fwd"],
             "launches_parallel": par_launches["composite_seg_fwd"],
+            "launches_parallel_window": pwin_launches["composite_seg_fwd"],
             "launches_parallel_pair": pair_launches["composite_seg_fwd"],
             "launches_scaling": scaling_launches["composite_seg_fwd"],
             "launches_render": render_launches,
@@ -4445,6 +4732,7 @@ def main() -> int:
             + cli_launches["composite_seg_bwd"] + more_bwd + multi["composite_seg_bwd"]
             + measure["composite_seg_bwd"],
             "launches_parallel": par_launches["composite_seg_bwd"],
+            "launches_parallel_window": pwin_launches["composite_seg_bwd"],
             "launches_parallel_pair": pair_launches["composite_seg_bwd"],
             "launches_scaling": scaling_launches["composite_seg_bwd"],
             "launches_train": train_launches["composite_seg_bwd"],

@@ -101,7 +101,8 @@ class TpuParams:
     tight_culling: bool = True
     tile_culling: bool = True  # exact ellipse-box culling (pallas backend)
     aligned_cap: int = 0  # live-slab cap; 0 = uncapped (never drops tiles)
-    # training-loop knobs of the JAX trainer (read, not yet used here)
+    # training-loop knobs: where the ground-truth bank lives, the window
+    # length, the (data, gauss) mesh and the views a data row takes a step
     gt_bank_mb: int = 2048
     fuse_steps: int = 24
     mesh_data: int = 1  # view-parallel axis size

@@ -37,12 +37,21 @@ threshold sees it.
 Densification runs on each shard into the shard's own free slots, with the
 split noise of a per-rank generator (`shard_generator`), its counts summed
 over ``gauss``.
+
+`sharded_train_steps_fused` takes K sharded iterations between events (JAX's
+`make_sharded_train_window`): on a CUDA device under NCCL as K replays of
+one sharded step captured as a CUDA graph (`train.trainer.StepGraph`), its
+views read from the rank's banks at a device-side cursor; on the CPU or
+under gloo, whose collectives stage through the host and cannot be
+captured, as the same step body run K times (`window_mode`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
@@ -52,7 +61,7 @@ from omnigs_torch.model import densify as densify_ops
 from omnigs_torch.model import optimizer as opt_ops
 from omnigs_torch.model.gaussians import GaussianModel
 from omnigs_torch.ops import loss as loss_ops
-from omnigs_torch.ops.preprocess import Preprocessed, preprocess, tile_grid
+from omnigs_torch.ops.preprocess import Preprocessed, device_constant, preprocess, tile_grid
 from omnigs_torch.ops.rasterize import RasterConfig, _composite, _tiles_to_image
 from omnigs_torch.parallel.mesh import (
     DATA_AXIS,
@@ -63,6 +72,7 @@ from omnigs_torch.parallel.mesh import (
     axis_size,
     reduce_scatter,
 )
+from omnigs_torch.train.trainer import StepGraph, _state_tensors, capture_key, window_index
 
 
 class _AllGatherRows(torch.autograd.Function):
@@ -131,7 +141,8 @@ def _render_image_sharded(
         active_mask=model.active, tight_culling=cfg.tight_culling,
     )
     if means2d_ndc is not None:
-        half = torch.tensor([camera.width * 0.5, camera.height * 0.5], device=viewmatrix.device)
+        half = device_constant((camera.width * 0.5, camera.height * 0.5), viewmatrix.device,
+                               torch.float32)
         prep = prep._replace(means2d=prep.means2d + means2d_ndc * half)
     full = _gather_prep(prep, mesh) if n_gauss > 1 else prep
     color_t, _, _, overflow, truncated = _composite(
@@ -269,6 +280,110 @@ def sharded_train_step(
         loss=losses[0], l1=losses[1], overflow=counters[0], truncated=counters[1],
         image=image.detach(),
     )
+
+
+def window_mode(device) -> str:
+    """How `sharded_train_steps_fused` runs a window on ``device`` in the
+    initialized process group: ``"graph"`` (replays of one step captured as
+    a CUDA graph) on a CUDA device under NCCL, whose collectives a graph
+    can capture; ``"eager"`` (the same step body run step by step) on the
+    CPU or under gloo, which stages through the host."""
+    cuda = torch.device(device).type == "cuda"
+    return "graph" if cuda and dist.get_backend() == "nccl" else "eager"
+
+
+def _any_rank(flag: bool, device) -> bool:
+    """``flag`` or'ed over every rank (a host round trip)."""
+    t = torch.full((1,), int(flag), dtype=torch.int32, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def sharded_train_steps_fused(
+    mesh: DeviceMesh,
+    model: GaussianModel,
+    opt_state: opt_ops.AdamState,
+    viewmatrices: torch.Tensor,
+    camposes: torch.Tensor,
+    gt_images: torch.Tensor,
+    pose_rows: np.ndarray,
+    gt_rows: np.ndarray,
+    step0: int,
+    *,
+    graph=None,
+    lock=None,
+    camera: Camera,
+    sh_degree: int,
+    raster_cfg: RasterConfig,
+    lr_cfg: opt_ops.LRConfig,
+    spatial_lr_scale: float,
+    bg: torch.Tensor,
+    lambda_dssim: float = 0.2,
+    skip_bottom_px: int = 0,
+    update_stats: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K sharded iterations between event iterations on this rank's shard,
+    in place (JAX's `make_sharded_train_window`). Step i (from 0) takes
+    this rank's V views: rows ``pose_rows[i]`` of the (N, 4, 4)
+    ``viewmatrices`` and (N, 3) ``camposes`` banks, rows ``gt_rows[i]`` of
+    the (M, 3, H, W) ``gt_images`` bank, and the step number step0 + i + 1,
+    as `sharded_train_step` with Adam on and the opacity LR kept: a window
+    ends before every event iteration. Returns (losses (K,), Σoverflow,
+    Σtruncated), each totalled over the mesh, on the device.
+
+    In `window_mode` "graph" the K steps are K replays of ``graph`` (a
+    `train.trainer.StepGraph`, captured again when its key changed on any
+    rank; a new one when None), the step reading its index row at the
+    graph's cursor; a capture or replay that fails raises. In "eager" the
+    same step body runs K times. ``gt_images`` may be a host bank, whose
+    window rows are uploaded once. ``lock`` (a context manager) is held for
+    each step."""
+    pose_rows = np.asarray(pose_rows, np.int64)
+    gt_rows = np.asarray(gt_rows, np.int64)
+    k, n_views = pose_rows.shape
+    lock = contextlib.nullcontext() if lock is None else lock
+    kw = dict(camera=camera, sh_degree=sh_degree, raster_cfg=raster_cfg, lr_cfg=lr_cfg,
+              spatial_lr_scale=spatial_lr_scale, bg=bg, lambda_dssim=lambda_dssim,
+              skip_bottom_px=skip_bottom_px, update_stats=update_stats)
+    dev = model.xyz.device
+    mode = window_mode(dev)
+    if mode == "graph":
+        graph = StepGraph() if graph is None else graph
+        graph.reserve(dev, k, 2 * n_views + 1)
+    if gt_images.device != dev:
+        # a host bank: the window's rows uploaded once, row j·V + v
+        if mode == "graph":
+            gt_images = graph.stage_gt(gt_images, gt_rows, dev)
+        else:
+            gt_images = gt_images[torch.from_numpy(gt_rows.reshape(-1))].to(dev)
+        gt_rows = np.arange(k * n_views).reshape(k, n_views)
+    idx = window_index(pose_rows, gt_rows, step0)
+
+    def body(r):  # V pose rows, V ground-truth rows, the step number
+        aux = sharded_train_step(
+            mesh, model, opt_state,
+            viewmatrices.index_select(0, r[:n_views]),
+            camposes.index_select(0, r[:n_views]),
+            gt_images.index_select(0, r[n_views : 2 * n_views]),
+            r[2 * n_views].to(torch.int32),
+            do_adam=True, skip_opacity_update=False, **kw,
+        )
+        return aux["loss"], aux["overflow"], aux["truncated"]
+
+    if mode == "eager":
+        rows = torch.from_numpy(idx).to(dev)
+        out = []
+        for i in range(k):
+            with lock:
+                out.append(body(rows[i]))
+        losses, overflow, truncated = (torch.stack(x) for x in zip(*out))
+        return losses, overflow.sum(), truncated.sum()
+    key = capture_key(model, opt_state, viewmatrices, camposes, gt_images, None, mesh=mesh,
+                      views=n_views, **kw)
+    # every rank captures, or none: a warm-up step runs the mesh's collectives
+    if dist.get_world_size() > 1 and _any_rank(key != graph.key, dev):
+        graph.key = None
+    return graph.replay(idx, key, body, _state_tensors(model, opt_state), lock)
 
 
 def shard_generator(seed: int, mesh: DeviceMesh, device) -> torch.Generator:

@@ -63,6 +63,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from omnigs_torch.cameras import Camera
 from omnigs_torch.config import Config, raster_config_from
@@ -202,6 +203,25 @@ WARMUP_STEPS = 2
 REPLAYS_IN_FLIGHT = 2
 
 
+def _state_tensors(model: GaussianModel, opt_state: opt_ops.AdamState) -> list:
+    """Every tensor a step writes in place: the model's fields, the Adam
+    moments and count."""
+    state = [getattr(model, k) for k in FIELD_NAMES]
+    state += [opt_state.mu[k] for k in PARAM_NAMES] + [opt_state.nu[k] for k in PARAM_NAMES]
+    return state + [opt_state.count]
+
+
+def mesh_key(mesh) -> tuple:
+    """What a sharded step bakes in of its `DeviceMesh`: the mesh's shape,
+    this rank's coordinates and the ranks of each dim's process group."""
+    return (
+        tuple(mesh.mesh.shape),
+        tuple(mesh.get_coordinate()),
+        tuple(tuple(dist.get_process_group_ranks(mesh.get_group(d)))
+              for d in mesh.mesh_dim_names),
+    )
+
+
 def capture_key(
     model: GaussianModel,
     opt_state: opt_ops.AdamState,
@@ -210,17 +230,18 @@ def capture_key(
     gt_images: torch.Tensor,
     mask: Optional[torch.Tensor],
     bg: torch.Tensor,
+    *,
+    mesh=None,
     **static,
 ) -> tuple:
     """What a captured step bakes in: the Python values of its launches
     (camera, SH degree, update_stats, LRs, λ, crop, raster config — the
-    ``static`` keywords of `train_steps_fused`), the capacity, and the
-    address of every tensor it reads or writes in place (model, Adam
-    state, statistics, banks, mask, background). A graph whose key differs
-    is captured again."""
-    tensors = [getattr(model, k) for k in FIELD_NAMES]
-    tensors += [opt_state.mu[k] for k in PARAM_NAMES] + [opt_state.nu[k] for k in PARAM_NAMES]
-    tensors += [opt_state.count, viewmatrices, camposes, gt_images, bg]
+    ``static`` keywords of `train_steps_fused`; a sharded step adds its
+    views a rank), the capacity, the address of every tensor it reads or
+    writes in place (model, Adam state, statistics, banks, mask,
+    background) and, for a sharded step, its ``mesh`` (`mesh_key`). A
+    graph whose key differs is captured again."""
+    tensors = _state_tensors(model, opt_state) + [viewmatrices, camposes, gt_images, bg]
     if mask is not None:
         tensors.append(mask)
     return (
@@ -229,22 +250,37 @@ def capture_key(
         tuple(t.shape for t in (viewmatrices, gt_images)),
         mask is None,
         tuple(t.data_ptr() for t in tensors),
+        None if mesh is None else mesh_key(mesh),
     )
 
 
-class StepGraph:
-    """One `train_step` captured as a CUDA graph: the device program of
-    `train_steps_fused` on the card (JAX's `lax.scan` body).
+def window_index(pose_rows, gt_rows, step0: int) -> np.ndarray:
+    """The (k, 2·V + 1) int64 index a window stages for its k steps: each
+    step's V pose rows, its V ground-truth rows and its step number step0 +
+    i + 1. A (k,) ``pose_rows`` / ``gt_rows`` is one view a step: the
+    `Trainer`'s (k, 3) layout."""
+    pose_rows = np.asarray(pose_rows, np.int64).reshape(len(pose_rows), -1)
+    gt_rows = np.asarray(gt_rows, np.int64).reshape(len(gt_rows), -1)
+    steps = step0 + 1 + np.arange(len(pose_rows), dtype=np.int64)
+    return np.concatenate([pose_rows, gt_rows, steps[:, None]], axis=1)
 
-    The captured step reads its pose row, ground-truth row and step number
-    at a device-side cursor from a (K_max, 3) staged index buffer, gathers
-    pose, campos and ground truth from the banks, writes its loss, overflow
-    and truncated at the cursor into (K_max,) buffers, and advances the
-    cursor. A window of k ≤ K_max steps is one host → device copy of its
-    rows and k replays, at most REPLAYS_IN_FLIGHT of them queued at a time;
-    one capture serves every k. The graph is captured
-    again when `capture_key` changes. Nothing outside the graph keeps a
-    tensor the graph writes: a window returns copies.
+
+class StepGraph:
+    """One training step captured as a CUDA graph: the device program of
+    `train_steps_fused` and of `parallel.shard.sharded_train_steps_fused`
+    on the card (JAX's `lax.scan` body).
+
+    The captured step reads its row of a (K_max, C) staged index buffer at
+    a device-side cursor — the `Trainer`'s step C = 3 columns (pose row,
+    ground-truth row, step number), a sharded step of V views a rank C =
+    2·V + 1 (V pose rows, V ground-truth rows, the step number) — gathers
+    its inputs from the banks, writes its loss, overflow and truncated at
+    the cursor into (K_max,) buffers, and advances the cursor. A window of
+    k ≤ K_max steps is one host → device copy of its rows and k replays, at
+    most REPLAYS_IN_FLIGHT of them queued at a time; one capture serves
+    every k. The graph is captured again when its key (`capture_key`)
+    changes. Nothing outside the graph keeps a tensor the graph writes: a
+    window returns copies.
 
     Each wrapper in STEP_KERNELS counts its launches where it launches: the
     capture launches nothing (its counts are taken back) and each replay
@@ -262,47 +298,45 @@ class StepGraph:
         self.pool_mb = 0.0  # device memory the last capture reserved for its pool
         self._per_replay: Tuple[tuple, ...] = ()
         self._gt_stage: Optional[torch.Tensor] = None
+        self.rows: Optional[torch.Tensor] = None
 
-    def _alloc(self, device, k_max: int):
-        """The staged index buffer, the cursor and the (K_max,) outputs."""
-        self.k_max = k_max
-        self.rows = torch.zeros(k_max, 3, dtype=torch.int64, device=device)
+    def reserve(self, device, k: int, cols: int):
+        """The staged (K_max, ``cols``) index buffer, the cursor and the
+        (K_max,) outputs for a window of ``k`` steps: allocated again (and
+        the graph dropped) when k exceeds K_max or the layout changes."""
+        if k <= self.k_max and self.rows.shape[1] == cols:
+            return
+        self.k_max = k
+        self.rows = torch.zeros(k, cols, dtype=torch.int64, device=device)
         self.cursor = torch.zeros((), dtype=torch.int64, device=device)
-        self.loss = torch.zeros(k_max, dtype=torch.float32, device=device)
-        self.overflow = torch.zeros(k_max, dtype=torch.int32, device=device)
-        self.truncated = torch.zeros(k_max, dtype=torch.int32, device=device)
+        self.loss = torch.zeros(k, dtype=torch.float32, device=device)
+        self.overflow = torch.zeros(k, dtype=torch.int32, device=device)
+        self.truncated = torch.zeros(k, dtype=torch.int32, device=device)
         self.graph, self.key = None, None
 
-    def _stage_gt(self, gt_bank: torch.Tensor, gt_rows, device) -> torch.Tensor:
-        """Upload the window's rows of a host ground-truth bank (pinned: the
-        copies run on the stream, no host wait) into a (K_max, 3, H, W)
-        device buffer; row j holds step j's ground truth."""
-        shape = (self.k_max,) + tuple(gt_bank.shape[1:])
+    def stage_gt(self, gt_bank: torch.Tensor, gt_rows: np.ndarray, device) -> torch.Tensor:
+        """Upload the window's (k, V) ``gt_rows`` of a host ground-truth bank
+        (pinned: the copies run on the stream, no host wait) into a
+        (K_max·V, 3, H, W) device buffer; row j·V + v holds step j's view
+        v."""
+        flat = np.asarray(gt_rows).reshape(len(gt_rows), -1)
+        shape = (self.k_max * flat.shape[1],) + tuple(gt_bank.shape[1:])
         if self._gt_stage is None or self._gt_stage.shape != shape:
             self._gt_stage = None
             self._gt_stage = torch.empty(shape, dtype=gt_bank.dtype, device=device)
-        for j, r in enumerate(gt_rows):
+        for j, r in enumerate(flat.reshape(-1)):
             self._gt_stage[j].copy_(gt_bank[int(r)], non_blocking=True)
         return self._gt_stage
 
-    def _step_fn(self, model, opt_state, vms, cps, gts, mask, kw):
+    def _step_fn(self, body):
+        """The captured step: ``body(row)`` on the cursor's row of the
+        staged index → (loss, overflow, truncated), written at the cursor."""
         def step():
             i = self.cursor.view(1)
-            r = self.rows.index_select(0, i)[0]  # pose row, GT row, step number
-            aux = train_step(
-                model, opt_state,
-                vms.index_select(0, r[0:1])[0],
-                cps.index_select(0, r[0:1])[0],
-                gts.index_select(0, r[1:2])[0],
-                r[2].to(torch.int32),
-                mask,
-                do_adam=True,
-                skip_opacity_update=False,
-                **kw,
-            )
-            self.loss.index_copy_(0, i, aux["loss"].view(1))
-            self.overflow.index_copy_(0, i, aux["overflow"].view(1))
-            self.truncated.index_copy_(0, i, aux["truncated"].view(1))
+            loss, overflow, truncated = body(self.rows.index_select(0, i)[0])
+            self.loss.index_copy_(0, i, loss.view(1))
+            self.overflow.index_copy_(0, i, overflow.view(1))
+            self.truncated.index_copy_(0, i, truncated.view(1))
             self.cursor += 1
 
         return step
@@ -339,7 +373,8 @@ class StepGraph:
         t0 = time.perf_counter()
         # thread-local: a live viewer's request thread may make CUDA calls
         # of its own while the training thread captures (never into this
-        # stream: it renders under the trainer's lock, which the capture holds)
+        # stream: it renders under the trainer's lock, which the capture
+        # holds), and so may the NCCL watchdog
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             step()
         self.capture_ms = (time.perf_counter() - t0) * 1e3
@@ -354,30 +389,20 @@ class StepGraph:
         self.graph, self.key = graph, key
         self.captures += 1
 
-    def run(self, model, opt_state, vms, cps, gts, rows, step0: int, mask, lock,
-            kw) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The window's k = len(rows) steps as graph replays (captured first
-        if the key changed) → (losses (k,), Σoverflow, Σtruncated)."""
-        dev = model.xyz.device
-        k = len(rows)
-        if k > self.k_max:
-            self._alloc(dev, k)
-        gt_rows = rows
-        if gts.device != dev:
-            gts = self._stage_gt(gts, rows, dev)
-            gt_rows = np.arange(k)
-        idx = np.stack([rows, gt_rows, step0 + 1 + np.arange(k)], axis=1).astype(np.int64)
+    def replay(self, idx: np.ndarray, key, body, state, lock
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The window's k = len(idx) steps: ``idx`` (k, C) staged, the step
+        ``body`` captured first if ``key`` differs from the graph's (with
+        ``state``, the tensors it writes in place: `_state_tensors`), then k
+        replays → (losses (k,), Σoverflow, Σtruncated). The buffers must
+        have been reserved for k and C."""
+        k = len(idx)
         # pinned: the copy runs on the stream, and the host allocator keeps
         # the block until it has
         self.rows[:k].copy_(torch.from_numpy(idx).pin_memory(), non_blocking=True)
-        key = capture_key(model, opt_state, vms, cps, gts, mask, **kw)
         if key != self.key:
-            state = [getattr(model, n) for n in FIELD_NAMES]
-            state += [opt_state.mu[n] for n in PARAM_NAMES] + [opt_state.nu[n] for n in PARAM_NAMES]
-            state.append(opt_state.count)
             with lock:
-                self._capture(key, self._step_fn(model, opt_state, vms, cps, gts, mask, kw),
-                              state)
+                self._capture(key, self._step_fn(body), state)
         self.cursor.zero_()
         queued = collections.deque()
         for _ in range(k):
@@ -392,6 +417,37 @@ class StepGraph:
             queued.append(done)
         self.replays += k
         return self.loss[:k].clone(), self.overflow[:k].sum(), self.truncated[:k].sum()
+
+    def run(self, model, opt_state, vms, cps, gts, rows, step0: int, mask, lock,
+            kw) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The `Trainer`'s window of k = len(rows) steps as graph replays
+        (captured first if the key changed) → (losses (k,), Σoverflow,
+        Σtruncated)."""
+        dev = model.xyz.device
+        k = len(rows)
+        self.reserve(dev, k, 3)
+        gt_rows = rows
+        if gts.device != dev:
+            gts = self.stage_gt(gts, rows, dev)
+            gt_rows = np.arange(k)
+        idx = window_index(rows, gt_rows, step0)
+
+        def body(r):  # pose row, GT row, step number
+            aux = train_step(
+                model, opt_state,
+                vms.index_select(0, r[0:1])[0],
+                cps.index_select(0, r[0:1])[0],
+                gts.index_select(0, r[1:2])[0],
+                r[2].to(torch.int32),
+                mask,
+                do_adam=True,
+                skip_opacity_update=False,
+                **kw,
+            )
+            return aux["loss"], aux["overflow"], aux["truncated"]
+
+        key = capture_key(model, opt_state, vms, cps, gts, mask, **kw)
+        return self.replay(idx, key, body, _state_tensors(model, opt_state), lock)
 
 
 def train_steps_fused(
@@ -580,8 +636,8 @@ class Trainer:
     def _gt(self, kf, level_camera=None) -> torch.Tensor:
         """The keyframe's (3, H, W) ground truth on the device, at the
         pyramid level's size (cv2 INTER_AREA on the host) when given, kept
-        per (keyframe, level): the pyramid's and the sharded trainer's
-        source (the single-device trainer otherwise reads the banks)."""
+        per (keyframe, level): the pyramid's source (the trainer otherwise
+        reads the banks)."""
         key = (kf.fid, None if level_camera is None else level_camera.width)
         if key not in self._gt_cache:
             img = kf.image
@@ -682,7 +738,7 @@ class Trainer:
 
     def _pose(self, kf):
         """The keyframe's (viewmatrix, campos) on the device, cached per
-        keyframe (the pyramid's and the sharded trainer's source)."""
+        keyframe (the pyramid's source)."""
         if kf.fid not in self._pose_cache:
             self._pose_cache[kf.fid] = (
                 torch.as_tensor(kf.viewmatrix, device=self.device),

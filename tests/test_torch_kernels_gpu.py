@@ -23,7 +23,11 @@ P that is not a multiple of its transpose tile), #7 (bitwise) and #8
 and a past-the-slab tile); renders through the ghost-aligned,
 no-presort and XLA layouts on the card against the CPU at 1e-5; the
 training window's CUDA graph (segmented, tile-major, and with the
-ground-truth bank on the host) bitwise equal to eager iterations."""
+ground-truth bank on the host) bitwise equal to eager iterations; on a
+one-rank NCCL group, the sharded window of a (1, 1) `ParallelTrainer`
+(captured sharded step, ground-truth bank on the card and on the host)
+bitwise equal to its eager iterations, and each collective the mesh runs
+captured into a graph, its replays equal to the eager call."""
 
 import numpy as np
 import pytest
@@ -685,11 +689,11 @@ def test_tile_kernels_on_a_tile_window_match_plain():
                        tct.composite_tile_bwd_plain(*args, color_full, dcolor, n_tiles))
 
 
-def _window_trainer(layout):
-    """A Trainer on the card over a three-view 128×64 scene (ground truths
-    the port's renders of a seeded cloud on the CPU), segmented or
-    tile-major, its ground-truth bank on the card or (``host_bank``) on the
-    host."""
+def _window_trainer(layout, cls=None):
+    """A Trainer (or ``cls``, a `ParallelTrainer` on the process group's
+    mesh) on the card over a three-view 128×64 scene (ground truths the
+    port's renders of a seeded cloud on the CPU), segmented or tile-major,
+    its ground-truth bank on the card or (``host_bank``) on the host."""
     import dataclasses
 
     import omnigs_torch.config as tconfig
@@ -721,7 +725,7 @@ def _window_trainer(layout):
         want_ncontrib=int(layout == "tile_major"),
         gt_bank_mb=0 if layout == "host_bank" else cfg.tpu.gt_bank_mb,
     )
-    tr = Trainer(scene, cfg, seed=7, device="cuda")
+    tr = (cls or Trainer)(scene, cfg, seed=7, device="cuda")
     tr.init_from_sfm()
     return tr
 
@@ -759,3 +763,101 @@ def test_graph_window_equals_eager_iterations(layout):
     assert torch.equal(la, lb) and bool(torch.isfinite(la).all())
     assert a.drain_losses() == b.drain_losses() and a.ema_loss == b.ema_loss
     assert a.total_truncated == b.total_truncated == 0
+
+
+@pytest.fixture(scope="module")
+def nccl_rank():
+    """A one-rank NCCL process group on the card for the module's tests."""
+    import socket
+
+    import torch.distributed as dist
+
+    from omnigs_torch.parallel.distributed import initialize
+
+    _cuda()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["segmented", "host_bank"])
+def test_sharded_graph_window_equals_eager_iterations(nccl_rank, layout):
+    """A (1, 1) `ParallelTrainer` under NCCL: two 5-step `train_window`s in
+    graph mode (one capture, ten replays of the sharded step) against ten
+    `train_iteration`s from the same state, every model field, Adam moment
+    and count and every loss `torch.equal`; #1 counted once a replay and
+    once a warm-up step."""
+    from omnigs_torch.model.gaussians import FIELD_NAMES
+    from omnigs_torch.train.trainer import WARMUP_STEPS
+    from omnigs_torch.train.trainer_parallel import ParallelTrainer
+
+    a = _window_trainer(layout, ParallelTrainer)
+    b = _window_trainer(layout, ParallelTrainer)
+    assert a.window_mode == "graph"
+    n0 = tcs.composite_seg_fwd.launches
+    for _ in range(2):
+        assert a.train_window(5) == 5
+        for _ in range(5):
+            b.train_iteration()
+    torch.cuda.synchronize()
+    assert a.iteration == b.iteration == 10
+    assert a.step_graph.captures == 1 and a.step_graph.replays == 10
+    assert tcs.composite_seg_fwd.launches - n0 == 10 + WARMUP_STEPS + 10
+    assert (a._gt_bank[1].device.type == "cpu") is (layout == "host_bank")
+    for k in FIELD_NAMES:
+        assert torch.equal(getattr(a.model, k), getattr(b.model, k)), k
+    for m in ("mu", "nu"):
+        for k, v in getattr(a.opt_state, m).items():
+            assert torch.equal(v, getattr(b.opt_state, m)[k]), f"{m}/{k}"
+    assert torch.equal(a.opt_state.count, b.opt_state.count)
+    la = torch.cat([x.reshape(-1) for x, _, _ in a._pending_losses])
+    lb = torch.stack([x for x, _, _ in b._pending_losses])
+    assert torch.equal(la, lb) and bool(torch.isfinite(la).all())
+
+
+@pytest.mark.gpu
+def test_nccl_collectives_capture(nccl_rank):
+    """Each collective the mesh runs, called directly on the one-rank NCCL
+    group and captured into a CUDA graph: three replays on fresh inputs
+    `torch.equal` to the eager call on the same inputs."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = 1 << 16
+
+    def gather(x):
+        out = torch.empty_like(x)  # one rank: the gathered rows are its own
+        dist.all_gather_into_tensor(out, x)
+        return out
+
+    def scatter(x):
+        out = torch.empty_like(x)
+        dist.reduce_scatter_tensor(out, x)
+        return out
+
+    def reduce(op):
+        def fn(x):
+            y = x.clone()
+            dist.all_reduce(y, op=op)
+            return y
+        return fn
+
+    ops = {"all_gather_into_tensor": gather, "reduce_scatter_tensor": scatter,
+           "all_reduce_sum": reduce(dist.ReduceOp.SUM),
+           "all_reduce_max": reduce(dist.ReduceOp.MAX)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, fn in ops.items():
+        x = torch.randn(n, device=dev, generator=gen)
+        fn(x)  # the communicator and the stream exist before the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn(x)
+        for _ in range(3):
+            x.copy_(torch.randn(n, device=dev, generator=gen))
+            graph.replay()
+            assert torch.equal(out, fn(x.clone())), name

@@ -22,6 +22,7 @@ steps' losses.
 import dataclasses
 
 import numpy as np
+import pytest
 
 from omnigs_tpu.cameras import Camera, CameraType
 from omnigs_tpu.config import Config
@@ -48,22 +49,41 @@ def _jax_scene(data):
     return scene
 
 
-def test_parallel_trainer_matches_jax(tmp_path):
+def _jax_run(jt, plan):
+    """JAX's logged losses over ITERS iterations: single steps, or windows of
+    up to three with a single step at each event (as
+    tests/test_parallel_trainer.py::test_fused_window_matches_single_steps)."""
+    if plan == "step":
+        for _ in range(ITERS):
+            jt.train_iteration()
+    else:
+        while jt.iteration < ITERS:
+            if jt.train_window(min(3, ITERS - jt.iteration)) == 0:
+                jt.train_iteration()
+    return np.concatenate([np.atleast_1d(np.asarray(x)) for x, _, _ in jt._pending_losses])
+
+
+@pytest.mark.parametrize("plan", ["step", "window"])
+def test_parallel_trainer_matches_jax(tmp_path, plan):
+    """The trajectories agree at the bars above, JAX's single steps or
+    scanned windows (`make_sharded_train_window`) against the port's
+    single steps or windows (`sharded_train_steps_fused`, eager on gloo)."""
     data = scene_np(0, 64, 32, 4)
     cfg = Config()
-    cfg.tpu = dataclasses.replace(cfg.tpu, **TPU, mesh_data=2, mesh_gauss=4)
+    cfg.tpu = dataclasses.replace(cfg.tpu, **TPU, mesh_data=2, mesh_gauss=4, fuse_steps=3)
     for k, v in OPT.items():
         setattr(cfg.opt, k, v)
     jt = JParallelTrainer(_jax_scene(data), cfg)
     jt.init_from_sfm()
-    ref_losses = np.array([float(jt.train_iteration()) for _ in range(ITERS)])
+    ref_losses = _jax_run(jt, plan)
     ref = jt.host_model()
 
     ranks = run_ranks(
-        tmp_path, 4, trainer_worker, data, dict(TPU, mesh_data=2, mesh_gauss=2),
-        OPT, 0, [("step", ITERS)],
+        tmp_path, 4, trainer_worker, data, dict(TPU, mesh_data=2, mesh_gauss=2, fuse_steps=3),
+        OPT, 0, [(plan, ITERS)],
     )
     got = ranks[0]
+    assert len(ref_losses) == ITERS
     np.testing.assert_allclose(got["losses"], ref_losses, rtol=1e-5)
     lr = dict(xyz=cfg.opt.position_lr_init * jt.cameras_extent,
               features_dc=cfg.opt.feature_lr, features_rest=cfg.opt.feature_lr / 20,
@@ -81,17 +101,25 @@ def test_parallel_trainer_matches_jax(tmp_path):
     for r in ranks[1:]:
         assert np.array_equal(r["losses"], got["losses"])
         assert r["model"] is None and r["iteration"] == ITERS
+    # windows 1-3, 4-6, 7-9, the densify-phase start 10, 11-13, 14-16, 17-19
+    assert all(r["window_mode"] == "eager" for r in ranks)
+    assert got["windows"] == (6 if plan == "window" else 0)
 
 
-def test_parallel_train_window_matches_single_steps(tmp_path):
-    """Windows of `train_window` (ending before every event) log the single
-    steps' losses, on mesh (1, 2) across the densify at iteration 8."""
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_parallel_train_window_matches_single_steps(tmp_path, mesh):
+    """Windows of `train_window` (ending before every event; the cursor-driven
+    step body of `sharded_train_steps_fused`, run eagerly on gloo) log the
+    single steps' losses and leave the same model, bit for bit, across the
+    densify at iteration 8; every rank in lock-step."""
     data = scene_np(9, 32, 16, 3)
-    tpu = dict(TPU, capacity=64, mesh_data=1, mesh_gauss=2, fuse_steps=3)
+    tpu = dict(TPU, capacity=64, mesh_data=mesh[0], mesh_gauss=mesh[1], fuse_steps=3)
     opt = dict(OPT, densify_from_iter=4, densification_interval=4)
     steps = run_ranks(tmp_path, 2, trainer_worker, data, tpu, opt, 2, [("step", 11)])
     windows = run_ranks(tmp_path, 2, trainer_worker, data, tpu, opt, 2, [("window", 11)])
     for a, b in zip(steps, windows):
         assert np.array_equal(a["losses"], b["losses"])
+        assert b["window_mode"] == "eager" and b["windows"] >= 3
+    assert np.array_equal(windows[0]["losses"], windows[1]["losses"])
     for k in PARAMS:
         assert np.array_equal(steps[0]["model"][k], windows[0]["model"][k]), k

@@ -220,12 +220,16 @@ def densify_worker(rank, gauss, fields, opt_np, noise, kw):
 
 def trainer_worker(rank, scene_np, tpu, opt, seed, plan, ckpt=None):
     """A `ParallelTrainer` run: ``plan`` is a list of ("step", n) and
-    ("window", k) items → every rank's logged losses, and on rank 0 the
-    gathered model (and, with ``ckpt``, the checkpoint written there)."""
+    ("window", n) items (n iterations as `train_iteration`s, or as windows
+    of up to ``Tpu.fuse_steps`` with a single step at each event) → every
+    rank's logged losses, the window mode and the windows taken, and on
+    rank 0 the gathered model (and, with ``ckpt``, the checkpoint written
+    there)."""
     from omnigs_torch.train.trainer_parallel import ParallelTrainer
 
     tr = ParallelTrainer(_scene(scene_np), _config(tpu, opt), seed=seed, device="cpu")
     tr.init_from_sfm()
+    windows = 0
     for kind, n in plan:
         if kind == "step":
             for _ in range(n):
@@ -233,17 +237,20 @@ def trainer_worker(rank, scene_np, tpu, opt, seed, plan, ckpt=None):
         else:
             done = 0
             while done < n:
-                took = tr.train_window(n - done)
+                took = tr.train_window(min(n - done, tr.config.tpu.fuse_steps))
+                windows += took > 0
                 if took == 0:
                     tr.train_iteration()
                     took = 1
                 done += took
-    losses = np.array([float(x) for x, _, _ in tr._pending_losses])
+    # a window queues its (k,) losses, a step its () loss
+    losses = torch.cat([x.reshape(-1) for x, _, _ in tr._pending_losses]).numpy()
     tr.drain_losses()
     if ckpt is not None:
         tr.save_checkpoint(ckpt)
     return dict(losses=losses, model=tr.host_model(), iteration=tr.iteration,
-                truncated=tr.total_truncated, n_active=int(tr.model.num_active))
+                truncated=tr.total_truncated, n_active=int(tr.model.num_active),
+                window_mode=tr.window_mode, windows=windows)
 
 
 def single_vs_trainer_worker(rank, scene_np, tpu, opt, seed, n, ckpt):
@@ -292,3 +299,47 @@ def load_worker(rank, scene_np, tpu, opt, ckpt):
     moments = {f"mu/{k}": v for k, v in tr.opt_state.mu.items()}
     moments.update({f"nu/{k}": v for k, v in tr.opt_state.nu.items()})
     return dict(model=tr.host_model(), opt=tr._gathered(moments), iteration=tr.iteration)
+
+
+def capture_key_worker(rank, scene_np, tpu, opt):
+    """The capture key of a (2, 1) `ParallelTrainer`'s sharded window (as
+    `sharded_train_steps_fused` builds it) before and after what a step
+    bakes in changes → which changes moved the key."""
+    from omnigs_torch.model import densify as densify_ops
+    from omnigs_torch.parallel.mesh import make_mesh
+    from omnigs_torch.parallel.shard import sharded_densify
+    from omnigs_torch.train.trainer import capture_key
+    from omnigs_torch.train.trainer_parallel import ParallelTrainer
+
+    tr = ParallelTrainer(_scene(scene_np), _config(tpu, opt), seed=0, device="cpu")
+    tr.init_from_sfm()
+
+    def key(mesh=None, views=1):
+        _, vms, cps = tr._pose_bank()
+        kw = tr._step_kwargs(tr.camera, True)
+        return capture_key(tr.model, tr.opt_state, vms, cps, tr._gt_bank[1], None,
+                           mesh=tr.mesh if mesh is None else mesh, views=views, **kw)
+
+    assert tr.train_window(1) == 1
+    k0 = key()
+    out = dict(same=key() == k0, views=key(views=2) != k0,
+               mesh=key(mesh=make_mesh(1, 2)) != k0)
+    it = tr.iteration
+    tr.iteration = 1000
+    out["sh_degree"] = key() != k0
+    tr.iteration = it
+    lam = tr.config.opt.lambda_dssim
+    tr.set_variable_parameters({"lambda_dssim": 0.3})
+    out["lambda"] = key() != k0
+    tr.set_variable_parameters({"lambda_dssim": lam})
+    sharded_densify(tr.mesh, tr.model, tr.opt_state, tr.generator, **tr._densify_kwargs(it))
+    densify_ops.reset_opacity(tr.model, tr.opt_state)
+    out["densify_reset_same"] = key() == k0
+    # draw until a data row has drawn more keyframes than the bank's rows
+    rows0 = tr._gt_bank[1].shape[0]
+    while tr.gt_bank_grows == 0 and tr.iteration < 12:
+        tr.train_window(1)
+    out["bank_rows"] = [rows0, tr._gt_bank[1].shape[0]]
+    out["bank_grew"] = key() != k0
+    out["grows"] = tr.gt_bank_grows
+    return out
