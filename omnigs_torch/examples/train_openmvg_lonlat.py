@@ -128,7 +128,7 @@ def main(argv=None) -> dict:
             print(
                 f"iter {it}/{n_iters} loss={tr.drain_losses():.4f} "
                 f"ema={tr.ema_loss:.4f} n={int(tr.model.num_active)} "
-                f"{rate:.0f} ms/it",
+                f"{rate:.0f} ms/it | {tr.trace_line()}",
                 flush=True,
             )
         loop_s += time.time() - t0

@@ -23,6 +23,7 @@ import torch
 from omnigs_torch.model.gaussians import PARAM_NAMES, GaussianModel, inverse_sigmoid
 from omnigs_torch.model.optimizer import AdamState, zero_moments
 from omnigs_torch.ops.covariance import quat_to_rotmat
+from omnigs_torch.utils import profiling
 
 SPLIT_N = 2  # children per split
 
@@ -67,7 +68,9 @@ def _scatter_new_items(model: GaussianModel, items: dict, valid: torch.Tensor):
     write(model.active, torch.ones_like(valid))
     write(model.exist_since_iter, items["exist_since_iter"])
     slot_written = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-    slot_written[target] = True
+    # the scalar's host → device copy waits for the stream
+    with profiling.host_wait("densify"):
+        slot_written[target] = True
     dropped = torch.sum(valid & ~placed)
     return slot_written[:P], dropped
 

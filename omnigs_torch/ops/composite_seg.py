@@ -42,6 +42,7 @@ import torch
 
 from omnigs_torch import cuda_build
 from omnigs_torch.ops.preprocess import TILE
+from omnigs_torch.utils import profiling
 
 PX = TILE * TILE  # 256 pixels per tile
 NROWS = 16  # rows of the instance slab
@@ -548,6 +549,7 @@ class _CompositeInstancesSeg(torch.autograd.Function):
         inst_T8 = _build_inst_seg(
             means2d, conic, rgb, opacity, sorted_g8, perm, ride_d, ride_t
         )
+        profiling.mark("composite_fwd", inst_T8)
         color, final_t = composite_seg_fwd(
             inst_T8, starts8, counts, live8, num_tiles, gx, tile_lo
         )
@@ -568,6 +570,7 @@ class _CompositeInstancesSeg(torch.autograd.Function):
             ctx.saved_tensors
         )
         p, num_tiles, gx, tile_lo, bg_shape = ctx.geometry
+        profiling.mark("composite_bwd", inst_T8)
         dinst = composite_seg_bwd(
             inst_T8, starts8, counts, live8, color_full, dcolor.contiguous(),
             num_tiles, gx, tile_lo,
@@ -577,6 +580,7 @@ class _CompositeInstancesSeg(torch.autograd.Function):
             acc = acc[inv_perm.to(torch.int64)]
         # bg's gradient is zeros, as in the JAX package (ROADMAP queue 3)
         dbg = color_full.new_zeros(bg_shape)
+        profiling.mark("preprocess_bwd", inst_T8)
         return (
             acc[:, 0:2], acc[:, 2:5], acc[:, 6:9], acc[:, 5], dbg,
             None, None, None, None, None, None, None, None, None, None, None,

@@ -57,6 +57,7 @@ from omnigs_torch.ops.composite_seg import (
     _walk_fwd_plain,
 )
 from omnigs_torch.ops.preprocess import TILE
+from omnigs_torch.utils import profiling
 
 # the fused backward's per-Gaussian table limit: the JAX routing rule
 # (the TPU kernel kept the table in on-chip memory), kept so that the fused
@@ -490,6 +491,7 @@ class _CompositeInstances(torch.autograd.Function):
     ):
         live = torch.amax(starts + counts)
         inst_T = _build_inst(means2d, conic, rgb, opacity, sorted_g, live, perm)
+        profiling.mark("composite_fwd", inst_T)
         color, final_t, ncontrib = composite_tile_fwd(
             inst_T, starts, counts, x0, y0, num_tiles, want_ncontrib
         )
@@ -509,6 +511,7 @@ class _CompositeInstances(torch.autograd.Function):
             sorted_e, seg_lo, seg_hi, inv_perm,
         ) = ctx.saved_tensors
         p, num_tiles, fused_reduce, bg_shape = ctx.geometry
+        profiling.mark("composite_bwd", inst_T)
         dcolor = dcolor.contiguous()
         if fused_reduce and sorted_e is None and p <= FUSED_REDUCE_MAX_P:
             # per-Gaussian rows straight out of the kernel
@@ -529,6 +532,7 @@ class _CompositeInstances(torch.autograd.Function):
             acc = acc[inv_perm.to(torch.int64)]
         # bg's gradient is zeros, as in the JAX package (ROADMAP queue 3)
         dbg = color_full.new_zeros(bg_shape)
+        profiling.mark("preprocess_bwd", inst_T)
         return (
             acc[:, 0:2], acc[:, 2:5], acc[:, 6:9], acc[:, 5], dbg,
             *([None] * 13),

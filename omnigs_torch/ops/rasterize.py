@@ -60,6 +60,7 @@ from omnigs_torch.ops.preprocess import (
     preprocess,
     tile_grid,
 )
+from omnigs_torch.utils import profiling
 
 # above this instance cap the gather reduction demotes to the live-bound
 # scatter: its inversion sort scales with the static cap (the JAX rule)
@@ -251,6 +252,7 @@ class _CompositeTiles(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, means2d, conic, rgb, opacity, bg, tile_ids, tile_mask, pix, chunk):
+        profiling.mark("composite_fwd", means2d)
         color, final_t, n_contrib = _composite_tiles_fwd_impl(
             means2d, conic, rgb, opacity, bg, tile_ids, tile_mask, pix, chunk
         )
@@ -262,11 +264,13 @@ class _CompositeTiles(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dcolor, _dfinal_t, _dncontrib):
         means2d, conic, rgb, opacity, tile_ids, tile_mask, pix, color = ctx.saved_tensors
+        profiling.mark("composite_bwd", means2d)
         acc = _composite_tiles_bwd(
             means2d, conic, rgb, opacity, tile_ids, tile_mask, pix, ctx.chunk,
             color, dcolor.contiguous(),
         )
         dbg = color.new_zeros(ctx.bg_shape)
+        profiling.mark("preprocess_bwd", means2d)
         return acc[:, 0:2], acc[:, 2:5], acc[:, 6:9], acc[:, 5], dbg, None, None, None, None
 
 
@@ -362,10 +366,13 @@ def _composite(config, prep, means2d, rgb, bg, gx, gy, tile_lo=0, n_tiles=None):
     (color (T, 3, PX), final_T (T, PX), n_contrib (T, PX), overflow,
     truncated), differentiable in those four. T is the tile window
     [tile_lo, tile_lo + n_tiles) of the grid (all of it by default: a
-    rank of the sharded render composites its own window)."""
+    rank of the sharded render composites its own window). Stage marks:
+    ``bin``, ``relay`` (the kernel layouts' relay or trim and slab build)
+    and ``composite_fwd`` (in the compositor, after the slab build)."""
     num_tiles = gx * gy if n_tiles is None else n_tiles
     window = dict(tile_lo=tile_lo, n_tiles=num_tiles)
     prep_sg = Preprocessed(*(t.detach() for t in prep))
+    profiling.mark("bin", means2d)
     if config.backend == "xla":
         binned = bin_gaussians(
             prep_sg, gx, gy, config.max_instances, config.tile_cap, **window
@@ -403,6 +410,7 @@ def _composite(config, prep, means2d, rgb, bg, gx, gy, tile_lo=0, n_tiles=None):
         tile_cull=config.tile_culling, with_emission=gather_reduce,
     )
     truncated = inst.truncated
+    profiling.mark("relay", means2d)
     if config.segmented:
         r8 = config.aligned_cap
         if r8 is None:

@@ -73,6 +73,7 @@ from omnigs_torch.parallel.mesh import (
     reduce_scatter,
 )
 from omnigs_torch.train.trainer import StepGraph, _state_tensors, capture_key, window_index
+from omnigs_torch.utils import profiling
 
 
 class _AllGatherRows(torch.autograd.Function):
@@ -135,6 +136,7 @@ def _render_image_sharded(
     tiles_per_rank = -(-num_tiles // n_gauss)
     tile_lo = axis_index(mesh, GAUSS_AXIS) * tiles_per_rank
 
+    profiling.mark("preprocess", viewmatrix)
     prep = preprocess(
         model.xyz, model.get_scaling(), model.get_rotation(), model.get_opacity(),
         model.get_features(), camera, viewmatrix, campos, sh_degree,
@@ -170,6 +172,7 @@ def sharded_render(
         image, *_ = _render_image_sharded(
             model, viewmatrix, campos, camera, bg, sh_degree, cfg, mesh
         )
+    profiling.mark("end", image)
     return image
 
 
@@ -214,7 +217,10 @@ def sharded_train_step(
     views (V, 4, 4), (V, 3), (V, 3, H, W) of its data row → the mean loss
     of the V views, its gradient (one device's) averaged over ``data``,
     the statistics, Adam. Returns the aux tensors (loss, l1, overflow,
-    truncated, the last view's image), the same on every rank."""
+    truncated, the last view's image), the same on every rank. Its stage
+    marks run as `train.trainer.train_step`'s for each view, then
+    ``allreduce`` (the loss, counter and gradient all-reduces) and
+    ``adam`` (the statistics with their all-reduces, Adam)."""
     dev = model.xyz.device
     params = model.params()
     names = list(params)
@@ -228,6 +234,7 @@ def sharded_train_step(
             model, viewmatrices[v], camposes[v], camera, bg, sh_degree,
             raster_cfg, mesh, means2d_ndc=ndc,
         )
+        profiling.mark("loss", dev)
         l1_sum, ssim_sum, npix = _view_partials(image, gt_images[v], skip_bottom_px, mesh)
         part = (1.0 - lambda_dssim) * (l1_sum / npix) + lambda_dssim * (
             1.0 - ssim_sum / npix
@@ -246,6 +253,7 @@ def sharded_train_step(
 
     # the logged loss: the partials all-reduced over gauss, then as the
     # single-device loss, averaged over the views and the data rows
+    profiling.mark("allreduce", dev)
     means = all_reduce(torch.stack(sums), mesh, GAUSS_AXIS)
     l1 = means[:, 0].mean()
     total = ((1.0 - lambda_dssim) * means[:, 0] + lambda_dssim * (1.0 - means[:, 1])).mean()
@@ -259,6 +267,7 @@ def sharded_train_step(
         grads = [x / n_views for x in grads]
         if n_data > 1:
             grads = [all_reduce(x, mesh, DATA_AXIS) / n_data for x in grads]
+        profiling.mark("adam", dev)
         if update_stats:
             vis = [r > 0 for r in radii_v]
             gnorm = [torch.linalg.vector_norm(x[:, :2], dim=-1) for x in ndc_g]
@@ -296,7 +305,8 @@ def _any_rank(flag: bool, device) -> bool:
     """``flag`` or'ed over every rank (a host round trip)."""
     t = torch.full((1,), int(flag), dtype=torch.int32, device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    return bool(t.item())
+    with profiling.host_wait("any_rank"):
+        return bool(t.item())
 
 
 def sharded_train_steps_fused(
@@ -375,15 +385,18 @@ def sharded_train_steps_fused(
         out = []
         for i in range(k):
             with lock:
+                profiling.mark("window", dev)
                 out.append(body(rows[i]))
+                profiling.mark("end", dev)
         losses, overflow, truncated = (torch.stack(x) for x in zip(*out))
         return losses, overflow.sum(), truncated.sum()
     key = capture_key(model, opt_state, viewmatrices, camposes, gt_images, None, mesh=mesh,
                       views=n_views, **kw)
     # every rank captures, or none: a warm-up step runs the mesh's collectives
-    if dist.get_world_size() > 1 and _any_rank(key != graph.key, dev):
-        graph.key = None
-    return graph.replay(idx, key, body, _state_tensors(model, opt_state), lock)
+    why = None
+    if dist.get_world_size() > 1 and _any_rank(key != graph.key, dev) and key == graph.key:
+        why = "another_rank"
+    return graph.replay(idx, key, body, _state_tensors(model, opt_state), lock, why)
 
 
 def shard_generator(seed: int, mesh: DeviceMesh, device) -> torch.Generator:

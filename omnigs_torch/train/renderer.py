@@ -17,6 +17,7 @@ from omnigs_torch.model.gaussians import GaussianModel
 from omnigs_torch.ops import sh as sh_ops
 from omnigs_torch.ops.covariance import build_cov3d
 from omnigs_torch.ops.rasterize import RasterConfig, RenderResult, rasterize
+from omnigs_torch.utils import profiling
 
 
 def render_model(
@@ -45,7 +46,13 @@ def render_model(
     flags: evaluate SH colors / covariances outside the rasterizer and feed
     them precomputed. ``render_depth`` composites per-Gaussian depth (radial
     for lonlat) in place of color.
+
+    The render's stage marks (`utils.profiling.STAGES`) run from
+    ``preprocess`` (the activations and `ops/preprocess`) to
+    ``composite_fwd``, closed by ``end`` (a training step marks its later
+    stages itself, after that ``end``).
     """
+    profiling.mark("preprocess", model.xyz)
     features_override = None
     if render_depth:
         t = world_to_cam(model.xyz, viewmatrix)
@@ -65,7 +72,7 @@ def render_model(
             model.get_scaling(), model.get_rotation(), scale_modifier
         )
 
-    return rasterize(
+    res = rasterize(
         model.xyz,
         model.get_scaling(),
         model.get_rotation(),
@@ -85,3 +92,5 @@ def render_model(
         colors_precomp=colors_precomp,
         cov3d_precomp=cov3d_precomp,
     )
+    profiling.mark("end", model.xyz)
+    return res

@@ -59,7 +59,7 @@ import math
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +76,7 @@ from omnigs_torch.ops.knn import mean_sq_knn_dist
 from omnigs_torch.ops.rasterize import RasterConfig
 from omnigs_torch.scene.scene import KeyframeSampler, Scene
 from omnigs_torch.train.renderer import render_model
+from omnigs_torch.utils import profiling
 from omnigs_torch.utils.profiling import PeakMemoryTracker
 
 
@@ -135,7 +136,12 @@ def train_step(
 ) -> Dict[str, torch.Tensor]:
     """One train iteration in place: render → loss → backward → stats →
     Adam. ``step`` (int or () tensor) sets the xyz LR. Returns the aux
-    tensors (loss, l1, radii, image, overflow, truncated), on the device."""
+    tensors (loss, l1, radii, image, overflow, truncated), on the device.
+
+    The step's stage marks (`utils.profiling.STAGES`) run from
+    ``preprocess`` to ``adam``, the render's ``end`` between
+    ``composite_fwd`` and ``loss``; the caller's next mark closes
+    ``adam``."""
     dev = model.xyz.device
     params = model.params()
     names = list(params)
@@ -144,6 +150,7 @@ def train_step(
         model, camera, viewmatrix, campos, bg, sh_degree, raster_cfg,
         means2d_ndc=ndc,
     )
+    profiling.mark("loss", dev)
     pred = res.image  # (3, H, W)
     if mask is not None:
         # the undistort mask multiplies the RENDERED image only
@@ -164,6 +171,7 @@ def train_step(
         for k, g in zip(names, grads)
     }
 
+    profiling.mark("adam", dev)
     if update_stats:
         densify_ops.add_densification_stats(model, ndc_grad, res.radii.detach())
     if do_adam:
@@ -222,6 +230,26 @@ def mesh_key(mesh) -> tuple:
     )
 
 
+class CaptureKey(NamedTuple):
+    """What a captured step bakes in, by field (`capture_key`)."""
+
+    static: tuple
+    capacity: int
+    shapes: tuple
+    no_mask: bool
+    addresses: tuple
+    mesh: Optional[tuple]
+    marks: bool
+
+
+def capture_reason(old: Optional[CaptureKey], new: CaptureKey) -> str:
+    """Why a step with key ``new`` is captured after one with ``old``: the
+    changed fields, joined by "+" ("first" without an earlier key)."""
+    if old is None:
+        return "first"
+    return "+".join(f for f, a, b in zip(CaptureKey._fields, old, new) if a != b)
+
+
 def capture_key(
     model: GaussianModel,
     opt_state: opt_ops.AdamState,
@@ -239,18 +267,20 @@ def capture_key(
     ``static`` keywords of `train_steps_fused`; a sharded step adds its
     views a rank), the capacity, the address of every tensor it reads or
     writes in place (model, Adam state, statistics, banks, mask,
-    background) and, for a sharded step, its ``mesh`` (`mesh_key`). A
-    graph whose key differs is captured again."""
+    background), for a sharded step its ``mesh`` (`mesh_key`), and whether
+    the stage marks are on (`utils.profiling.set_marks`). A graph whose key
+    differs is captured again."""
     tensors = _state_tensors(model, opt_state) + [viewmatrices, camposes, gt_images, bg]
     if mask is not None:
         tensors.append(mask)
-    return (
-        tuple(sorted(static.items())),
-        model.capacity,
-        tuple(t.shape for t in (viewmatrices, gt_images)),
-        mask is None,
-        tuple(t.data_ptr() for t in tensors),
-        None if mesh is None else mesh_key(mesh),
+    return CaptureKey(
+        static=tuple(sorted(static.items())),
+        capacity=model.capacity,
+        shapes=tuple(t.shape for t in (viewmatrices, gt_images)),
+        no_mask=mask is None,
+        addresses=tuple(t.data_ptr() for t in tensors),
+        mesh=None if mesh is None else mesh_key(mesh),
+        marks=profiling.marks_on(),
     )
 
 
@@ -279,8 +309,12 @@ class StepGraph:
     k ≤ K_max steps is one host → device copy of its rows and k replays, at
     most REPLAYS_IN_FLIGHT of them queued at a time; one capture serves
     every k. The graph is captured again when its key (`capture_key`)
-    changes. Nothing outside the graph keeps a tensor the graph writes: a
-    window returns copies.
+    changes, or when the buffers are allocated again; each capture counts
+    in `utils.profiling.counters` with its reason (`capture_reason`), as
+    do the warm-up steps and the replays. Nothing outside the graph keeps
+    a tensor the graph writes: a window returns copies. The step's stage
+    marks run ``window`` (the row gather), the step's own, ``window``
+    again (the output writes) and ``end``.
 
     Each wrapper in STEP_KERNELS counts its launches where it launches: the
     capture launches nothing (its counts are taken back) and each replay
@@ -291,7 +325,6 @@ class StepGraph:
         self.key = None
         self.k_max = 0
         self.captures = 0
-        self.warmup_steps = 0
         self.replays = 0
         self.capture_ms = 0.0  # the last capture, without its warm-up
         self.warmup_ms = 0.0
@@ -303,7 +336,8 @@ class StepGraph:
     def reserve(self, device, k: int, cols: int):
         """The staged (K_max, ``cols``) index buffer, the cursor and the
         (K_max,) outputs for a window of ``k`` steps: allocated again (and
-        the graph dropped) when k exceeds K_max or the layout changes."""
+        the graph dropped, its key kept) when k exceeds K_max or the layout
+        changes."""
         if k <= self.k_max and self.rows.shape[1] == cols:
             return
         self.k_max = k
@@ -312,7 +346,7 @@ class StepGraph:
         self.loss = torch.zeros(k, dtype=torch.float32, device=device)
         self.overflow = torch.zeros(k, dtype=torch.int32, device=device)
         self.truncated = torch.zeros(k, dtype=torch.int32, device=device)
-        self.graph, self.key = None, None
+        self.graph = None
 
     def stage_gt(self, gt_bank: torch.Tensor, gt_rows: np.ndarray, device) -> torch.Tensor:
         """Upload the window's (k, V) ``gt_rows`` of a host ground-truth bank
@@ -332,19 +366,22 @@ class StepGraph:
         """The captured step: ``body(row)`` on the cursor's row of the
         staged index → (loss, overflow, truncated), written at the cursor."""
         def step():
+            profiling.mark("window", self.cursor)
             i = self.cursor.view(1)
             loss, overflow, truncated = body(self.rows.index_select(0, i)[0])
+            profiling.mark("window", self.cursor)
             self.loss.index_copy_(0, i, loss.view(1))
             self.overflow.index_copy_(0, i, overflow.view(1))
             self.truncated.index_copy_(0, i, truncated.view(1))
             self.cursor += 1
+            profiling.mark("end", self.cursor)
 
         return step
 
-    def _capture(self, key, step, state):
+    def _capture(self, key, step, state, reason: str):
         """Warm up on a side stream, undo the warm-up's effect on
         ``state``, then capture one ``step`` into a graph with its own
-        memory pool."""
+        memory pool, counted with ``reason``."""
         dev = state[0].device
         with torch.no_grad():
             saved = [t.detach().clone() for t in state]
@@ -361,7 +398,7 @@ class StepGraph:
             self.cursor.zero_()
         torch.cuda.current_stream(dev).wait_stream(side)
         del saved
-        self.warmup_steps += WARMUP_STEPS
+        profiling.count("warmup_steps", WARMUP_STEPS)
         self.graph = None  # the previous graph's pool goes back first
         gc.collect()
         torch.cuda.synchronize(dev)
@@ -388,26 +425,32 @@ class StepGraph:
         self._per_replay = tuple(per)
         self.graph, self.key = graph, key
         self.captures += 1
+        profiling.count_capture(reason)
 
-    def replay(self, idx: np.ndarray, key, body, state, lock
+    def replay(self, idx: np.ndarray, key, body, state, lock, why: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The window's k = len(idx) steps: ``idx`` (k, C) staged, the step
-        ``body`` captured first if ``key`` differs from the graph's (with
-        ``state``, the tensors it writes in place: `_state_tensors`), then k
-        replays → (losses (k,), Σoverflow, Σtruncated). The buffers must
-        have been reserved for k and C."""
+        ``body`` captured first if there is no graph (reason ``first``, or
+        ``buffers`` after `reserve` dropped it), ``key`` differs from the
+        graph's (the changed fields) or ``why`` (a reason the key does not
+        show) is given (with ``state``,
+        the tensors it writes in place: `_state_tensors`), then k replays →
+        (losses (k,), Σoverflow, Σtruncated). The buffers must have been
+        reserved for k and C."""
         k = len(idx)
         # pinned: the copy runs on the stream, and the host allocator keeps
         # the block until it has
         self.rows[:k].copy_(torch.from_numpy(idx).pin_memory(), non_blocking=True)
-        if key != self.key:
+        if self.graph is None or key != self.key or why:
+            reason = why or capture_reason(self.key, key) or "buffers"
             with lock:
-                self._capture(key, self._step_fn(body), state)
+                self._capture(key, self._step_fn(body), state, reason)
         self.cursor.zero_()
         queued = collections.deque()
         for _ in range(k):
             if len(queued) == REPLAYS_IN_FLIGHT:
-                queued.popleft().synchronize()
+                with profiling.host_wait("replay_queue"):
+                    queued.popleft().synchronize()
             with lock:
                 self.graph.replay()
                 for m, n, c in self._per_replay:
@@ -416,6 +459,7 @@ class StepGraph:
                 done.record()
             queued.append(done)
         self.replays += k
+        profiling.count("replays", k)
         return self.loss[:k].clone(), self.overflow[:k].sum(), self.truncated[:k].sum()
 
     def run(self, model, opt_state, vms, cps, gts, rows, step0: int, mask, lock,
@@ -497,11 +541,13 @@ def train_steps_fused(
         out = []
         for i, r in enumerate(rows.tolist()):
             with lock:
+                profiling.mark("window", dev)
                 aux = train_step(
                     model, opt_state, viewmatrices[r], camposes[r], gt_images[r],
                     torch.full((), step0 + i + 1, dtype=torch.int32),
                     mask, bg=bg, do_adam=True, skip_opacity_update=False, **kw,
                 )
+                profiling.mark("end", dev)
             out.append((aux["loss"], aux["overflow"], aux["truncated"]))
         losses, overflow, truncated = zip(*out)
         return torch.stack(losses), torch.stack(overflow).sum(), torch.stack(truncated).sum()
@@ -568,6 +614,11 @@ class Trainer:
         self.gt_bank_on_device = None
         self.step_graph = StepGraph()  # the window's graph on the card
         self.lock = FairLock()
+        # the stage totals `drain_losses` last read (`profiling.stage_totals`)
+        # and, at the last `trace_line`: the iteration, those totals and the
+        # counters
+        self.stage_totals: Dict[str, Tuple[float, int]] = {}
+        self._traced = (self.iteration, {}, profiling.counters())
 
     # -- setup --
 
@@ -678,6 +729,7 @@ class Trainer:
             gts = gts.pin_memory()
         self._banks = ({f: i for i, f in enumerate(fids)}, vms, cps, gts)
         self._banks_fids = fids
+        profiling.count("bank_builds")
         return self._banks
 
     def _bank_row(self, kf):
@@ -808,13 +860,17 @@ class Trainer:
                 **self._step_kwargs(camera, in_densify_phase),
             )
 
+            dev = self.model.xyz.device
             if do_densify:
+                profiling.mark("densify", dev)
                 densify_ops.densify_and_prune(
                     self.model, self.opt_state, self.generator,
                     **self._densify_kwargs(it),
                 )
             if do_reset:
+                profiling.mark("reset", dev)
                 densify_ops.reset_opacity(self.model, self.opt_state)
+            profiling.mark("end", dev)
             if do_densify or do_reset:
                 # where the densification temporaries peak
                 self.peak_memory.sample()
@@ -829,20 +885,24 @@ class Trainer:
 
     def live_gaussians(self) -> int:
         """The model's live Gaussians (reading the count syncs)."""
-        return int(self.model.num_active)
+        with profiling.host_wait("live_gaussians"):
+            return int(self.model.num_active)
 
     def drain_losses(self) -> float:
         """Fold the queued device-side losses (a window's (k,) losses or a
         step's loss, in the order they were queued) into the host EMA
         (0.4/0.6) and total the capacity-pressure counters; returns the
-        last loss."""
+        last loss. Where it waits for the card anyway, it reads the device's
+        stage totals into `stage_totals`."""
         if self._pending_losses:
             pend, self._pending_losses = self._pending_losses, []
-            # a window's (k,) losses and a single step's () loss, in order
-            losses = torch.cat([x.reshape(-1) for x, _, _ in pend]).tolist()
+            with profiling.host_wait("drain"):
+                # a window's (k,) losses and a single step's () loss, in order
+                losses = torch.cat([x.reshape(-1) for x, _, _ in pend]).tolist()
             counters = torch.stack(
                 [torch.stack([ov, tr]).to(torch.int64) for _, ov, tr in pend]
             ).sum(0).tolist()
+            self.stage_totals = profiling.stage_totals(pend[0][0].device)
             for v in losses:
                 self.last_loss = v
                 self.ema_loss = 0.4 * v + 0.6 * self.ema_loss
@@ -1023,11 +1083,48 @@ class Trainer:
                     if self.total_truncated or self.total_overflow
                     else ""
                 )
+                live = self.live_gaussians()
                 print(
-                    f"iter {self.iteration}: loss={self.last_loss:.4f} "
+                    f"{self._rank_tag()}iter {self.iteration}: loss={self.last_loss:.4f} "
                     f"ema={self.ema_loss:.4f} "
-                    f"n_active={self.live_gaussians()} "
-                    f"({(time.time() - t0):.1f}s)" + pressure,
+                    f"n_active={live} "
+                    f"({(time.time() - t0):.1f}s)" + pressure + " | " + self.trace_line(),
                     flush=True,
                 )
         return self.model
+
+    def _rank_tag(self) -> str:
+        """What leads a log line: nothing on one device."""
+        return ""
+
+    def trace_line(self) -> str:
+        """The stage marks and counters since the last call: the device ms
+        a step of each stage (the `stage_totals` that `drain_losses` last
+        read, over the iterations since); the graph captures with their
+        reasons, the warm-up steps, replays and bank builds; the host's
+        waits for the replay queue (its back-pressure, expected); and the
+        host's waits at each sync point (count / host ms)."""
+        it, seen, before = self._traced
+        now = profiling.counters()
+        steps = max(self.iteration - it, 1)
+        stages = " ".join(
+            f"{s}={(ms - seen.get(s, (0.0, 0))[0]) / steps:.2f}"
+            for s, (ms, n) in self.stage_totals.items() if n > seen.get(s, (0.0, 0))[1]
+        )
+        reasons = {r: c - before["capture_reasons"].get(r, 0)
+                   for r, c in now["capture_reasons"].items()}
+        reasons = ",".join(f"{r}" if c == 1 else f"{r}x{c}" for r, c in reasons.items() if c)
+        counts = " ".join(f"{k}={now[k] - before[k]}" + (f" ({reasons})" if k == "captures"
+                                                          and reasons else "")
+                          for k in profiling.COUNTER_NAMES)
+
+        def waits(site):
+            n = now["host_waits"].get(site, 0) - before["host_waits"].get(site, 0)
+            ms = now["host_wait_ms"].get(site, 0.0) - before["host_wait_ms"].get(site, 0.0)
+            return f"{site}={n}/{ms:.1f}ms" if n else ""
+
+        syncs = " ".join(filter(None, (waits(site) for site in sorted(now["host_waits"])
+                                       if site != "replay_queue")))
+        self._traced = (self.iteration, self.stage_totals, now)
+        return (f"ms/step {stages or '-'} | {counts} | {waits('replay_queue') or 'replay_queue=0'}"
+                f" | syncs {syncs or '-'}")

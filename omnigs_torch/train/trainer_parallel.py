@@ -62,6 +62,7 @@ from omnigs_torch.parallel.shard import (
     window_mode,
 )
 from omnigs_torch.train.trainer import Trainer
+from omnigs_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -176,6 +177,7 @@ class ParallelTrainer(Trainer):
                 new[: len(rows)].copy_(bank[: len(rows)])
                 self.gt_bank_grows += 1
             bank = new
+            profiling.count("bank_builds")
         for kf in (kf for step in views for kf in step):
             if kf.fid not in rows:
                 # loaders produce HWC; the image convention is channels-first
@@ -210,13 +212,17 @@ class ParallelTrainer(Trainer):
                 skip_opacity_update=do_reset,
                 **self._step_kwargs(self.camera, in_densify_phase),
             )
+            dev = self.model.xyz.device
             if do_densify:
+                profiling.mark("densify", dev)
                 sharded_densify(
                     self.mesh, self.model, self.opt_state, self.generator,
                     **self._densify_kwargs(it),
                 )
             if do_reset:
+                profiling.mark("reset", dev)
                 densify_ops.reset_opacity(self.model, self.opt_state)
+            profiling.mark("end", dev)
             if do_densify or do_reset:
                 self.peak_memory.sample()
             self._pending_losses.append(
@@ -258,7 +264,13 @@ class ParallelTrainer(Trainer):
     def live_gaussians(self) -> int:
         """Live Gaussians of the whole model, summed over the gauss shards
         (every rank must call it)."""
-        return int(all_reduce(self.model.num_active, self.mesh, GAUSS_AXIS))
+        live = all_reduce(self.model.num_active, self.mesh, GAUSS_AXIS)
+        with profiling.host_wait("live_gaussians"):
+            return int(live)
+
+    def _rank_tag(self) -> str:
+        """A log line on a mesh starts with the global rank."""
+        return f"[rank {dist.get_rank()}] "
 
     # -- the whole model on rank 0 --
 

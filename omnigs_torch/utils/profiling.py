@@ -1,10 +1,40 @@
-"""Step timing and device memory accounting.
+"""Stage marks, run-wide counters, step timing and device memory accounting.
 
-Counterpart of the first half of `omnigs_tpu/utils/profiling.py`:
+Counterpart of the first half of `omnigs_tpu/utils/profiling.py`, with the
+port's own tracing:
 
-* `step_timer` — host wall-clock spans, bracketed by a device synchronise
-  when the device is a CUDA card (PyTorch returns before the card
-  finishes, so an unsynchronised span measures the enqueue).
+* `mark` — a stage mark inside the work. ``mark(stage, t)`` opens
+  ``stage`` (one of `STAGES`) and closes the stage open before it; the
+  mark of ``"end"`` closes the last one and opens none. On a CUDA device
+  it launches the one-thread kernel ``stage_mark_<stage>``
+  (`csrc/stage_marks.cu`) on the current stream, so the mark also runs
+  inside a captured CUDA graph, where it is part of every replay: a
+  profiler's device trace finds each boundary by the kernel's name, on
+  the trace's clock, and the kernel adds the card's ``%globaltimer``
+  nanoseconds since the previous mark into the closed stage's slot of the
+  device's mark table, with one entry. The table is allocated once per
+  device (`mark_table`, never inside a capture) and never moves. On a CPU
+  tensor the mark writes ``time.perf_counter_ns()`` into the host's
+  table of the same layout. Under a profiler that records host activity
+  each mark also opens a host range of the kernel's name (closed by the
+  next mark), so host and device traces carry the same names on one
+  clock. `set_marks` (on by default) turns every mark off; a captured
+  step's key (`train.trainer.capture_key`) holds the switch, so turning
+  it over captures the step again. `stage_totals` reads a table (a CUDA
+  table's read waits for its stream: the trainer reads it only where it
+  already synchronises, `Trainer.drain_losses`); `reset_marks` zeroes
+  them. Measured on an H100 (PERF.md): a mark kernel holds the card
+  ~1.6 µs (19 µs a captured training step of 12 marks, 8 µs a render of
+  5) and an eager mark ~15 µs of host time. With the marks on against
+  off, two graphs of one process in turns: +0.07% ms an iteration;
+  render requests in turns: +0.5% to +1.1% ms a request. The first mark
+  of a process loads the marks' library (4–9 ms); the first process of a
+  checkout builds it first (~3.2 s of nvcc).
+* `counters` — run-wide totals since `reset_counters`: graph captures,
+  each with its reason (the field of the capture key that changed),
+  warm-up steps and replays of the captured steps, ground-truth bank
+  builds, and the host's waits at the known sync points (count and host
+  ms by site, each wait timed by `host_wait`).
 * `mean_ms` — the mean time of repeated calls: CUDA events on a card
   (device time of back-to-back calls), the host clock on the CPU;
   `stage_ms` adds what the events measured: the card's time, or the
@@ -26,31 +56,246 @@ Counterpart of the first half of `omnigs_tpu/utils/profiling.py`:
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
+import threading
 import time
 import warnings
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
+# the stage table, in a training step's order; csrc/stage_marks.cu lists
+# the same names in the same order (one kernel each)
+STAGES = (
+    "window",  # a captured step's row gather and output writes
+    "preprocess",  # the activations and ops/preprocess
+    "bin",  # ops/binning (bin_instances_packed and the other layouts)
+    "relay",  # segment_relay and the slab build
+    "composite_fwd",  # the forward kernel and _tiles_to_image
+    "loss",  # L1 + SSIM, forward and, in autograd's order, backward
+    "composite_bwd",  # the compositor's backward and the row reduction
+    "preprocess_bwd",  # the rest of autograd: back through preprocess
+    "allreduce",  # a sharded step's loss and gradient all-reduces
+    "adam",  # densification statistics, group_lrs, adam_step
+    "densify",  # densify_and_prune
+    "reset",  # reset_opacity
+    "end",  # closes the open stage, opens none
+)
+_INDEX = {s: i for i, s in enumerate(STAGES)}
+_END = _INDEX["end"]
+# a mark table (int64): the last mark's clock (ns), the open stage + 1 (0:
+# none), each stage's nanoseconds, each stage's closed entries
+_CLOCK, _OPEN, _NS = 0, 1, 2
+_ENTRIES = _NS + len(STAGES)
+TABLE_LEN = _ENTRIES + len(STAGES)
 
-def _sync(device) -> None:
+
+class _Marks:
+    """The marks' process-wide state: the switch, each CUDA device's table,
+    the host's table, the open host range and the kernel's launcher."""
+
+    def __init__(self):
+        self.on = True
+        self.tables: Dict[torch.device, torch.Tensor] = {}
+        self.host = [0] * TABLE_LEN
+        self.host_range = None
+        self.launch = None
+        self.lock = threading.Lock()
+
+
+_MARKS = _Marks()
+
+
+def set_marks(on: bool) -> None:
+    """Turn every stage mark on (the default) or off."""
+    _MARKS.on = bool(on)
+
+
+def marks_on() -> bool:
+    return _MARKS.on
+
+
+def _cuda_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def mark_table(device) -> torch.Tensor:
+    """The (TABLE_LEN,) int64 mark table of a CUDA ``device``, allocated
+    zeroed at its first use, which must not be inside a graph capture (a
+    captured graph bakes in the table's address)."""
+    device = _cuda_device(device)
+    table = _MARKS.tables.get(device)
+    if table is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the mark table of {device} is allocated inside a graph capture: "
+                "mark once before capturing"
+            )
+        table = _MARKS.tables[device] = torch.zeros(TABLE_LEN, dtype=torch.int64, device=device)
+    return table
+
+
+def _host_range(stage: int) -> None:
+    """Close the open host range and open the stage's (none at ``end``)."""
+    from torch.autograd.profiler import record_function
+
+    with _MARKS.lock:
+        prev, _MARKS.host_range = _MARKS.host_range, None
+        if stage != _END:
+            _MARKS.host_range = record_function(f"stage_mark_{STAGES[stage]}")
+    if prev is not None:
+        prev.__exit__(None, None, None)
+    if _MARKS.host_range is not None:
+        _MARKS.host_range.__enter__()
+
+
+def mark(stage: str, where) -> None:
+    """Open ``stage`` and close the stage open before it (``"end"``: close
+    it and open none) on the device of ``where`` (a tensor or a device): a
+    ``stage_mark_<stage>`` kernel on the current stream of a CUDA device,
+    the host clock into the host's table otherwise. Nothing while the
+    marks are off."""
+    if not _MARKS.on:
+        return
+    i = _INDEX[stage]
+    device = where.device if torch.is_tensor(where) else torch.device(where)
+    if torch.autograd._profiler_enabled():
+        _host_range(i)
+    if device.type != "cuda":
+        now = time.perf_counter_ns()
+        with _MARKS.lock:  # the kernel's update, on the host's table
+            t = _MARKS.host
+            if t[_OPEN]:
+                t[_NS + t[_OPEN] - 1] += now - t[_CLOCK]
+                t[_ENTRIES + t[_OPEN] - 1] += 1
+            t[_CLOCK] = now
+            t[_OPEN] = 0 if i == _END else i + 1
+        return
+    device = _cuda_device(device)
+    table = mark_table(device)
+    if _MARKS.launch is None:
+        import ctypes
+
+        from omnigs_torch import cuda_build
+
+        _MARKS.launch = cuda_build.launcher(
+            "stage_marks", "stage_mark",
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+        )
+    lib, fn = _MARKS.launch
+    err = fn(i, table.data_ptr(), device.index, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        from omnigs_torch import cuda_build
+
+        cuda_build.check(lib, err, f"stage mark {stage}")
+
+
+def stage_totals(device=None) -> Dict[str, Tuple[float, int]]:
+    """stage → (milliseconds, closed entries) of the marks since the last
+    `reset_marks`, from ``device``'s table (a CUDA table's read waits for
+    its stream), or summed over every table (the host's and each card's)
+    without one."""
     if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+        table = _MARKS.tables.get(_cuda_device(device))
+        rows = [] if table is None else [table.tolist()]
+    elif device is not None:
+        with _MARKS.lock:
+            rows = [list(_MARKS.host)]
+    else:
+        with _MARKS.lock:
+            rows = [list(_MARKS.host)]
+        rows += [t.tolist() for t in _MARKS.tables.values()]
+    summed = [sum(r[j] for r in rows) for j in range(TABLE_LEN)]
+    return {s: (summed[_NS + i] * 1e-6, int(summed[_ENTRIES + i]))
+            for i, s in enumerate(STAGES) if s != "end"}
+
+
+def reset_marks() -> None:
+    """Zero every mark table (none may be capturing)."""
+    with _MARKS.lock:
+        _MARKS.host[:] = [0] * TABLE_LEN
+    for t in _MARKS.tables.values():
+        t.zero_()
+
+
+class _Counters:
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.reset()
+
+    def reset(self):
+        self.totals = collections.Counter()
+        self.capture_reasons = collections.Counter()
+        self.waits = collections.Counter()
+        self.wait_s = collections.Counter()
+
+
+_COUNTERS = _Counters()
+# the run-wide totals `counters` reports, all 0 after `reset_counters`
+COUNTER_NAMES = ("captures", "warmup_steps", "replays", "bank_builds")
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the run-wide counter ``name`` (one of COUNTER_NAMES)."""
+    if name not in COUNTER_NAMES:
+        raise KeyError(name)
+    with _COUNTERS.lock:
+        _COUNTERS.totals[name] += n
+
+
+def count_capture(reason: str) -> None:
+    """One graph capture, for ``reason``: the fields of the capture key
+    that changed ("first" without an earlier key)."""
+    with _COUNTERS.lock:
+        _COUNTERS.totals["captures"] += 1
+        _COUNTERS.capture_reasons[reason] += 1
 
 
 @contextlib.contextmanager
-def step_timer(results: Dict[str, float], key: str, device=None):
-    """``with step_timer(d, "render", device): ...`` stores the span's
-    milliseconds in ``d["render"]``."""
-    _sync(device)
+def host_wait(site: str):
+    """Count the enclosed block as one host wait at ``site``, with its host
+    time (under a profiler recording host activity, a ``host_wait.<site>``
+    range)."""
+    rf = None
+    if torch.autograd._profiler_enabled():
+        from torch.autograd.profiler import record_function
+
+        rf = record_function(f"host_wait.{site}")
+        rf.__enter__()
     t0 = time.perf_counter()
-    yield
-    _sync(device)
-    results[key] = (time.perf_counter() - t0) * 1000.0
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        with _COUNTERS.lock:
+            _COUNTERS.waits[site] += 1
+            _COUNTERS.wait_s[site] += dt
+
+
+def counters() -> dict:
+    """Run-wide totals since `reset_counters`: each of COUNTER_NAMES,
+    ``capture_reasons`` (reason → captures), ``host_waits`` (site →
+    waits) and ``host_wait_ms`` (site → host ms)."""
+    with _COUNTERS.lock:
+        out = {k: _COUNTERS.totals[k] for k in COUNTER_NAMES}
+        out["capture_reasons"] = dict(_COUNTERS.capture_reasons)
+        out["host_waits"] = dict(_COUNTERS.waits)
+        out["host_wait_ms"] = {k: v * 1e3 for k, v in _COUNTERS.wait_s.items()}
+    return out
+
+
+def reset_counters() -> None:
+    with _COUNTERS.lock:
+        _COUNTERS.reset()
 
 
 # cycles the card sleeps before a timed run (~5 ms): the host enqueues the

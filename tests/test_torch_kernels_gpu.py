@@ -27,7 +27,11 @@ ground-truth bank on the host) bitwise equal to eager iterations; on a
 one-rank NCCL group, the sharded window of a (1, 1) `ParallelTrainer`
 (captured sharded step, ground-truth bank on the card and on the host)
 bitwise equal to its eager iterations, and each collective the mesh runs
-captured into a graph, its replays equal to the eager call."""
+captured into a graph, its replays equal to the eager call; the stage
+marks inside the window's graph (each replay's marks in order in a
+CUDA-only trace, the mark table's ``%globaltimer`` totals against the
+trace's intervals) and a window bitwise the same with the marks off, each
+capture counted with its reason."""
 
 import numpy as np
 import pytest
@@ -763,6 +767,92 @@ def test_graph_window_equals_eager_iterations(layout):
     assert torch.equal(la, lb) and bool(torch.isfinite(la).all())
     assert a.drain_losses() == b.drain_losses() and a.ema_loss == b.ema_loss
     assert a.total_truncated == b.total_truncated == 0
+
+
+# one captured step's marks, in order (the render's end closes composite_fwd)
+STEP_MARKS = ["window", "preprocess", "bin", "relay", "composite_fwd", "end", "loss",
+              "composite_bwd", "preprocess_bwd", "adam", "window", "end"]
+
+
+@pytest.mark.gpu
+def test_graph_window_stage_marks_in_trace_and_table(tmp_path):
+    """A 5-step window (its graph captured by an earlier window) under a
+    CUDA-only profiler: each replay carries the step's marks in order,
+    once a stage (``window`` and ``end`` twice); the mark table's ``%globaltimer``
+    totals of the window agree with the trace's mark-to-mark intervals of
+    each stage within 2% (and 2 us an entry, a step of the card's clock),
+    and in all within 2%."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from omnigs_torch.utils import profiling
+
+    _cuda()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tr = _window_trainer("segmented")
+    assert tr.train_window(5) == 5
+    torch.cuda.synchronize()
+    before = profiling.stage_totals(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        assert tr.train_window(5) == 5
+        torch.cuda.synchronize()
+    after = profiling.stage_totals(dev)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    marks = sorted((float(e["ts"]), e["name"]) for e in events
+                   if e.get("cat") == "kernel" and e["name"].startswith("stage_mark_"))
+    assert [n for _, n in marks] == [f"stage_mark_{s}" for s in STEP_MARKS] * 5
+    spans = {}  # stage → us from each of its marks to the next mark
+    for (a, n), (b, _) in zip(marks, marks[1:]):
+        if n != "stage_mark_end":
+            s = n[len("stage_mark_"):]
+            spans[s] = spans.get(s, 0.0) + b - a
+    assert set(spans) == set(STEP_MARKS) - {"end"}
+    for s, span_us in spans.items():
+        ms, n = (after[s][i] - before[s][i] for i in (0, 1))
+        assert n == 5 * STEP_MARKS.count(s), s
+        assert ms * 1e3 == pytest.approx(span_us, rel=0.02, abs=2.0 * n), s
+    total = sum(after[s][0] - before[s][0] for s in spans) * 1e3
+    assert total == pytest.approx(sum(spans.values()), rel=0.02)
+
+
+@pytest.mark.gpu
+def test_graph_window_marks_off_bitwise_and_capture_reasons():
+    """Two trainers from one state, one window each with the marks on and
+    off: every loss and model field `torch.equal`. The window's captures
+    count with their reasons: the first, a changed λ (a static of the
+    step) and the marks' switch, once each."""
+    from omnigs_torch.model.gaussians import FIELD_NAMES
+    from omnigs_torch.utils import profiling
+
+    _cuda()
+    a, b = _window_trainer("segmented"), _window_trainer("segmented")
+    profiling.reset_counters()
+    assert a.train_window(5) == 5
+    profiling.set_marks(False)
+    try:
+        assert b.train_window(5) == 5
+        torch.cuda.synchronize()
+    finally:
+        profiling.set_marks(True)
+    for k in FIELD_NAMES:
+        assert torch.equal(getattr(a.model, k), getattr(b.model, k)), k
+    la = torch.cat([x.reshape(-1) for x, _, _ in a._pending_losses])
+    lb = torch.cat([x.reshape(-1) for x, _, _ in b._pending_losses])
+    assert torch.equal(la, lb) and bool(torch.isfinite(la).all())
+    assert profiling.counters()["capture_reasons"] == {"first": 2}
+    a.set_variable_parameters({"lambda_dssim": 0.3})
+    assert a.train_window(2) == 2
+    profiling.set_marks(False)
+    try:
+        assert a.train_window(2) == 2
+    finally:
+        profiling.set_marks(True)
+    got = profiling.counters()
+    assert got["captures"] == 4 and a.step_graph.captures == 3
+    assert got["capture_reasons"] == {"first": 2, "static": 1, "marks": 1}
+    assert got["replays"] == 14 and got["warmup_steps"] == 8
 
 
 @pytest.fixture(scope="module")
