@@ -16,7 +16,8 @@ script exits non-zero:
    and shared-memory report; the compositing kernels #1-#4 (the two
    sources of each layout, on one walk; #5 shares #4's source), #6's two
    kernels and #8's six modes may use no stack and spill nothing; the
-   `ptxas` line holds the report of #4, #5, #6's two kernels and #8.
+   `ptxas` line holds the report of #4, #5, #6's two kernels, #8 and the
+   SSIM's two kernels (also held to no stack and no spills).
 3. kernel — at full width (1920×960 lonlat, P = 131,072 at SH degree 3):
    the instance slab of one pose through the port's preprocess, binning
    and re-lay; the forward CUDA kernel against its plain PyTorch version on
@@ -40,6 +41,13 @@ script exits non-zero:
    taken out (`omnigs_torch/utils/kernel_variants.py`), every build's
    output bytes equal to the production build's, ms in turns (earlier
    sources first and last), each build's ptxas report.
+   ssim — the loss's SSIM kernels (`csrc/ssim.cu`) at the training loss's
+   3×900×1920, the strided crop of a 3×960×1920 frame, against `ssim_plain`
+   bit for bit (map, mean, the prediction's gradient), ms of the pair a
+   step runs and of its plain version, the bytes bound; a (1, 2) mesh's two
+   row blocks (`ssim_rows`) bit for bit the whole map's rows and the plain
+   versions' gradients. Every phase whose steps take the training loss
+   counts one launch of each kernel a step (eager, replay or warm-up).
 5. render — four serving requests through `render_model` with the
    production config of cfg/lonlat/360roam_lonlat.yaml under
    `torch.inference_mode()`, with the launch counters set to 0 just before
@@ -304,6 +312,17 @@ CONFIG = REPO / "cfg" / "lonlat" / "360roam_lonlat.yaml"
 SEG_BEFORE = REPO / "build" / "seg_before" / "omnigs_torch" / "csrc"
 MAX_ERR_BAR = 1e-4
 P999_ERR_BAR = 1e-5
+# the ssim phase: the training loss's view (3, 900, 1920), cropped by
+# Optimization.skip_bottom_px = 60 from a 1920×960 frame; bytes a pixel of
+# the pair a step runs (forward: x, y read, three partials written;
+# backward: x, y, the partials read, dx written) and fp32 operations a
+# pixel (forward: the horizontal pass's 33 products and 5 × 21 tap
+# operations on 42 staged rows a 32-row tile, the vertical pass's 5 × 21,
+# the map and its partials' 33; backward: the staging's 4 on 42 × 42
+# staged pixels a 32 × 32 tile, the two passes' 3 × 21 each, the output's 5)
+SSIM_SHAPE, SSIM_CROP = (3, 900, 1920), 60
+SSIM_BYTES_PER_PIXEL = 20 + 24
+SSIM_OPS_PER_PIXEL = (138 * 42 / 32 + 105 + 33) + (4 * 42 * 42 / 1024 + 63 * 42 / 32 + 63 + 5)
 # reductions of the same rows in another order (tests/test_gather_reduce.py)
 REDUCE_RTOL = 2e-3
 REDUCE_ATOL = 1e-4
@@ -789,6 +808,112 @@ def seg_compare_phase(torch, slab_data, kres, gres, grad_inputs):
                          {"composite_seg_fwd": kres, "composite_seg_bwd": gres})
 
 
+def ssim_phase(torch):
+    """The loss's SSIM kernels (`csrc/ssim.cu`) at the training loss's shape,
+    on the strided crop `train_step` passes, against `ssim_plain`: the map,
+    the mean (the plain version sums in the kernels' fixed tree) and the
+    prediction's gradient from the loss's −λ on the mean, bit for bit, with
+    the mean beside a float64 mean; ms of the forward with partials and the
+    backward (the pair a training step runs), of each alone and of the
+    forward in mean mode (eval's), of the plain versions, the bound. Then the
+    two row blocks of a (1, 2) mesh through `ssim_rows`: their rows against
+    the whole map's, their gradients against the plain versions', bit for
+    bit, and ms of both blocks' pair."""
+    from omnigs_torch.ops import loss as loss_ops
+
+    c, h, w = SSIM_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gt_full = torch.rand(c, h + SSIM_CROP, w, device="cuda", generator=gen)
+    noise = torch.randn(c, h + SSIM_CROP, w, device="cuda", generator=gen)
+    pred_full = (gt_full + 0.1 * noise).clamp(0.0, 1.0)
+    pred, gt = pred_full[:, :h], gt_full[:, :h]
+    npix = c * h * w
+
+    def run(f):
+        full = pred_full.clone().requires_grad_(True)
+        smap = f(full[:, :h], gt, size_average=False).detach()
+        mean = f(full[:, :h], gt)
+        (g,) = torch.autograd.grad(-0.2 * mean, [full])
+        return smap, mean.detach(), g
+
+    reset_launches()
+    got = run(loss_ops.ssim)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = run(loss_ops.ssim_plain)
+    names = ("map", "mean", "dpred")
+    equal = {k: bool(torch.equal(a, b)) for k, a, b in zip(names, got, want)}
+    max_abs = {k: float((a - b).abs().max()) for k, a, b in zip(names, got, want)}
+    mean_rel = abs(float(got[1]) - float(got[0].double().mean())) / abs(float(got[0].double().mean()))
+    cropped_zero = int(torch.count_nonzero(got[2][:, h:])) == 0
+
+    g_mean = torch.full((), -0.2, device="cuda")
+    _, partials = loss_ops.ssim_fwd(pred, gt, True, True)
+
+    def pair():
+        _, p = loss_ops.ssim_fwd(pred, gt, True, True)
+        return loss_ops.ssim_bwd(pred, gt, p, g_mean, True)
+
+    def plain_pair():
+        _, p = loss_ops._ssim_fwd_plain(pred, gt, True, True, 11, 0, h)
+        return loss_ops._ssim_bwd_plain(pred, gt, p, g_mean, True, 11, 0)
+
+    kernel_ms = time_ms(torch, pair, reps=20)
+    fwd_ms = time_ms(torch, lambda: loss_ops.ssim_fwd(pred, gt, True, True), reps=20)
+    bwd_ms = time_ms(torch, lambda: loss_ops.ssim_bwd(pred, gt, partials, g_mean, True), reps=20)
+    fwd_mean_ms = time_ms(torch, lambda: loss_ops.ssim_fwd(pred, gt, True, False), reps=20)
+    plain_ms = time_ms(torch, plain_pair, reps=5, warmup=1)
+    bound_ms, bound_by = _bound(SSIM_OPS_PER_PIXEL * npix, SSIM_BYTES_PER_PIXEL * npix)
+
+    # the (1, 2) mesh's row blocks: each rank's share of the sharded loss
+    rows = -(-h // 2)
+    blocks = []
+    for r0 in (0, rows):
+        valid = min(rows, h - r0)
+        out = []
+        for plain in (False, True):
+            full = pred_full.clone().requires_grad_(True)
+            if plain:
+                blk = loss_ops._apply(full[:, :h], gt, 11, False, True, r0, rows)
+            else:
+                blk = loss_ops.ssim_rows(full[:, :h], gt, r0, rows, h)
+            (g,) = torch.autograd.grad(blk[:, :valid].sum() / npix, [full])
+            out.append((blk.detach(), g))
+        (kb, kg), (pb, pg) = out
+        blocks.append({"row0": r0, "rows": rows,
+                       "map_bitwise_plain": bool(torch.equal(kb, pb)),
+                       "map_bitwise_whole": bool(torch.equal(kb[:, :valid],
+                                                             got[0][:, r0:r0 + valid])),
+                       "grad_bitwise_plain": bool(torch.equal(kg, pg)),
+                       "grad_nonzero": bool(kg.abs().max() > 0)})
+    g_rows = torch.full((), 1.0 / npix, device="cuda").expand(c, rows, w)
+
+    def rows_pair():
+        for r0 in (0, rows):
+            _, p = loss_ops.ssim_fwd(pred, gt, False, True, r0, rows)
+            loss_ops.ssim_bwd(pred, gt, p, g_rows, False, r0)
+
+    rows_ms = time_ms(torch, rows_pair, reps=20)
+    line = {"phase": "ssim", "shape": list(SSIM_SHAPE), "crop_of": [c, h + SSIM_CROP, w],
+            "strided": not pred.is_contiguous(), "launches": launches,
+            "bitwise_plain": equal, "max_abs_vs_plain": max_abs,
+            "mean_vs_float64_rel": mean_rel, "cropped_rows_zero": cropped_zero,
+            "kernel_ms": kernel_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "fwd_mean_ms": fwd_mean_ms, "plain_ms": plain_ms,
+            "bytes": SSIM_BYTES_PER_PIXEL * npix, "ops": SSIM_OPS_PER_PIXEL * npix,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "row_blocks": blocks, "row_blocks_ms": rows_ms}
+    emit(line)
+    if not all(equal.values()) or not cropped_zero or mean_rel > 2e-7:
+        raise RuntimeError(f"ssim: the kernels off their plain versions: {line}")
+    if not _only(launches, {"ssim_fwd": 2, "ssim_bwd": 1}):
+        raise RuntimeError(f"ssim: launches {launches}")
+    if not all(b["map_bitwise_plain"] and b["map_bitwise_whole"] and b["grad_bitwise_plain"]
+               and b["grad_nonzero"] for b in blocks):
+        raise RuntimeError(f"ssim: row blocks {blocks}")
+    return line
+
+
 def render_phase(torch, model, camera, pose_list, cfg):
     from omnigs_torch.ops import composite_seg as cs
     from omnigs_torch.train.renderer import render_model
@@ -953,6 +1078,7 @@ def train_config():
 def train_phase(torch, scene, device):
     from omnigs_torch.model import densify as densify_ops
     from omnigs_torch.ops import composite_seg as cs
+    from omnigs_torch.ops import loss as loss_ops
     from omnigs_torch.train.trainer import Trainer
 
     cfg = train_config()
@@ -977,10 +1103,10 @@ def train_phase(torch, scene, device):
     torch.cuda.reset_peak_memory_stats()
     lines = []
     try:
-        cs.composite_seg_fwd.launches = 0
-        cs.composite_seg_bwd.launches = 0
+        reset_launches()
         for _ in range(TRAIN_ITERS):
             fwd0, bwd0 = cs.composite_seg_fwd.launches, cs.composite_seg_bwd.launches
+            ssim0 = (loss_ops.ssim_fwd.launches, loss_ops.ssim_bwd.launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             aux = tr.train_iteration()
@@ -995,13 +1121,14 @@ def train_phase(torch, scene, device):
                 "truncated": int(aux["truncated"]),
                 "fwd_launches": cs.composite_seg_fwd.launches - fwd0,
                 "bwd_launches": cs.composite_seg_bwd.launches - bwd0,
+                "ssim_launches": [loss_ops.ssim_fwd.launches - ssim0[0],
+                                  loss_ops.ssim_bwd.launches - ssim0[1]],
                 "densified": densified[-1] if tr.iteration % DENSIFY_EVERY == 0
                 and densified else None,
             }
             emit(line)
             lines.append(line)
-        launches = {"composite_seg_fwd": cs.composite_seg_fwd.launches,
-                    "composite_seg_bwd": cs.composite_seg_bwd.launches}
+        launches = read_launches()
     finally:
         densify_ops.densify_and_prune = densify
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1024,7 +1151,8 @@ def train_phase(torch, scene, device):
         raise RuntimeError("training produced a non-finite loss or parameter")
     if any(x["truncated"] for x in lines) or tr.total_truncated:
         raise RuntimeError("training truncated instances")
-    if any(x["bwd_launches"] != 1 or x["fwd_launches"] < 1 for x in lines):
+    if any(x["bwd_launches"] != 1 or x["fwd_launches"] < 1 or x["ssim_launches"] != [1, 1]
+           for x in lines):
         raise RuntimeError("a training iteration skipped a kernel")
     if launches["composite_seg_bwd"] != TRAIN_ITERS or len(densified) != 3:
         raise RuntimeError(f"launches {launches}, densify ran {len(densified)} times")
@@ -1793,13 +1921,14 @@ def kernel_counters():
     in ``.launches``)."""
     from omnigs_torch.ops import composite_seg as cs
     from omnigs_torch.ops import composite_tile as ct
+    from omnigs_torch.ops import loss as loss_ops
     from omnigs_torch.scripts import bucket_emit_bench as be
     from omnigs_torch.scripts import kernel_ablate as ka
     from omnigs_torch.scripts import reduce_bench as rb
 
     fns = (cs.composite_seg_fwd, cs.composite_seg_bwd, ct.composite_tile_fwd,
            ct.composite_tile_bwd, ct.composite_tile_bwd_fused, rb.reduce_accum,
-           be.bucket_emit, ka.kernel_ablate)
+           be.bucket_emit, ka.kernel_ablate, loss_ops.ssim_fwd, loss_ops.ssim_bwd)
     return {f.__name__: f for f in fns}
 
 
@@ -1810,6 +1939,10 @@ def reset_launches():
 
 def read_launches():
     return {name: f.launches for name, f in kernel_counters().items()}
+
+
+# the loss of one training step (a view): the SSIM's two kernels, once each
+SSIM_STEP = {"ssim_fwd": 1, "ssim_bwd": 1}
 
 
 def _only(counts, expected):
@@ -1947,7 +2080,7 @@ def ghost_phase(torch, model, camera, pose_list, cfg, seg_renders, steps):
     if worst > P999_ERR_BAR:
         raise RuntimeError(f"ghost renders {worst:.3g} from the segmented ones")
     if not _only(launches, {"composite_tile_fwd": len(lines)}) or not _only(
-            st["launches"], {"composite_tile_fwd": 1, "composite_tile_bwd": 1}):
+            st["launches"], {"composite_tile_fwd": 1, "composite_tile_bwd": 1, **SSIM_STEP}):
         raise RuntimeError(f"ghost launches {launches}, step {st['launches']}")
     if st["truncated"] or max(ratio.values()) > 1.0:
         raise RuntimeError(f"ghost step: truncated {st['truncated']}, {ratio}")
@@ -2171,7 +2304,9 @@ def xla_phase(torch, np, model, camera, pose_list, cfg, seg_renders, steps):
             {"xla": st, "segmented": seg_step}, exact)
     if max(x["vs_segmented_tol_ratio"] for x in lines) > 1.0:
         raise RuntimeError("xla renders off the segmented ones beyond the bar")
-    if any(launches.values()) or any(st["launches"].values()) or any(
+    # the float32 step's loss runs the SSIM's kernels; the float64 one their
+    # plain versions
+    if any(launches.values()) or not _only(st["launches"], SSIM_STEP) or any(
             exact["launches"].values()):
         raise RuntimeError(f"the XLA backend launched kernels: {launches}, {st['launches']}")
     if max(max(r.values()) for r in vs_float64.values()) > 1.0:
@@ -3075,7 +3210,7 @@ def pinhole_phase(torch, np, model, pose_list, cfg):
         raise RuntimeError(f"pinhole requests: truncated {line['truncated']}, bitwise {equal}")
     if not _only(fwd_launches, {"composite_seg_fwd": len(pose_list)}):
         raise RuntimeError(f"pinhole requests launched {fwd_launches}")
-    if not _only(bwd_launches, {"composite_seg_fwd": 1, "composite_seg_bwd": 1}):
+    if not _only(bwd_launches, {"composite_seg_fwd": 1, "composite_seg_bwd": 1, **SSIM_STEP}):
         raise RuntimeError(f"pinhole backward launched {bwd_launches}")
     if not (all(line["grads_bitwise_plain"].values()) and all(line["grads_finite"].values())
             and all(line["grads_nonzero"].values())):
@@ -3512,7 +3647,8 @@ def trace_phase(torch, tr, request, make_scene):
     # the windows' graph replays, and the warm-up steps of a capture
     steps = untraced + cuda_only + took + WARMUP_STEPS * (tr.step_graph.captures - captures)
     if (min(untraced, cuda_only, took) <= 0 or not cuda_busy_us
-            or not _only(counted, {"composite_seg_fwd": steps, "composite_seg_bwd": steps})):
+            or not _only(counted, {"composite_seg_fwd": steps, "composite_seg_bwd": steps,
+                                   "ssim_fwd": steps, "ssim_bwd": steps})):
         raise RuntimeError(f"trace: train_window took {untraced}, {cuda_only}, {took} steps, "
                            f"launched {counted}")
 
@@ -3673,7 +3809,7 @@ def window_graph_phase(torch, np, make_train_scene):
         tr.init_from_sfm()
         return tr
 
-    total = {"composite_seg_fwd": 0, "composite_seg_bwd": 0}
+    total = {k: 0 for k in ("composite_seg_fwd", "composite_seg_bwd", "ssim_fwd", "ssim_bwd")}
     for name, make in (("train", train_trainer), ("cli_full", cli_trainer)):
         tr = make()
         ckpt = CLI_DIR / f"window_graph_{name}.pt"
@@ -3744,7 +3880,8 @@ def window_graph_phase(torch, np, make_train_scene):
                 "traced": traced, "captures_total": g.captures,
                 "live_gaussians": int(tr.model.num_active)}
         emit(line)
-        steps = {"composite_seg_fwd": WINDOW_STEPS, "composite_seg_bwd": WINDOW_STEPS}
+        steps = {k: WINDOW_STEPS for k in ("composite_seg_fwd", "composite_seg_bwd",
+                                           "ssim_fwd", "ssim_bwd")}
         warm = {k: WINDOW_STEPS + WARMUP_STEPS for k in steps}
         if syncs:
             raise RuntimeError(f"window_graph {name}: synchronizing calls in a step: {syncs}")
@@ -3869,7 +4006,8 @@ def parallel_phase(torch, scene, ref):
         "losses_bitwise": losses == ref["losses"], "max_loss_rel": max(rel),
         "param_bar_ratio": ratios, "params_bitwise": bitwise, "active_equal": active_equal,
         "densify_calls": len(densified), "truncated": truncated,
-        "launches": {k: launches[k] for k in ("composite_seg_fwd", "composite_seg_bwd")},
+        "launches": {k: launches[k] for k in ("composite_seg_fwd", "composite_seg_bwd",
+                                              "ssim_fwd", "ssim_bwd")},
     }
     emit(line)
     if max(rel) > LOSS_RTOL or max(ratios.values()) > 1.0 or not active_equal:
@@ -4019,7 +4157,8 @@ def parallel_window_phase(torch, np, scene):
         "traced": traced, "nvidia_smi": nvidia_smi_line(),
     }
     emit(line)
-    steps = {"composite_seg_fwd": WINDOW_STEPS, "composite_seg_bwd": WINDOW_STEPS}
+    steps = {k: WINDOW_STEPS for k in ("composite_seg_fwd", "composite_seg_bwd",
+                                       "ssim_fwd", "ssim_bwd")}
     warm = {k: WINDOW_STEPS + WARMUP_STEPS for k in steps}
     if syncs:
         raise RuntimeError(f"parallel_window: synchronizing calls in an iteration: {syncs}")
@@ -4388,6 +4527,11 @@ def parallel_pair_phase(torch):
                 fails.append(f"rank {r['rank']} trainer launches {tl}")
             if r["step_launches"]["composite_seg_bwd"] < 1 or r["render_launches"]["composite_tile_fwd"] < 1:
                 fails.append(f"rank {r['rank']} path skipped a kernel")
+            # the step's views: both on a (1, 2) mesh (each rank's SSIM a row
+            # block), one a rank on (2, 1)
+            views = 2 // data
+            if (r["step_launches"]["ssim_fwd"], r["step_launches"]["ssim_bwd"]) != (views, views):
+                fails.append(f"rank {r['rank']} step's SSIM launches {r['step_launches']}")
             w = r.get("tile_window")
             if w is not None and not (w["fwd_bitwise"] and w["bwd_bitwise"] and w["tile_fwd_bitwise"]
                                       and w["tile_lo"] > 0 and w["tile_lo_bwd"] > 0):
@@ -4542,15 +4686,15 @@ def main() -> int:
     })
 
     sources = ["composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
-               "composite_tile_bwd", "reduce_accum", "bucket_emit", "kernel_ablate"]
+               "composite_tile_bwd", "reduce_accum", "bucket_emit", "kernel_ablate", "ssim"]
     t0 = time.perf_counter()
     cuda_build.build(sources)  # one nvcc per source, all in parallel
     report = {k: cuda_build.BUILD_REPORT.get(k, "cached") for k in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "report": report})
-    # kernels #1-#4, #5 (which shares #4's source), #6's two kernels and
-    # #8's six modes
+    # kernels #1-#4, #5 (which shares #4's source), #6's two kernels, #8's
+    # six modes and the loss's SSIM kernels
     for k in ("composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
-              "composite_tile_bwd", "reduce_accum", "kernel_ablate"):
+              "composite_tile_bwd", "reduce_accum", "kernel_ablate", "ssim"):
         if report[k] != "cached" and not ptxas_clean(report[k]["ptxas"]):
             raise RuntimeError(f"{k}: ptxas reports stack or spills: {report[k]['ptxas']}")
     emit({"phase": "ptxas", **{
@@ -4559,7 +4703,8 @@ def main() -> int:
                           ("composite_tile_bwd", "composite_tile_bwd_fused_kernel"),
                           ("reduce_accum", "reduce_accum_kernel"),
                           ("reduce_accum", "reduce_transpose_kernel"),
-                          ("kernel_ablate", "kernel_ablate_kernel"))}})
+                          ("kernel_ablate", "kernel_ablate_kernel"),
+                          ("ssim", "ssim_fwd_kernel"), ("ssim", "ssim_bwd_kernel"))}})
 
     cfg = raster_config_from(load_config(CONFIG))
     camera = Camera(CameraType.LONLAT, WIDTH, HEIGHT)
@@ -4570,6 +4715,7 @@ def main() -> int:
     gres, grad_inputs = grad_phase(torch, kres, slab_data)
     seg_compare_phase(torch, slab_data, kres, gres, grad_inputs)
     del slab_data, grad_inputs
+    sres = ssim_phase(torch)
     stage_phase(torch, model, camera, pose_list[0], cfg)
     renders, render_launches = render_phase(torch, model, camera, pose_list, cfg)
     ply_phase(torch, model, camera, pose_list[0], cfg, renders[0].image)
@@ -4682,6 +4828,17 @@ def main() -> int:
     # the roofline's steps and converged_bench (#1, #2)
     measure = {k: bench_launches[k] + subtile_launches[k] + roof_launches[k] + conv_launches[k]
                for k in bench_launches}
+    # the loss's SSIM kernels: every phase whose steps take the training
+    # loss (its eager steps, graph replays and warm-up steps), the CLIs'
+    # (training and eval) and the ssim phase's own calls
+    ssim_by_phase = {
+        name: [d.get("ssim_fwd", 0), d.get("ssim_bwd", 0)] for name, d in (
+            ("ssim", sres["launches"]), ("train", train_launches),
+            ("window_graph", window_launches), ("trace", trace_launches),
+            ("cli", cli_launches), ("pinhole", pinhole_launches),
+            ("pyramid", pyramid_launches), ("live_viewer", live_launches),
+            ("parallel", par_launches), ("parallel_window", pwin_launches),
+            ("parallel_pair", pair_launches), ("scaling", scaling_launches))}
 
     emit({"kernels": [
         {
@@ -4877,6 +5034,30 @@ def main() -> int:
             "ms_by_mode": {m: v["kernel_ms"] for m, v in abl["modes"].items()},
             "bound_ms_by_mode": {m: v["bound_ms"] for m, v in abl["modes"].items()},
             # no single PyTorch call composites splats per tile
+            "library_ms": None,
+        },
+        {
+            # ssim_fwd_kernel (+ ssim_sum_kernel in mean mode) and
+            # ssim_bwd_kernel, the pair a training step runs
+            "name": "ssim",
+            "route": "cuda",
+            "source": "omnigs_torch/csrc/ssim.cu",
+            # replaces no TPU kernel: the JAX package runs the SSIM's window
+            # as banded matrix products (omnigs_tpu/ops/loss.py)
+            "replaces": None,
+            "tpu_kernel": None,
+            "launches": [sum(v[0] for v in ssim_by_phase.values()),
+                         sum(v[1] for v in ssim_by_phase.values())],
+            "launches_by_phase": ssim_by_phase,
+            "bitwise_plain": sres["bitwise_plain"],
+            "max_abs_err": max(sres["max_abs_vs_plain"].values()),
+            "ms": sres["kernel_ms"],
+            "fwd_ms": sres["fwd_ms"],
+            "bwd_ms": sres["bwd_ms"],
+            "plain_ms": sres["plain_ms"],
+            "bound_ms": sres["bound_ms"],
+            "bound_by": sres["bound_by"],
+            # no single PyTorch call runs the 11-tap window with its SSIM
             "library_ms": None,
         },
     ]})

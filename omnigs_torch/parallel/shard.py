@@ -16,7 +16,8 @@ its own views. Per view a rank:
 
 The gradient rule. A rank differentiates only its own partial of the loss:
 the L1 sum and the `ssim_rows` sum of its row block [g·H/G, (g+1)·H/G),
-each over the image's pixel count. The partials sum to the loss, and the
+each over the image's pixel count (with G = 1, the whole image's `ssim`
+mean, so a one-rank mesh takes `train_step`'s loss). The partials sum to the loss, and the
 backward of each all-gather is a reduce-scatter (`_AllGatherRows`), so the
 gradients that reach a shard are those of the loss itself, summed over the
 ranks that used its rows. The logged loss is an all-reduce of the detached
@@ -177,19 +178,26 @@ def sharded_render(
 
 
 def _view_partials(image, gt, skip_bottom_px, mesh):
-    """This rank's (L1 sum, SSIM sum) over its row block of the (cropped)
-    image, and the image's pixel count."""
+    """This rank's L1 sum over its row block of the (cropped) image, its
+    share of the SSIM mean (the block's `ssim_rows` sum over the image's
+    pixel count; with one row block, the whole image's `ssim`, as
+    `train_step` takes it), and the image's pixel count."""
     pred = image
     if skip_bottom_px > 0:
         pred = pred[:, :-skip_bottom_px]
         gt = gt[:, :-skip_bottom_px]
     c, h, w = pred.shape
-    rows = -(-h // axis_size(mesh, GAUSS_AXIS))
+    n_blocks = axis_size(mesh, GAUSS_AXIS)
+    rows = -(-h // n_blocks)
     r0 = axis_index(mesh, GAUSS_AXIS) * rows
     r1 = min(r0 + rows, h)
     l1_sum = torch.abs(pred[:, r0:r1] - gt[:, r0:r1]).sum()
-    ssim_sum = loss_ops.ssim_rows(pred, gt, r0, rows, h)[:, : max(r1 - r0, 0)].sum()
-    return l1_sum, ssim_sum, c * h * w
+    if n_blocks == 1:
+        ssim_part = loss_ops.ssim(pred, gt)
+    else:
+        ssim_sum = loss_ops.ssim_rows(pred, gt, r0, rows, h)[:, : max(r1 - r0, 0)].sum()
+        ssim_part = ssim_sum / (c * h * w)
+    return l1_sum, ssim_part, c * h * w
 
 
 def sharded_train_step(
@@ -235,10 +243,8 @@ def sharded_train_step(
             raster_cfg, mesh, means2d_ndc=ndc,
         )
         profiling.mark("loss", dev)
-        l1_sum, ssim_sum, npix = _view_partials(image, gt_images[v], skip_bottom_px, mesh)
-        part = (1.0 - lambda_dssim) * (l1_sum / npix) + lambda_dssim * (
-            1.0 - ssim_sum / npix
-        )
+        l1_sum, ssim_part, npix = _view_partials(image, gt_images[v], skip_bottom_px, mesh)
+        part = (1.0 - lambda_dssim) * (l1_sum / npix) + lambda_dssim * (1.0 - ssim_part)
         # the view's own loss: its screen-space gradient feeds the
         # statistics as one single-device iteration's would
         *g, g_ndc = torch.autograd.grad(
@@ -246,7 +252,7 @@ def sharded_train_step(
         )
         g = [torch.zeros_like(params[k]) if x is None else x for k, x in zip(names, g)]
         grads = g if grads is None else [a + b for a, b in zip(grads, g)]
-        sums.append(torch.stack([l1_sum.detach(), ssim_sum.detach()]) / npix)
+        sums.append(torch.stack([l1_sum.detach() / npix, ssim_part.detach()]))
         radii_v.append(radii.detach())
         ndc_g.append(g_ndc)
         overflow, truncated = overflow + ov, truncated + tr

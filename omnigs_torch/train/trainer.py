@@ -199,6 +199,8 @@ STEP_KERNELS = (
     (composite_tile, "composite_tile_fwd"),
     (composite_tile, "composite_tile_bwd"),
     (composite_tile, "composite_tile_bwd_fused"),
+    (loss_ops, "ssim_fwd"),
+    (loss_ops, "ssim_bwd"),
 )
 # eager steps on a side stream before a capture (PyTorch's CUDA-graph
 # notes: lazy initialisation, the autograd engine's device threads, the

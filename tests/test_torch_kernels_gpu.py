@@ -31,7 +31,13 @@ captured into a graph, its replays equal to the eager call; the stage
 marks inside the window's graph (each replay's marks in order in a
 CUDA-only trace, the mark table's ``%globaltimer`` totals against the
 trace's intervals) and a window bitwise the same with the marks off, each
-capture counted with its reason."""
+capture counted with its reason; the SSIM kernels (`csrc/ssim.cu`) bit for
+bit their plain versions (`ssim_plain`: the map, the mean through the same
+fixed tree, and the prediction's gradient from the mean's scalar and from
+a map's gradient, contiguous or broadcast) on a cropped strided view, an
+odd size and a one-tile-row image, and bitwise repeatable, their row
+blocks (`ssim_rows`) too; the window's graph counts their launches a
+replay."""
 
 import numpy as np
 import pytest
@@ -42,6 +48,7 @@ from omnigs_torch.model.gaussians import GaussianModel
 from omnigs_torch.model.optimizer import LRConfig, init_adam
 from omnigs_torch.ops import composite_seg as tcs
 from omnigs_torch.ops import composite_tile as tct
+from omnigs_torch.ops import loss as tl
 from omnigs_torch.ops.binning import (
     bin_instances,
     bin_instances_aligned,
@@ -748,6 +755,7 @@ def test_graph_window_equals_eager_iterations(layout):
     a, b = _window_trainer(layout), _window_trainer(layout)
     fwd = tct.composite_tile_fwd if layout == "tile_major" else tcs.composite_seg_fwd
     n0 = fwd.launches
+    s0 = (tl.ssim_fwd.launches, tl.ssim_bwd.launches)
     for _ in range(2):
         assert a.train_window(5) == 5
         for _ in range(5):
@@ -756,6 +764,8 @@ def test_graph_window_equals_eager_iterations(layout):
     assert a.iteration == b.iteration == 10
     assert a.step_graph.captures == 1 and a.step_graph.replays == 10
     assert fwd.launches - n0 == 10 + WARMUP_STEPS + 10
+    # the loss's two kernels, once each in every replay and eager step
+    assert tl.ssim_fwd.launches - s0[0] == tl.ssim_bwd.launches - s0[1] == 10 + WARMUP_STEPS + 10
     for k in FIELD_NAMES:
         assert torch.equal(getattr(a.model, k), getattr(b.model, k)), k
     for m in ("mu", "nu"):
@@ -951,3 +961,101 @@ def test_nccl_collectives_capture(nccl_rank):
             x.copy_(torch.randn(n, device=dev, generator=gen))
             graph.replay()
             assert torch.equal(out, fn(x.clone())), name
+
+
+# (shape, rows cropped off a taller image): the training loss's cropped
+# 1920x960 view (strided), an odd size, a single row of tiles
+SSIM_CASES = {"crop": ((3, 900, 1920), 60), "odd": ((3, 37, 53), 0),
+              "one_tile_row": ((3, 20, 300), 0)}
+
+
+def _ssim_inputs(dev, case):
+    (c, h, w), crop = SSIM_CASES[case]
+    rng = np.random.default_rng(70 + len(case))
+    gt = rng.uniform(size=(c, h + crop, w)).astype(np.float32)
+    pred = np.clip(gt + rng.normal(size=gt.shape).astype(np.float32) * 0.1, 0, 1)
+    cot = rng.normal(size=(c, h, w)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (pred, gt, cot)]
+
+
+def _ssim_run(f, pred_full, gt_full, cot, h):
+    """Mean, map and the gradients of the full prediction through ``f`` on
+    the top ``h`` rows (a strided view when rows are cropped): the mean's
+    (upstream −0.2), the map's with ``cot`` and with a broadcast one."""
+    full = pred_full.clone().requires_grad_(True)
+    pred, gt = full[:, :h], gt_full[:, :h]
+    mean = f(pred, gt)
+    (g_mean,) = torch.autograd.grad(-0.2 * mean, [full])
+    smap = f(pred, gt, size_average=False)
+    (g_cot,) = torch.autograd.grad((smap * cot).sum(), [full])
+    (g_ones,) = torch.autograd.grad(f(pred, gt, size_average=False).sum(), [full])
+    return [mean.detach(), smap.detach(), g_mean, g_cot, g_ones]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SSIM_CASES))
+def test_ssim_kernels_match_plain(case):
+    """The SSIM kernels against `ssim_plain` on the card, bit for bit: the
+    mean (the plain version sums in the kernels' fixed tree), the map and
+    the three gradients; three forward and three backward launches."""
+    dev = _cuda()
+    pred, gt, cot = _ssim_inputs(dev, case)
+    h = SSIM_CASES[case][0][1]
+    f0, b0 = tl.ssim_fwd.launches, tl.ssim_bwd.launches
+    got = _ssim_run(tl.ssim, pred, gt, cot, h)
+    torch.cuda.synchronize()
+    assert (tl.ssim_fwd.launches - f0, tl.ssim_bwd.launches - b0) == (3, 3)
+    want = _ssim_run(tl.ssim_plain, pred, gt, cot, h)
+    names = ["mean", "map", "grad_mean", "grad_map", "grad_broadcast"]
+    for name, a, b in zip(names, got, want):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+    assert bool(torch.isfinite(got[2]).all()) and float(got[2][:, :h].abs().max()) > 0
+    assert int(torch.count_nonzero(got[2][:, h:])) == 0  # the cropped rows
+    np.testing.assert_allclose(float(got[0]), float(got[1].double().mean()), rtol=2e-7)
+
+
+# (case, row0, nrows): the two row blocks of the cropped view on a (1, 2)
+# mesh, and the last block of a four-way ceil split of the odd size, whose
+# rows run past the image
+SSIM_BLOCKS = [("crop", 0, 450), ("crop", 450, 450), ("odd", 30, 10)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,row0,nrows", SSIM_BLOCKS)
+def test_ssim_row_blocks_kernels_match_plain(case, row0, nrows):
+    """`ssim_rows` blocks through the kernels: the block's map rows equal
+    the plain versions' and the whole map's, and the prediction's gradient
+    the plain versions', bit for bit; one launch of each kernel."""
+    dev = _cuda()
+    pred_full, gt_full, cot = _ssim_inputs(dev, case)
+    h = SSIM_CASES[case][0][1]
+    valid = min(nrows, h - row0)
+    cot = cot[:, :nrows]
+    out = []
+    def rows_plain(img1, img2, r0, n, total):  # `ssim_rows` on the plain versions
+        return tl._apply(img1, img2, 11, False, True, r0, n)
+
+    for rows in (tl.ssim_rows, rows_plain):
+        full = pred_full.clone().requires_grad_(True)
+        pred, gt = full[:, :h], gt_full[:, :h]
+        f0, b0 = tl.ssim_fwd.launches, tl.ssim_bwd.launches
+        blk = rows(pred, gt, row0, nrows, h)
+        (g,) = torch.autograd.grad((blk[:, :valid] * cot[:, :valid]).sum(), [full])
+        out.append((blk.detach(), g, tl.ssim_fwd.launches - f0, tl.ssim_bwd.launches - b0))
+    (kb, kg, kf, kbw), (pb, pg, pf, pbw) = out
+    assert (kf, kbw, pf, pbw) == (1, 1, 0, 0)
+    assert torch.equal(kb, pb) and torch.equal(kg, pg), float((kg - pg).abs().max())
+    whole = tl.ssim(pred_full[:, :h], gt_full[:, :h], size_average=False)
+    assert torch.equal(kb[:, :valid], whole[:, row0 : row0 + valid])
+    assert float(kg.abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_ssim_kernels_are_bitwise_repeatable():
+    """Two runs of the kernels on the training loss's cropped view give the
+    same bits (the mean's slots are summed in a fixed order, no atomics)."""
+    dev = _cuda()
+    pred, gt, cot = _ssim_inputs(dev, "crop")
+    a = _ssim_run(tl.ssim, pred, gt, cot, 900)
+    b = _ssim_run(tl.ssim, pred, gt, cot, 900)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
