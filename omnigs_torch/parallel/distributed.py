@@ -36,18 +36,22 @@ def initialize(
     init_method: Optional[str] = None,
     rank: Optional[int] = None,
     world_size: Optional[int] = None,
+    store: Optional[dist.Store] = None,
 ) -> None:
     """Join the process group (once; a no-op for one process without an
-    ``init_method``). Arguments left out come from ``RANK`` and
-    ``WORLD_SIZE``; the rendezvous defaults to ``env://``. Under NCCL the
-    rank's card becomes ``LOCAL_RANK`` (default: the rank)."""
+    ``init_method`` or ``store``). Arguments left out come from ``RANK`` and
+    ``WORLD_SIZE``; the rendezvous is ``store`` (a `torch.distributed.Store`
+    the caller opened, e.g. a `TCPStore` whose master bound port 0, so no
+    port is picked and then lost), else ``init_method``, else ``env://``.
+    Under NCCL the rank's card becomes ``LOCAL_RANK`` (default: the
+    rank)."""
     if dist.is_initialized():
         return
     if world_size is None:
         world_size = int(os.environ.get("WORLD_SIZE", "1"))
     if rank is None:
         rank = int(os.environ.get("RANK", "0"))
-    if init_method is None and world_size <= 1:
+    if init_method is None and store is None and world_size <= 1:
         return
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"name the backend, 'nccl' or 'gloo' (got {backend!r})")
@@ -56,10 +60,11 @@ def initialize(
         local = int(os.environ.get("LOCAL_RANK", str(rank)))
         torch.cuda.set_device(local)
         kwargs["device_id"] = torch.device("cuda", local)
-    dist.init_process_group(
-        backend, init_method=init_method or "env://", rank=rank,
-        world_size=world_size, **kwargs,
-    )
+    if store is not None:
+        kwargs["store"] = store
+    else:
+        kwargs["init_method"] = init_method or "env://"
+    dist.init_process_group(backend, rank=rank, world_size=world_size, **kwargs)
 
 
 def local_data_rows(mesh: DeviceMesh) -> List[int]:

@@ -14,7 +14,10 @@ device per rank:
 Rank r sits at (r // gauss, r % gauss): the data dim is outermost, so the
 ranks of one data row are consecutive (on one host when a host holds a
 row). A dim of size 1 runs no collective at all: its all-gather, reduce-
-scatter and all-reduce are the identity.
+scatter and all-reduce are the identity. Each collective that runs counts
+in `utils.profiling.counters`: one in ``collectives`` and the bytes of the
+tensor this rank hands it in ``allreduce_bytes``, ``gather_bytes`` or
+``scatter_bytes`` (a captured step's are counted at each replay).
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from omnigs_torch.utils import profiling
 
 DATA_AXIS = "data"
 GAUSS_AXIS = "gauss"
@@ -62,6 +67,11 @@ def axis_index(mesh: DeviceMesh, axis: str) -> int:
     return mesh.get_local_rank(axis)
 
 
+def _count(kind: str, x: torch.Tensor) -> None:
+    profiling.count("collectives")
+    profiling.count(f"{kind}_bytes", x.numel() * x.element_size())
+
+
 def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     """The ranks' ``x`` (same shape on each) stacked along dim 0 in rank
     order of ``axis``."""
@@ -70,6 +80,7 @@ def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
         return x
     x = x.contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    _count("gather", x)
     dist.all_gather_into_tensor(out, x, group=mesh.get_group(axis))
     return out
 
@@ -81,6 +92,7 @@ def reduce_scatter(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor
         return x
     x = x.contiguous()
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    _count("scatter", x)
     dist.reduce_scatter_tensor(out, x, group=mesh.get_group(axis))
     return out
 
@@ -92,5 +104,6 @@ def all_reduce(
     if axis_size(mesh, axis) == 1:
         return x
     x = x.clone()
+    _count("allreduce", x)
     dist.all_reduce(x, op=op, group=mesh.get_group(axis))
     return x

@@ -227,8 +227,8 @@ def sharded_train_step(
     the statistics, Adam. Returns the aux tensors (loss, l1, overflow,
     truncated, the last view's image), the same on every rank. Its stage
     marks run as `train.trainer.train_step`'s for each view, then
-    ``allreduce`` (the loss, counter and gradient all-reduces) and
-    ``adam`` (the statistics with their all-reduces, Adam)."""
+    ``allreduce`` (the loss, counter, gradient and statistics all-reduces)
+    and ``adam`` (the statistics' in-place updates, Adam)."""
     dev = model.xyz.device
     params = model.params()
     names = list(params)
@@ -273,16 +273,19 @@ def sharded_train_step(
         grads = [x / n_views for x in grads]
         if n_data > 1:
             grads = [all_reduce(x, mesh, DATA_AXIS) / n_data for x in grads]
-        profiling.mark("adam", dev)
         if update_stats:
             vis = [r > 0 for r in radii_v]
             gnorm = [torch.linalg.vector_norm(x[:, :2], dim=-1) for x in ndc_g]
             acc = sum(torch.where(m, x, torch.zeros_like(x)) for m, x in zip(vis, gnorm))
             cnt = sum(m.to(model.denom.dtype) for m in vis)
             rmax = torch.stack(radii_v).amax(0)
-            model.xyz_gradient_accum += all_reduce(acc, mesh, DATA_AXIS)
-            model.denom += all_reduce(cnt, mesh, DATA_AXIS)
+            acc = all_reduce(acc, mesh, DATA_AXIS)
+            cnt = all_reduce(cnt, mesh, DATA_AXIS)
             rmax = all_reduce(rmax, mesh, DATA_AXIS, op=dist.ReduceOp.MAX)
+        profiling.mark("adam", dev)
+        if update_stats:
+            model.xyz_gradient_accum += acc
+            model.denom += cnt
             model.max_radii2d.copy_(torch.maximum(model.max_radii2d, rmax))
         if do_adam:
             if not torch.is_tensor(step):

@@ -320,7 +320,8 @@ class StepGraph:
 
     Each wrapper in STEP_KERNELS counts its launches where it launches: the
     capture launches nothing (its counts are taken back) and each replay
-    adds the launches the graph holds."""
+    adds the launches the graph holds; the mesh's collectives
+    (`profiling.COLLECTIVE_NAMES`) are counted the same way."""
 
     def __init__(self):
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -332,6 +333,7 @@ class StepGraph:
         self.warmup_ms = 0.0
         self.pool_mb = 0.0  # device memory the last capture reserved for its pool
         self._per_replay: Tuple[tuple, ...] = ()
+        self._collectives_per_replay: Dict[str, int] = {}
         self._gt_stage: Optional[torch.Tensor] = None
         self.rows: Optional[torch.Tensor] = None
 
@@ -408,6 +410,7 @@ class StepGraph:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         before = [getattr(m, n).launches for m, n in STEP_KERNELS]
+        coll = profiling.collective_counts()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         # thread-local: a live viewer's request thread may make CUDA calls
@@ -425,6 +428,10 @@ class StepGraph:
                 per.append((m, n, fn.launches - b))
                 fn.launches = b
         self._per_replay = tuple(per)
+        self._collectives_per_replay = {
+            k: v - coll[k] for k, v in profiling.collective_counts().items() if v != coll[k]}
+        for k, v in self._collectives_per_replay.items():
+            profiling.count(k, -v)
         self.graph, self.key = graph, key
         self.captures += 1
         profiling.count_capture(reason)
@@ -457,6 +464,8 @@ class StepGraph:
                 self.graph.replay()
                 for m, n, c in self._per_replay:
                     getattr(m, n).launches += c
+                for name, c in self._collectives_per_replay.items():
+                    profiling.count(name, c)
                 done = torch.cuda.Event()
                 done.record()
             queued.append(done)
@@ -1103,7 +1112,8 @@ class Trainer:
         """The stage marks and counters since the last call: the device ms
         a step of each stage (the `stage_totals` that `drain_losses` last
         read, over the iterations since); the graph captures with their
-        reasons, the warm-up steps, replays and bank builds; the host's
+        reasons, the warm-up steps, replays and bank builds; on a mesh whose
+        collectives ran, their count and MB a step by kind; the host's
         waits for the replay queue (its back-pressure, expected); and the
         host's waits at each sync point (count / host ms)."""
         it, seen, before = self._traced
@@ -1119,6 +1129,11 @@ class Trainer:
         counts = " ".join(f"{k}={now[k] - before[k]}" + (f" ({reasons})" if k == "captures"
                                                           and reasons else "")
                           for k in profiling.COUNTER_NAMES)
+        moved = {k: now[k] - before[k] for k in profiling.COLLECTIVE_NAMES}
+        if moved["collectives"]:
+            counts += f" collectives={moved['collectives']} " + " ".join(
+                f"{k[:-len('_bytes')]}={v / steps / 1e6:.1f}MB/step"
+                for k, v in moved.items() if k.endswith("_bytes") and v)
 
         def waits(site):
             n = now["host_waits"].get(site, 0) - before["host_waits"].get(site, 0)

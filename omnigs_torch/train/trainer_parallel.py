@@ -13,8 +13,9 @@ the opacity LR, the white-background reset at ``densify_from_iter``), so a
 trainer has no coarse-to-fine pyramid and no undistort mask: it trains at
 the camera's size.
 
-A rank keeps a pose bank of every keyframe and a ground-truth bank of the
-keyframes its data row has drawn (`_bank_rows`). `train_window` runs the
+A rank keeps a pose bank of every keyframe and a ground-truth bank: every
+keyframe's, loaded once, when all fit ``Tpu.gt_bank_mb`` (the `Trainer`'s
+bank), else the keyframes its data row has drawn (`_bank_rows`). `train_window` runs the
 iterations between events through `sharded_train_steps_fused`: on a CUDA
 device under NCCL as replays of one captured sharded step
 (`window_mode` "graph"), on the CPU or under gloo eagerly ("eager"), in
@@ -150,26 +151,34 @@ class ParallelTrainer(Trainer):
 
     def _bank_rows(self, views: List[list]):
         """The (k, V) pose rows and ground-truth rows of k iterations'
-        views. A keyframe new to this rank's data row is loaded into the
-        ground-truth bank (only this row's images are ever loaded). The bank
-        holds a data row's share of the keyframes, ⌈N / n_data⌉ rows, and
-        doubles (up to N) when a data row has drawn more: every rank tracks
-        every row's draws, so all grow together and a sharded graph is
-        captured again on all ranks. It lives on the device while its rows
-        fit ``Tpu.gt_bank_mb`` MiB, else on the host (pinned beside a CUDA
-        device), as the `Trainer`'s bank."""
+        views. When every keyframe's ground truth fits ``Tpu.gt_bank_mb``
+        MiB on the device, the bank holds them all, loaded at its first use,
+        as the `Trainer`'s bank: it never grows, so a window's graph is
+        never captured again for it. Otherwise a keyframe new to this
+        rank's data row is loaded into the bank (only this row's images are
+        ever loaded), which holds a data row's share of the keyframes,
+        ⌈N / n_data⌉ rows, and doubles (up to N) when a data row has drawn
+        more: every rank tracks every row's draws, so all grow together and
+        a sharded graph is captured again on all ranks. That bank lives on
+        the device while its rows fit the budget, else on the host (pinned
+        beside a CUDA device)."""
         fid_row, _, _ = self._pose_bank()
         rows, bank = self._gt_bank
         n = len(fid_row)
-        cap = -(-n // self.n_data) if bank is None else bank.shape[0]
-        need = max(len(d) for d in self._drawn)
-        while cap < need:
-            cap = min(2 * cap, max(n, need))
+        kf = next(iter(self.scene.keyframes.values()))
+        h, w = np.asarray(kf.image).shape[:2]
+        budget = self.config.tpu.gt_bank_mb * (1 << 20)
+        every = n * 3 * h * w * 4 <= budget
+        if every:
+            cap = n
+        else:
+            cap = -(-n // self.n_data) if bank is None else bank.shape[0]
+            need = max(len(d) for d in self._drawn)
+            while cap < need:
+                cap = min(2 * cap, max(n, need))
         if bank is None or cap != bank.shape[0]:
-            kf = next(iter(self.scene.keyframes.values()))
-            h, w = np.asarray(kf.image).shape[:2]
             dev = torch.device(self.device)
-            on_device = cap * 3 * h * w * 4 <= self.config.tpu.gt_bank_mb * (1 << 20)
+            on_device = cap * 3 * h * w * 4 <= budget
             new = torch.empty((cap, 3, h, w), dtype=torch.float32,
                               device=dev if on_device else "cpu",
                               pin_memory=not on_device and dev.type == "cuda")
@@ -178,7 +187,8 @@ class ParallelTrainer(Trainer):
                 self.gt_bank_grows += 1
             bank = new
             profiling.count("bank_builds")
-        for kf in (kf for step in views for kf in step):
+        load = [self.scene.keyframes[f] for f in fid_row] if every else []
+        for kf in load + [kf for step in views for kf in step]:
             if kf.fid not in rows:
                 # loaders produce HWC; the image convention is channels-first
                 img = torch.as_tensor(np.asarray(kf.image), dtype=torch.float32)

@@ -33,8 +33,10 @@ port's own tracing:
 * `counters` — run-wide totals since `reset_counters`: graph captures,
   each with its reason (the field of the capture key that changed),
   warm-up steps and replays of the captured steps, ground-truth bank
-  builds, and the host's waits at the known sync points (count and host
-  ms by site, each wait timed by `host_wait`).
+  builds, the mesh's collectives and the bytes each kind hands them
+  (`parallel/mesh.py`; a replayed graph counts the collectives it holds,
+  its capture none), and the host's waits at the known sync points (count
+  and host ms by site, each wait timed by `host_wait`).
 * `mean_ms` — the mean time of repeated calls: CUDA events on a card
   (device time of back-to-back calls), the host clock on the CPU;
   `stage_ms` adds what the events measured: the card's time, or the
@@ -79,7 +81,7 @@ STAGES = (
     "loss",  # L1 + SSIM, forward and, in autograd's order, backward
     "composite_bwd",  # the compositor's backward and the row reduction
     "preprocess_bwd",  # the rest of autograd: back through preprocess
-    "allreduce",  # a sharded step's loss and gradient all-reduces
+    "allreduce",  # a sharded step's loss, gradient and statistics all-reduces
     "adam",  # densification statistics, group_lrs, adam_step
     "densify",  # densify_and_prune
     "reset",  # reset_opacity
@@ -240,11 +242,15 @@ class _Counters:
 _COUNTERS = _Counters()
 # the run-wide totals `counters` reports, all 0 after `reset_counters`
 COUNTER_NAMES = ("captures", "warmup_steps", "replays", "bank_builds")
+# the mesh's collectives that ran (a dim of one rank runs none) and the
+# bytes of the tensors each kind was handed on this rank
+COLLECTIVE_NAMES = ("collectives", "allreduce_bytes", "gather_bytes", "scatter_bytes")
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the run-wide counter ``name`` (one of COUNTER_NAMES)."""
-    if name not in COUNTER_NAMES:
+    """Add ``n`` to the run-wide counter ``name`` (one of COUNTER_NAMES or
+    COLLECTIVE_NAMES)."""
+    if name not in COUNTER_NAMES and name not in COLLECTIVE_NAMES:
         raise KeyError(name)
     with _COUNTERS.lock:
         _COUNTERS.totals[name] += n
@@ -281,12 +287,18 @@ def host_wait(site: str):
             _COUNTERS.wait_s[site] += dt
 
 
-def counters() -> dict:
-    """Run-wide totals since `reset_counters`: each of COUNTER_NAMES,
-    ``capture_reasons`` (reason → captures), ``host_waits`` (site →
-    waits) and ``host_wait_ms`` (site → host ms)."""
+def collective_counts() -> Dict[str, int]:
+    """The run-wide totals of COLLECTIVE_NAMES."""
     with _COUNTERS.lock:
-        out = {k: _COUNTERS.totals[k] for k in COUNTER_NAMES}
+        return {k: _COUNTERS.totals[k] for k in COLLECTIVE_NAMES}
+
+
+def counters() -> dict:
+    """Run-wide totals since `reset_counters`: each of COUNTER_NAMES and
+    COLLECTIVE_NAMES, ``capture_reasons`` (reason → captures),
+    ``host_waits`` (site → waits) and ``host_wait_ms`` (site → host ms)."""
+    with _COUNTERS.lock:
+        out = {k: _COUNTERS.totals[k] for k in COUNTER_NAMES + COLLECTIVE_NAMES}
         out["capture_reasons"] = dict(_COUNTERS.capture_reasons)
         out["host_waits"] = dict(_COUNTERS.waits)
         out["host_wait_ms"] = {k: v * 1e3 for k, v in _COUNTERS.wait_s.items()}

@@ -64,6 +64,41 @@ def test_cli_trees_match_jax(tmp_path):
     assert (tmp_path / "t" / "DevicePeakUsageMB.txt").read_text().startswith("unavailable")
 
 
+def test_cli_trains_on_a_mesh(tmp_path):
+    """``--mesh 2x1 --device cpu`` on two gloo ranks: both take the loop's
+    windows and single steps with the same losses (all-reduced), rank 0
+    writes the records and the PLYs of the whole model, whose live count
+    is the trainer's."""
+    from omnigs_torch.io.ply import load_gaussian_ply
+    from omnigs_torch.scripts import make_synthetic_scene
+
+    from torch_parallel_workers import cli_worker, run_ranks
+
+    scene = tmp_path / "scene"
+    make_synthetic_scene.main([str(scene), *SCENE_ARGS, "--device", "cpu"])
+    cfg = tiny_yaml(tmp_path / "tiny.yaml", **YAML)
+    argv = [str(a) for a in (cfg, tmp_path / "t", scene / "sfm_data_train.json",
+                             scene / "points.ply", "--image-root", scene / "images",
+                             "--iters", 6, "--log-every", 3, "--mesh", "2x1", "--device", "cpu")]
+    ranks = run_ranks(tmp_path, 2, cli_worker, argv)
+    for r in ranks:
+        assert r["iterations"] == 6 and r["windows"] >= 1 and r["single_steps"] >= 1
+        for k in ("window_steps", "single_steps", "ema_loss", "live"):
+            assert r[k] == ranks[0][k], k
+    out = tmp_path / "t"
+    for name in ("cameras.json", "4/ply/point_cloud.ply", "6/ply/point_cloud.ply",
+                 "image_shutdown/2.png", "used_times/keyframe_used_times_shutdown.txt"):
+        assert (out / name).exists(), name
+    ply = load_gaussian_ply(out / "6" / "ply" / "point_cloud.ply", device="cpu")
+    assert int(ply.num_active) == ranks[0]["live"]
+
+
+def test_cli_refuses_a_mesh_with_the_viewer(tmp_path):
+    with pytest.raises(SystemExit):
+        ttrain_cli.main(["cfg.yaml", str(tmp_path), "sfm.json", "points.ply", "--mesh", "2x1",
+                         "--viewer", "8000", "--device", "cpu"])
+
+
 MEASURED = 29.4
 BAR = MEASURED - 0.5
 NOISE = 0.15

@@ -19,8 +19,10 @@ from omnigs_torch.train import trainer as ttrainer
 from test_torch_trainer_window import _port_trainer
 from torch_parallel_workers import capture_key_worker, run_ranks, scene_np
 
+# gt_bank_mb 0: not every keyframe's ground truth fits the budget, so the
+# bank reserves a data row's share and grows
 TPU = dict(capacity=64, max_instances=1 << 12, tile_cap=64, chunk=8, backend="xla",
-           tight_culling=False, mesh_data=2, mesh_gauss=1)
+           tight_culling=False, mesh_data=2, mesh_gauss=1, gt_bank_mb=0)
 OPT = dict(densify_from_iter=100, densification_interval=100, densify_until_iter=500,
            opacity_reset_interval=0)
 

@@ -226,6 +226,25 @@ def test_trace_line_prints_each_counter_and_wait_site_since_the_last():
     profiling.reset_counters()
 
 
+def test_collectives_count_on_a_mesh_only():
+    """A single-device Trainer's window and event iteration run no
+    collective: the counters stay 0 and the log line is the one of before;
+    counted collectives print their count and MB a step by kind."""
+    profiling.reset_counters()
+    tr = _trainer()
+    tr.trace_line()
+    tr.train_window(2)
+    tr.train_iteration()
+    assert profiling.collective_counts() == dict.fromkeys(profiling.COLLECTIVE_NAMES, 0)
+    assert "collectives" not in tr.trace_line()
+    profiling.count("collectives", 22)
+    profiling.count("allreduce_bytes", 3_000_000)
+    tr.iteration += 2
+    line = tr.trace_line()
+    assert " bank_builds=0 collectives=22 allreduce=1.5MB/step | replay_queue=" in line, line
+    profiling.reset_counters()
+
+
 @pytest.mark.parametrize("field", ttrainer.CaptureKey._fields)
 def test_capture_reason_names_the_changed_field(field):
     """Each field of the capture key that changes is the reason of the

@@ -343,3 +343,85 @@ def capture_key_worker(rank, scene_np, tpu, opt):
     out["bank_grew"] = key() != k0
     out["grows"] = tr.gt_bank_grows
     return out
+
+
+def _state_np(tr):
+    """A trainer's model fields, Adam moments and step count as numpy."""
+    from omnigs_torch.model.gaussians import FIELD_NAMES
+
+    out = {k: getattr(tr.model, k).detach().numpy().copy() for k in FIELD_NAMES}
+    out.update({k: v.copy() for k, v in tr.opt_state.to_numpy().items()})
+    return out
+
+
+def dp_worker(rank, scene_np, tpu, opt, seed, start, fields):
+    """A data-parallel `ParallelTrainer` (the mesh in ``tpu``, gauss 1) from
+    the raw model ``fields`` at iteration ``start`` - 1 with zero Adam
+    moments. A `train_iteration` twin takes ``start`` … ``start`` + 3 one
+    by one; the trainer takes them through the loop's calls (windows of 1
+    and 2, then the event iteration ``start`` + 3), then windows up to the
+    next event, that event and a window → every iteration's drawn keyframes, the
+    poses, the four losses, the first gradient (m / (1 − β1) after one Adam
+    step), the model after three Adam steps, both trainers' states at
+    ``start`` + 3, this rank's state at the end, the live counts."""
+    from omnigs_torch.model import optimizer as opt_ops
+    from omnigs_torch.model.gaussians import GaussianModel
+    from omnigs_torch.scene.scene import KeyframeSampler
+    from omnigs_torch.train.trainer_parallel import ParallelTrainer
+
+    cfg = _config(tpu, opt)
+
+    def fresh():  # a scene of its own: the sampler spends the keyframes' charges
+        tr = ParallelTrainer(_scene(scene_np), cfg, seed=seed, device="cpu")
+        tr.model = GaussianModel.from_numpy(fields, device="cpu")
+        tr.opt_state = opt_ops.init_adam(tr.model.params())
+        tr.opt_state.count.fill_(start - 1)
+        tr.iteration = start - 1
+        return tr
+
+    scene = _scene(scene_np)
+    sampler = KeyframeSampler(scene, cfg.mapper.new_keyframe_times_of_use, seed)
+    draws = [sampler.sample().fid for _ in range(4 * cfg.tpu.mesh_data)]
+    twin = fresh()
+    for _ in range(4):
+        twin.train_iteration()
+    tr = fresh()
+    out = dict(draws=draws,
+               poses={f: (kf.viewmatrix, kf.campos) for f, kf in scene.keyframes.items()})
+    assert tr.train_window(1) == 1
+    out["grad"] = {k: (v / (1.0 - 0.9)).numpy().copy() for k, v in tr.opt_state.mu.items()}
+    assert tr.train_window(2) == 2
+    out["params3"] = {k: v.detach().numpy().copy() for k, v in tr.model.params().items()}
+    assert tr.train_window(1) == 0
+    tr.train_iteration()
+    out["losses"] = torch.cat([x.reshape(-1) for x, _, _ in tr._pending_losses]).numpy()
+    out["twin_losses"] = torch.cat([x.reshape(-1) for x, _, _ in twin._pending_losses]).numpy()
+    out["window_state"], out["twin_state"] = _state_np(tr), _state_np(twin)
+    live = [tr.live_gaussians()]
+    while tr.train_window(cfg.tpu.fuse_steps):
+        pass
+    tr.train_iteration()
+    live.append(tr.live_gaussians())
+    assert tr.train_window(2) == 2
+    out["state"], out["live"] = _state_np(tr), live
+    out["extent"], out["window_mode"] = tr.cameras_extent, tr.window_mode
+    return out
+
+
+def collective_worker(rank, fields, wh, views, cfg_kw, step_kw):
+    """One `sharded_train_step` on this rank's view of a (world, 1) mesh
+    under the counters → the collectives it ran and the bytes by kind."""
+    from omnigs_torch.utils import profiling
+
+    profiling.reset_counters()
+    step_worker(rank, len(views), 1, fields, wh, views, cfg_kw, step_kw)
+    # step_worker's own gathers are over gauss (one rank): no collective
+    return profiling.collective_counts()
+
+
+def cli_worker(rank, argv):
+    """The training CLI's `main` on this rank (the process group already
+    joined, as under torchrun) → what its loop did."""
+    from omnigs_torch.examples import train_openmvg_lonlat
+
+    return train_openmvg_lonlat.main(argv)
