@@ -17,7 +17,8 @@ script exits non-zero:
    sources of each layout, on one walk; #5 shares #4's source), #6's two
    kernels and #8's six modes may use no stack and spill nothing; the
    `ptxas` line holds the report of #4, #5, #6's two kernels, #8 and the
-   SSIM's two kernels (also held to no stack and no spills).
+   SSIM's two kernels and the pre-cull (also held to no stack and no
+   spills).
 3. kernel — at full width (1920×960 lonlat, P = 131,072 at SH degree 3):
    the instance slab of one pose through the port's preprocess, binning
    and re-lay; the forward CUDA kernel against its plain PyTorch version on
@@ -48,6 +49,13 @@ script exits non-zero:
    row blocks (`ssim_rows`) bit for bit the whole map's rows and the plain
    versions' gradients. Every phase whose steps take the training loss
    counts one launch of each kernel a step (eager, replay or warm-up).
+   precull — the binning's superblock pre-cull (`csrc/precull.cu`) against
+   `_precull_masks_plain` bit for bit in its six outputs, at the training
+   step's P = 524,288 (three quarters of the rows dead) and at the render's
+   P = 131,072: ms of the kernel and of the plain version, the bytes bound,
+   the kernel's ptxas report. The render, train, window_graph and
+   parallel_window phases hold it to one launch a request or a step; the
+   `kernels` entry `precull` counts it by phase.
 5. render — four serving requests through `render_model` with the
    production config of cfg/lonlat/360roam_lonlat.yaml under
    `torch.inference_mode()`, with the launch counters set to 0 just before
@@ -323,6 +331,12 @@ P999_ERR_BAR = 1e-5
 SSIM_SHAPE, SSIM_CROP = (3, 900, 1920), 60
 SSIM_BYTES_PER_PIXEL = 20 + 24
 SSIM_OPS_PER_PIXEL = (138 * 42 / 32 + 105 + 33) + (4 * 42 * 42 / 1024 + 63 * 42 / 32 + 63 + 5)
+# the precull phase: the training step's capacity rows (the render model's
+# 131,072 live, the rest dead as a Trainer's empty slots) and the bytes a row
+# the kernel reads (rect 16, tiles_touched 4, means2d 8, conic 12, opacity 4)
+# and writes (six int32)
+PRECULL_CAPACITY = 1 << 19
+PRECULL_BYTES_PER_ROW = 44 + 24
 # reductions of the same rows in another order (tests/test_gather_reduce.py)
 REDUCE_RTOL = 2e-3
 REDUCE_ATOL = 1e-4
@@ -914,7 +928,73 @@ def ssim_phase(torch):
     return line
 
 
+def precull_phase(torch, model, camera, pose, cfg, ptxas):
+    """The binning's superblock pre-cull (`csrc/precull.cu`) against its plain
+    version `_precull_masks_plain` on the card, bit for bit in all six
+    outputs, at the training step's P = 524,288 (the render model's rows
+    live, three quarters dead as a Trainer's empty capacity slots) and at the
+    render's P = 131,072: ms of each, the bytes bound, the rows' make-up, the
+    kernel's ptxas report (registers, no stack or spills)."""
+    from omnigs_torch.ops import binning
+    from omnigs_torch.ops.preprocess import preprocess, tile_grid
+
+    vm, campos = pose
+    gx, _ = tile_grid(camera)
+    live = model.xyz.shape[0]
+    pad = PRECULL_CAPACITY - live
+    quat = torch.zeros(pad, 4, device="cuda")
+    quat[:, 0] = 1.0
+
+    def rows(t, fill):
+        return torch.cat([t, fill.expand(pad, *t.shape[1:]).to(t)])
+
+    with torch.inference_mode():
+        preps = {
+            "train": preprocess(
+                rows(model.xyz, torch.zeros(())), rows(model.get_scaling(), torch.tensor(4.5e-5)),
+                torch.cat([model.get_rotation(), quat]),
+                rows(model.get_opacity(), torch.tensor(4.5e-5)),
+                rows(model.get_features(), torch.zeros(())), camera, vm, campos, SH_DEGREE,
+                active_mask=torch.arange(PRECULL_CAPACITY, device="cuda") < live,
+                tight_culling=cfg.tight_culling),
+            "render": preprocess(
+                model.xyz, model.get_scaling(), model.get_rotation(), model.get_opacity(),
+                model.get_features(), camera, vm, campos, SH_DEGREE, active_mask=model.active,
+                tight_culling=cfg.tight_culling),
+        }
+        line = {"phase": "precull", "gx": gx, "ptxas": ptxas}
+        for name, prep in preps.items():
+            before = binning.precull.launches
+            got = binning._precull_masks(prep, gx)
+            launches = binning.precull.launches - before
+            want = binning._precull_masks_plain(prep, gx)
+            p = prep.rect.shape[0]
+            bound_ms, bound_by = _bound(0, PRECULL_BYTES_PER_ROW * p)
+            line[name] = {
+                "rows": p,
+                "live_rows": int((prep.tiles_touched > 0).sum()),
+                "superblock_rows": int((got[3] * got[4] > 1).sum()),
+                "mask_bits": int(got[2].sum()),
+                "launches": launches,
+                "bitwise_equal_plain": {k: bool(torch.equal(a, b)) for k, a, b in zip(
+                    ("lo", "hi", "tiles_eff", "sx", "sy", "wb"), got, want)},
+                "kernel_ms": time_ms(torch, lambda: binning.precull(prep), reps=50),
+                "plain_ms": time_ms(torch, lambda: binning._precull_masks_plain(prep, gx),
+                                    reps=5, warmup=1),
+                "bytes": PRECULL_BYTES_PER_ROW * p,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+    emit(line)
+    bad = [n for n in preps if line[n]["launches"] != 1
+           or not all(line[n]["bitwise_equal_plain"].values())]
+    if bad:
+        raise RuntimeError(f"precull: the kernel off its plain version or not launched once "
+                           f"in {bad}: {line}")
+    return line
+
+
 def render_phase(torch, model, camera, pose_list, cfg):
+    from omnigs_torch.ops import binning
     from omnigs_torch.ops import composite_seg as cs
     from omnigs_torch.train.renderer import render_model
 
@@ -928,8 +1008,10 @@ def render_phase(torch, model, camera, pose_list, cfg):
     images = []
     torch.cuda.reset_peak_memory_stats()
     cs.composite_seg_fwd.launches = 0
+    culls = binning.precull.launches
     for k, (vm, campos) in enumerate(pose_list):
         before = cs.composite_seg_fwd.launches
+        cull0 = binning.precull.launches
         t0 = time.perf_counter()
         with torch.inference_mode():
             res = render_model(model, camera, vm, campos, bg, SH_DEGREE, cfg)
@@ -944,6 +1026,7 @@ def render_phase(torch, model, camera, pose_list, cfg):
             "live8": layout[k][1],
             "truncated": int(res.truncated),
             "kernel_launches": cs.composite_seg_fwd.launches - before,
+            "precull_launches": binning.precull.launches - cull0,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "image_min": float(img.min()),
             "image_mean": float(img.mean()),
@@ -957,9 +1040,11 @@ def render_phase(torch, model, camera, pose_list, cfg):
             raise RuntimeError(f"request {k}: image shape {tuple(img.shape)}")
         images.append(res)
     launches = cs.composite_seg_fwd.launches
-    if launches != len(pose_list):
+    culls = binning.precull.launches - culls
+    if launches != len(pose_list) or culls != len(pose_list):
         raise RuntimeError(
-            f"composite_seg_fwd launched {launches} times in {len(pose_list)} requests"
+            f"composite_seg_fwd launched {launches} times and precull {culls} times in "
+            f"{len(pose_list)} requests"
         )
     return images, launches
 
@@ -1077,6 +1162,7 @@ def train_config():
 
 def train_phase(torch, scene, device):
     from omnigs_torch.model import densify as densify_ops
+    from omnigs_torch.ops import binning
     from omnigs_torch.ops import composite_seg as cs
     from omnigs_torch.ops import loss as loss_ops
     from omnigs_torch.train.trainer import Trainer
@@ -1107,6 +1193,7 @@ def train_phase(torch, scene, device):
         for _ in range(TRAIN_ITERS):
             fwd0, bwd0 = cs.composite_seg_fwd.launches, cs.composite_seg_bwd.launches
             ssim0 = (loss_ops.ssim_fwd.launches, loss_ops.ssim_bwd.launches)
+            cull0 = binning.precull.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             aux = tr.train_iteration()
@@ -1123,6 +1210,7 @@ def train_phase(torch, scene, device):
                 "bwd_launches": cs.composite_seg_bwd.launches - bwd0,
                 "ssim_launches": [loss_ops.ssim_fwd.launches - ssim0[0],
                                   loss_ops.ssim_bwd.launches - ssim0[1]],
+                "precull_launches": binning.precull.launches - cull0,
                 "densified": densified[-1] if tr.iteration % DENSIFY_EVERY == 0
                 and densified else None,
             }
@@ -1152,7 +1240,7 @@ def train_phase(torch, scene, device):
     if any(x["truncated"] for x in lines) or tr.total_truncated:
         raise RuntimeError("training truncated instances")
     if any(x["bwd_launches"] != 1 or x["fwd_launches"] < 1 or x["ssim_launches"] != [1, 1]
-           for x in lines):
+           or x["precull_launches"] != 1 for x in lines):
         raise RuntimeError("a training iteration skipped a kernel")
     if launches["composite_seg_bwd"] != TRAIN_ITERS or len(densified) != 3:
         raise RuntimeError(f"launches {launches}, densify ran {len(densified)} times")
@@ -1919,6 +2007,7 @@ def tile_gather_phase(torch, model, camera, pose_list, cfg):
 def kernel_counters():
     """Every kernel wrapper of the port, by name (each counts its launches
     in ``.launches``)."""
+    from omnigs_torch.ops import binning
     from omnigs_torch.ops import composite_seg as cs
     from omnigs_torch.ops import composite_tile as ct
     from omnigs_torch.ops import loss as loss_ops
@@ -1928,7 +2017,8 @@ def kernel_counters():
 
     fns = (cs.composite_seg_fwd, cs.composite_seg_bwd, ct.composite_tile_fwd,
            ct.composite_tile_bwd, ct.composite_tile_bwd_fused, rb.reduce_accum,
-           be.bucket_emit, ka.kernel_ablate, loss_ops.ssim_fwd, loss_ops.ssim_bwd)
+           be.bucket_emit, ka.kernel_ablate, loss_ops.ssim_fwd, loss_ops.ssim_bwd,
+           binning.precull)
     return {f.__name__: f for f in fns}
 
 
@@ -1946,8 +2036,11 @@ SSIM_STEP = {"ssim_fwd": 1, "ssim_bwd": 1}
 
 
 def _only(counts, expected):
-    """True when exactly the kernels of ``expected`` launched, that often."""
-    return all(counts[k] == expected.get(k, 0) for k in counts)
+    """True when exactly the kernels of ``expected`` launched, that often.
+    The binning's pre-cull (``precull``, once wherever a layout bins with
+    the tile cull) is held only where ``expected`` names it."""
+    return all(counts[k] == expected.get(k, 0) for k in counts
+               if k != "precull" or k in expected)
 
 
 def _requests(torch, model, camera, pose_list, cfg, seg_renders, phase, n=None):
@@ -3809,7 +3902,8 @@ def window_graph_phase(torch, np, make_train_scene):
         tr.init_from_sfm()
         return tr
 
-    total = {k: 0 for k in ("composite_seg_fwd", "composite_seg_bwd", "ssim_fwd", "ssim_bwd")}
+    total = {k: 0 for k in ("composite_seg_fwd", "composite_seg_bwd", "ssim_fwd", "ssim_bwd",
+                            "precull")}
     for name, make in (("train", train_trainer), ("cli_full", cli_trainer)):
         tr = make()
         ckpt = CLI_DIR / f"window_graph_{name}.pt"
@@ -3881,7 +3975,7 @@ def window_graph_phase(torch, np, make_train_scene):
                 "live_gaussians": int(tr.model.num_active)}
         emit(line)
         steps = {k: WINDOW_STEPS for k in ("composite_seg_fwd", "composite_seg_bwd",
-                                           "ssim_fwd", "ssim_bwd")}
+                                           "ssim_fwd", "ssim_bwd", "precull")}
         warm = {k: WINDOW_STEPS + WARMUP_STEPS for k in steps}
         if syncs:
             raise RuntimeError(f"window_graph {name}: synchronizing calls in a step: {syncs}")
@@ -4158,7 +4252,7 @@ def parallel_window_phase(torch, np, scene):
     }
     emit(line)
     steps = {k: WINDOW_STEPS for k in ("composite_seg_fwd", "composite_seg_bwd",
-                                       "ssim_fwd", "ssim_bwd")}
+                                       "ssim_fwd", "ssim_bwd", "precull")}
     warm = {k: WINDOW_STEPS + WARMUP_STEPS for k in steps}
     if syncs:
         raise RuntimeError(f"parallel_window: synchronizing calls in an iteration: {syncs}")
@@ -4686,15 +4780,16 @@ def main() -> int:
     })
 
     sources = ["composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
-               "composite_tile_bwd", "reduce_accum", "bucket_emit", "kernel_ablate", "ssim"]
+               "composite_tile_bwd", "reduce_accum", "bucket_emit", "kernel_ablate", "ssim",
+               "precull"]
     t0 = time.perf_counter()
     cuda_build.build(sources)  # one nvcc per source, all in parallel
     report = {k: cuda_build.BUILD_REPORT.get(k, "cached") for k in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "report": report})
     # kernels #1-#4, #5 (which shares #4's source), #6's two kernels, #8's
-    # six modes and the loss's SSIM kernels
+    # six modes, the loss's SSIM kernels and the binning's pre-cull
     for k in ("composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
-              "composite_tile_bwd", "reduce_accum", "kernel_ablate", "ssim"):
+              "composite_tile_bwd", "reduce_accum", "kernel_ablate", "ssim", "precull"):
         if report[k] != "cached" and not ptxas_clean(report[k]["ptxas"]):
             raise RuntimeError(f"{k}: ptxas reports stack or spills: {report[k]['ptxas']}")
     emit({"phase": "ptxas", **{
@@ -4704,7 +4799,8 @@ def main() -> int:
                           ("reduce_accum", "reduce_accum_kernel"),
                           ("reduce_accum", "reduce_transpose_kernel"),
                           ("kernel_ablate", "kernel_ablate_kernel"),
-                          ("ssim", "ssim_fwd_kernel"), ("ssim", "ssim_bwd_kernel"))}})
+                          ("ssim", "ssim_fwd_kernel"), ("ssim", "ssim_bwd_kernel"),
+                          ("precull", "precull_kernel"))}})
 
     cfg = raster_config_from(load_config(CONFIG))
     camera = Camera(CameraType.LONLAT, WIDTH, HEIGHT)
@@ -4716,6 +4812,9 @@ def main() -> int:
     seg_compare_phase(torch, slab_data, kres, gres, grad_inputs)
     del slab_data, grad_inputs
     sres = ssim_phase(torch)
+    pres = precull_phase(torch, model, camera, pose_list[0], cfg,
+                         ptxas_of(report["precull"]["ptxas"], "precull_kernel")
+                         if report["precull"] != "cached" else "cached")
     stage_phase(torch, model, camera, pose_list[0], cfg)
     renders, render_launches = render_phase(torch, model, camera, pose_list, cfg)
     ply_phase(torch, model, camera, pose_list[0], cfg, renders[0].image)
@@ -4834,6 +4933,17 @@ def main() -> int:
     ssim_by_phase = {
         name: [d.get("ssim_fwd", 0), d.get("ssim_bwd", 0)] for name, d in (
             ("ssim", sres["launches"]), ("train", train_launches),
+            ("window_graph", window_launches), ("trace", trace_launches),
+            ("cli", cli_launches), ("pinhole", pinhole_launches),
+            ("pyramid", pyramid_launches), ("live_viewer", live_launches),
+            ("parallel", par_launches), ("parallel_window", pwin_launches),
+            ("parallel_pair", pair_launches), ("scaling", scaling_launches))}
+    # the binning's pre-cull: once a request or a step wherever a layout
+    # bins with the tile cull (every phase that trains or renders)
+    precull_by_phase = {
+        name: d.get("precull", 0) for name, d in (
+            ("precull", {"precull": sum(pres[n]["launches"] for n in ("train", "render"))}),
+            ("render", {"precull": N_REQUESTS}), ("train", train_launches),
             ("window_graph", window_launches), ("trace", trace_launches),
             ("cli", cli_launches), ("pinhole", pinhole_launches),
             ("pyramid", pyramid_launches), ("live_viewer", live_launches),
@@ -5058,6 +5168,28 @@ def main() -> int:
             "bound_ms": sres["bound_ms"],
             "bound_by": sres["bound_by"],
             # no single PyTorch call runs the 11-tap window with its SSIM
+            "library_ms": None,
+        },
+        {
+            # precull_kernel: the binning's superblock pre-cull, once a
+            # training step or a render request
+            "name": "precull",
+            "route": "cuda",
+            "source": "omnigs_torch/csrc/precull.cu",
+            # replaces no TPU kernel: the JAX package's pre-cull is XLA
+            # (omnigs_tpu/ops/binning.py::_precull_masks)
+            "replaces": None,
+            "tpu_kernel": None,
+            "launches": sum(precull_by_phase.values()),
+            "launches_by_phase": precull_by_phase,
+            "bitwise_plain": {n: all(pres[n]["bitwise_equal_plain"].values())
+                              for n in ("train", "render")},
+            "ms": pres["train"]["kernel_ms"],
+            "ms_render": pres["render"]["kernel_ms"],
+            "plain_ms": pres["train"]["plain_ms"],
+            "bound_ms": pres["train"]["bound_ms"],
+            "bound_by": pres["train"]["bound_by"],
+            # no single PyTorch call culls a rect's blocks against an ellipse
             "library_ms": None,
         },
     ]})

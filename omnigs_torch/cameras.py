@@ -100,6 +100,30 @@ def ndc2pix(v: torch.Tensor, size: int) -> torch.Tensor:
 _EPS = 1.0e-7  # the reference's +1e-7 pole/seam guards
 
 
+class _Asin(torch.autograd.Function):
+    """``torch.asin`` whose derivative stays finite at |x| = 1.
+
+    The lonlat latitude takes asin(clamp(y / (r + ε), -1, 1)); within ~1e-4
+    rad of the camera's pole axis y / (r + ε) rounds to ±1 exactly, where
+    autograd's 1 / sqrt(1 - x²) is inf, and the infinities of its paths meet
+    in t's gradient as inf − inf = NaN: a NaN position and Adam moments that
+    stay in the model (rare: a Gaussian that close to the axis of a view,
+    with a gradient). The derivative is autograd's own, ``g · rsqrt(−x·x +
+    1)`` in its operation order, with 1 − x² floored at the dtype's eps, the
+    least value an |x| < 1 gives: bit for bit autograd's everywhere else, and
+    at ±1 that of the nearest value below 1."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.asin(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.rsqrt(torch.clamp_min(-x * x + 1, torch.finfo(x.dtype).eps))
+
+
 def world_to_cam(means: torch.Tensor, viewmatrix: torch.Tensor) -> torch.Tensor:
     """(..., 3) world points → camera frame under T_cw (a full-f32 matmul,
     see the package docstring)."""
@@ -115,7 +139,7 @@ def lonlat_project(t: torch.Tensor, width: int, height: int):
     r = torch.sqrt(rr)
     inv_r = 1.0 / (r + _EPS)
     lon = torch.atan2(t[..., 0], t[..., 2])
-    lat = torch.asin(torch.clamp(t[..., 1] * inv_r, -1.0, 1.0))
+    lat = _Asin.apply(torch.clamp(t[..., 1] * inv_r, -1.0, 1.0))
     sx = lon * (1.0 / math.pi)
     sy = lat * (2.0 / math.pi)
     pix = torch.stack([ndc2pix(sx, width), ndc2pix(sy, height)], dim=-1)

@@ -16,9 +16,11 @@ Counterpart of `omnigs_tpu/ops/binning.py`, every layout of it:
 * `segment_relay` — the 8-granular slab re-lay of the segmented compositor,
   from packed keys or from Gaussian ids;
 
-with the superblock pre-cull (`_precull_masks`) shared by all of them. Every
-integer output is bitwise identical to the JAX functions'
-(tests/test_torch_binning.py, tests/test_torch_binning_layouts.py).
+with the superblock pre-cull (`_precull_masks`) shared by all of them: on
+the card the CUDA kernel `precull` (`csrc/precull.cu`, launches counted in
+``precull.launches``), on the CPU its plain version `_precull_masks_plain`,
+bit for bit the same. Every integer output is bitwise identical to the JAX
+functions' (tests/test_torch_binning.py, tests/test_torch_binning_layouts.py).
 
 Port notes, where PyTorch differs from `jax.lax`:
 
@@ -47,10 +49,12 @@ never visit get the same sentinels, so the outputs match bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
+from omnigs_torch import cuda_build
 from omnigs_torch.ops.preprocess import TILE, Preprocessed
 
 MASK_TILES = 64  # pre-emission survivor bitmask width (2 32-bit words)
@@ -188,8 +192,18 @@ def _precull_masks(prep: Preprocessed, grid_x: int):
     cull). Bigger rects tile into ≤ 8×8 superblocks of sx×sy tiles; a bit
     is set iff the max α over the block's pixel box can reach 1/255 — a
     conservative test the per-tile re-test in the expansion completes.
-    Returns (lo, hi, tiles_eff, sx, sy, wb), all (P,) int32.
+    Returns (lo, hi, tiles_eff, sx, sy, wb), all (P,) int32: from the
+    kernel `precull` on a CUDA device, from `_precull_masks_plain` on the
+    CPU.
     """
+    if prep.rect.device.type == "cuda":
+        return precull(prep)
+    return _precull_masks_plain(prep, grid_x)
+
+
+def _precull_masks_plain(prep: Preprocessed, grid_x: int):
+    """`_precull_masks` in PyTorch: every row broadcast over MASK_TILES
+    lanes, the JAX function's operations in its order."""
     rect = prep.rect
     x0, y0 = rect[:, 0:1], rect[:, 1:2]
     w = torch.clamp_min(rect[:, 2:3] - x0, 1)
@@ -226,6 +240,49 @@ def _precull_masks(prep: Preprocessed, grid_x: int):
     count = _popcount32(lo) + _popcount32(hi)
     tiles_eff = (count * (sx * sy)[:, 0]).to(_I32)
     return lo, hi, tiles_eff, sx[:, 0], sy[:, 0], wb[:, 0]
+
+
+# omnigs_precull(rect, rs0, rs1, tiles, ts, means, ms0, ms1, conic, cs0, cs1,
+#                opacity, os, P, out, device, stream)
+_LL, _VP = ctypes.c_longlong, ctypes.c_void_p
+_PRECULL_ARGTYPES = [
+    _VP, _LL, _LL, _VP, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _VP, ctypes.c_int, _VP,
+]
+
+
+def precull(prep: Preprocessed):
+    """The pre-cull kernel (`csrc/precull.cu`) on CUDA tensors: `_precull_masks`'
+    six (P,) int32 rows, bit for bit `_precull_masks_plain`'s, from one pass
+    over the rows (inputs read through their strides). Outputs come from one
+    (6, P) buffer; the launch runs on the current stream, without a sync."""
+    rect, tiles = prep.rect, prep.tiles_touched
+    means, conic, opac = prep.means2d, prep.conic, prep.opacity
+    p = rect.shape[0]
+    dev = rect.device
+    want = ((rect, (p, 4), _I32), (tiles, (p,), _I32), (means, (p, 2), torch.float32),
+            (conic, (p, 3), torch.float32), (opac, (p,), torch.float32))
+    if dev.type != "cuda" or any(
+            t.device != dev or tuple(t.shape) != s or t.dtype != d for t, s, d in want):
+        raise ValueError(
+            "the pre-cull kernel takes rect (P, 4) and tiles_touched (P,) int32, means2d "
+            "(P, 2), conic (P, 3) and opacity (P,) float32 on one CUDA device, got "
+            + ", ".join(f"{tuple(t.shape)} {t.dtype} {t.device}" for t, _, _ in want)
+        )
+    out = torch.empty(6, p, dtype=_I32, device=dev)
+    if p:
+        lib, fn = cuda_build.launcher("precull", "precull", _PRECULL_ARGTYPES)
+        err = fn(
+            rect.data_ptr(), *rect.stride(), tiles.data_ptr(), tiles.stride(0),
+            means.data_ptr(), *means.stride(), conic.data_ptr(), *conic.stride(),
+            opac.data_ptr(), opac.stride(0), p, out.data_ptr(), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        cuda_build.check(lib, err, "precull launch")
+        precull.launches += 1
+    return tuple(out.unbind(0))
+
+
+precull.launches = 0
 
 
 def _kth_set_bit(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor):

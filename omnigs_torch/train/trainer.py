@@ -70,7 +70,7 @@ from omnigs_torch.config import Config, raster_config_from
 from omnigs_torch.model import densify as densify_ops
 from omnigs_torch.model import optimizer as opt_ops
 from omnigs_torch.model.gaussians import FIELD_NAMES, PARAM_NAMES, GaussianModel, from_pcd
-from omnigs_torch.ops import composite_seg, composite_tile
+from omnigs_torch.ops import binning, composite_seg, composite_tile
 from omnigs_torch.ops import loss as loss_ops
 from omnigs_torch.ops.knn import mean_sq_knn_dist
 from omnigs_torch.ops.rasterize import RasterConfig
@@ -194,6 +194,7 @@ def train_step(
 # the kernel wrappers a train step can launch, by module and name (a
 # wrapper's own ``launches += 1`` finds it through its module's globals)
 STEP_KERNELS = (
+    (binning, "precull"),
     (composite_seg, "composite_seg_fwd"),
     (composite_seg, "composite_seg_bwd"),
     (composite_tile, "composite_tile_fwd"),
@@ -202,6 +203,13 @@ STEP_KERNELS = (
     (loss_ops, "ssim_fwd"),
     (loss_ops, "ssim_bwd"),
 )
+
+
+def step_launches() -> Dict[str, int]:
+    """Launches so far of each STEP_KERNELS wrapper, by name."""
+    return {n: getattr(m, n).launches for m, n in STEP_KERNELS}
+
+
 # eager steps on a side stream before a capture (PyTorch's CUDA-graph
 # notes: lazy initialisation, the autograd engine's device threads, the
 # cuBLAS workspace of the stream); their effect on the state is undone
@@ -629,7 +637,7 @@ class Trainer:
         # and, at the last `trace_line`: the iteration, those totals and the
         # counters
         self.stage_totals: Dict[str, Tuple[float, int]] = {}
-        self._traced = (self.iteration, {}, profiling.counters())
+        self._traced = (self.iteration, {}, profiling.counters(), step_launches())
 
     # -- setup --
 
@@ -1115,8 +1123,10 @@ class Trainer:
         reasons, the warm-up steps, replays and bank builds; on a mesh whose
         collectives ran, their count and MB a step by kind; the host's
         waits for the replay queue (its back-pressure, expected); and the
-        host's waits at each sync point (count / host ms)."""
-        it, seen, before = self._traced
+        host's waits at each sync point (count / host ms). The launches of
+        each STEP_KERNELS wrapper that launched follow the counters (a replay
+        counts the launches its graph holds)."""
+        it, seen, before, launched = self._traced
         now = profiling.counters()
         steps = max(self.iteration - it, 1)
         stages = " ".join(
@@ -1134,6 +1144,10 @@ class Trainer:
             counts += f" collectives={moved['collectives']} " + " ".join(
                 f"{k[:-len('_bytes')]}={v / steps / 1e6:.1f}MB/step"
                 for k, v in moved.items() if k.endswith("_bytes") and v)
+        kernels = step_launches()
+        ran = {k: v - launched[k] for k, v in kernels.items() if v != launched[k]}
+        if ran:
+            counts += " launches " + " ".join(f"{k}={v}" for k, v in ran.items())
 
         def waits(site):
             n = now["host_waits"].get(site, 0) - before["host_waits"].get(site, 0)
@@ -1142,6 +1156,6 @@ class Trainer:
 
         syncs = " ".join(filter(None, (waits(site) for site in sorted(now["host_waits"])
                                        if site != "replay_queue")))
-        self._traced = (self.iteration, self.stage_totals, now)
+        self._traced = (self.iteration, self.stage_totals, now, kernels)
         return (f"ms/step {stages or '-'} | {counts} | {waits('replay_queue') or 'replay_queue=0'}"
                 f" | syncs {syncs or '-'}")

@@ -4,6 +4,9 @@ preprocessed arrays; every integer output must be bitwise equal — sorted
 ranks and keys, tile ranges, depth permutations, truncation counters and
 every SegLayout field."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -96,6 +99,29 @@ def test_superblock_masks_and_bit31():
     assert bool((mt[3] > 1).any()), "no superblock rect"
     ij, it = _check_packed(pj, pt, 1 << 13, True, 16, 8)
     _check_relay(ij, it, 1 << 13, 48)
+
+
+def test_precull_on_the_cpu_takes_the_plain_version():
+    """CPU tensors take `_precull_masks_plain` (the JAX parity tests hold
+    it) and launch nothing, through the binning too; the kernel's wrapper
+    refuses them."""
+    _, pt = _prep_pair(23, 48, scale_mu=-0.7, spread=1.0, w=256, h=128)
+    before = tbin.precull.launches
+    got = tbin._precull_masks(pt, 16)
+    tbin.bin_instances_packed(pt, 16, 8, 1 << 13, tile_cull=True)
+    assert tbin.precull.launches == before
+    for a, b in zip(got, tbin._precull_masks_plain(pt, 16)):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    with pytest.raises(ValueError, match="pre-cull kernel takes"):
+        tbin.precull(pt)
+
+
+@pytest.mark.parametrize("name,value", [("MASK_TILES", tbin.MASK_TILES), ("TILE", tpre.TILE)])
+def test_precull_source_constants_match_the_package(name, value):
+    """`csrc/precull.cu` states the mask width and the tile edge the plain
+    version takes from `binning` and `preprocess`."""
+    src = (Path(tbin.__file__).resolve().parent.parent / "csrc" / "precull.cu").read_text()
+    assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
 
 
 def test_popcount_and_kth_set_bit():

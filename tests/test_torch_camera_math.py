@@ -64,6 +64,37 @@ def test_lonlat_project():
            jcam.ndc2pix(jnp.asarray([-1.0, 0.0, 1.0]), 256))
 
 
+def test_lonlat_gradient_is_finite_at_the_pole():
+    """Near the camera's pole axis asin's argument y / (r + ε) rounds to ±1;
+    the projection's gradient stays finite there (autograd's asin gives inf
+    and inf − inf = NaN) and equals the one off the pole elsewhere."""
+    t = torch.tensor([[1e-5, 2.0, 1e-5], [1e-5, -3.0, 2e-5], [0.3, 1.0, 0.5]],
+                     requires_grad=True)
+    pix, r, _ = tcam.lonlat_project(t, 1920, 960)
+    assert (t[:2, 1] / (r[:2] + tcam._EPS)).abs().tolist() == [1.0, 1.0]
+    (g,) = torch.autograd.grad(pix.sum() + r.sum(), [t])
+    assert bool(torch.isfinite(g).all()), g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_guarded_asin_is_autograds_below_one(dtype):
+    """The latitude's asin: forward and derivative bit for bit autograd's for
+    every |x| < 1 (the nearest values to ±1 included); at ±1 the derivative
+    of the nearest value below."""
+    rng = np.random.default_rng(31)
+    below = 1 - torch.finfo(dtype).eps / 2
+    x = torch.from_numpy(rng.uniform(-1, 1, 100_000)).to(dtype)
+    x[:4] = torch.tensor([below, -below, 0.0, 1e-30], dtype=dtype)
+    x.requires_grad_(True)
+    up = torch.from_numpy(rng.normal(size=x.shape)).to(dtype)
+    (want,) = torch.autograd.grad(torch.asin(x), [x], up)
+    (got,) = torch.autograd.grad(tcam._Asin.apply(x), [x], up)
+    assert torch.equal(got, want) and torch.equal(tcam._Asin.apply(x), torch.asin(x))
+    e = torch.tensor([1.0, -1.0, below], dtype=dtype, requires_grad=True)
+    (d,) = torch.autograd.grad(tcam._Asin.apply(e).sum(), [e])
+    assert d[0] == d[1] == d[2] and bool(torch.isfinite(d).all())
+
+
 def test_lonlat_jacobian_rows():
     p = _points(seed=3)
     rows_t = tcam.lonlat_jacobian_rows(torch.from_numpy(p), 256, 128)

@@ -37,18 +37,24 @@ fixed tree, and the prediction's gradient from the mean's scalar and from
 a map's gradient, contiguous or broadcast) on a cropped strided view, an
 odd size and a one-tile-row image, and bitwise repeatable, their row
 blocks (`ssim_rows`) too; the window's graph counts their launches a
-replay."""
+replay; the binning's pre-cull kernel (`csrc/precull.cu`) bit for bit its
+plain version (`_precull_masks_plain`) on the slabs named at
+PRECULL_CASES, the whole packed binning and relay unchanged by it, and one
+launch of it a render request and a replayed or eager step."""
 
 import numpy as np
 import pytest
 import torch
 
+from omnigs_torch import cameras as tcam
 from omnigs_torch.cameras import Camera, CameraType
 from omnigs_torch.model.gaussians import GaussianModel
 from omnigs_torch.model.optimizer import LRConfig, init_adam
 from omnigs_torch.ops import composite_seg as tcs
 from omnigs_torch.ops import composite_tile as tct
+from omnigs_torch.ops import binning as tbin
 from omnigs_torch.ops import loss as tl
+from omnigs_torch.ops import preprocess as tpre
 from omnigs_torch.ops.binning import (
     bin_instances,
     bin_instances_aligned,
@@ -756,6 +762,7 @@ def test_graph_window_equals_eager_iterations(layout):
     fwd = tct.composite_tile_fwd if layout == "tile_major" else tcs.composite_seg_fwd
     n0 = fwd.launches
     s0 = (tl.ssim_fwd.launches, tl.ssim_bwd.launches)
+    c0 = tbin.precull.launches
     for _ in range(2):
         assert a.train_window(5) == 5
         for _ in range(5):
@@ -766,6 +773,8 @@ def test_graph_window_equals_eager_iterations(layout):
     assert fwd.launches - n0 == 10 + WARMUP_STEPS + 10
     # the loss's two kernels, once each in every replay and eager step
     assert tl.ssim_fwd.launches - s0[0] == tl.ssim_bwd.launches - s0[1] == 10 + WARMUP_STEPS + 10
+    # the binning's pre-cull too: the graph holds its one launch a step
+    assert tbin.precull.launches - c0 == 10 + WARMUP_STEPS + 10
     for k in FIELD_NAMES:
         assert torch.equal(getattr(a.model, k), getattr(b.model, k)), k
     for m in ("mu", "nu"):
@@ -1059,3 +1068,233 @@ def test_ssim_kernels_are_bitwise_repeatable():
     a = _ssim_run(tl.ssim, pred, gt, cot, 900)
     b = _ssim_run(tl.ssim, pred, gt, cot, 900)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# the binning's superblock pre-cull (`csrc/precull.cu`) against its plain
+# version, on slabs built on the card: the benchmark's cloud at the training
+# step's P = 524,288 (three quarters of the rows dead); rects of exactly 1,
+# 64 and 65 tiles (the first superblock) and others around the two mask
+# words; the full 120x60 grid (sx = 15, sy = 8); conics with |B| near
+# sqrt(AC); opacities that put op exp(-q/2) within a few ulp of 1/255; zero
+# and non-finite conics, means and opacities; inputs read through strides;
+# a P that is not a multiple of the kernel's block
+PRECULL_CASES = ["bench", "edge_rects", "full_grid", "rotated", "alpha_edge", "degenerate",
+                 "strided", "ragged"]
+PRECULL_OUT = ("lo", "hi", "tiles_eff", "sx", "sy", "wb")
+GRID = (120, 60)  # tiles of a 1920x960 frame
+
+
+def _bench_prep(dev, capacity=1 << 19, live=1 << 17, seed=80):
+    """The benchmark's cloud (radius 1-5, log-scales N(-3.5, 0.3), opacity
+    logits N(0, 1)) of ``live`` rows in a ``capacity``-row model whose other
+    rows are empty slots, preprocessed at 1920x960 lonlat on the card."""
+    m = GaussianModel.from_numpy(random_model_np(seed, capacity, live, scale_mu=-3.5), device=dev)
+    return preprocess(
+        m.xyz, m.get_scaling(), m.get_rotation(), m.get_opacity(), m.get_features(),
+        Camera(CameraType.LONLAT, 16 * GRID[0], 16 * GRID[1]), torch.eye(4, device=dev),
+        torch.zeros(3, device=dev), 3, active_mask=m.active, tight_culling=True,
+    )
+
+
+def _rows_prep(dev, rect, means, conic, opac, tiles=None):
+    """A Preprocessed of hand-made rows (the fields the pre-cull reads; the
+    others zeros); tiles_touched the rects' areas unless given."""
+    rect = torch.as_tensor(np.asarray(rect), dtype=torch.int32, device=dev)
+    if tiles is None:
+        tiles = (rect[:, 2] - rect[:, 0]) * (rect[:, 3] - rect[:, 1])
+    tiles = torch.as_tensor(tiles, dtype=torch.int32, device=dev)
+    p = rect.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    return tpre.Preprocessed(
+        means2d=torch.as_tensor(np.asarray(means), **f32),
+        depths=torch.ones(p, **f32), conic=torch.as_tensor(np.asarray(conic), **f32),
+        radii=torch.ones(p, **f32), rgb=torch.zeros(p, 3, **f32),
+        opacity=torch.as_tensor(np.asarray(opac), **f32), rect=rect, tiles_touched=tiles,
+        valid=tiles > 0,
+    )
+
+
+def _random_rows(rng, sizes, sigma=(2.0, 80.0), rho_max=0.9):
+    """Rects of the given (w, h) tiles at random places in the grid, means
+    near them (inside or up to a rect's size outside), conics of Gaussians
+    of random size and angle, opacities in (0.01, 1)."""
+    sizes = np.asarray(sizes)
+    n = len(sizes)
+    x0 = rng.integers(0, GRID[0] - sizes[:, 0] + 1)
+    y0 = rng.integers(0, GRID[1] - sizes[:, 1] + 1)
+    rect = np.stack([x0, y0, x0 + sizes[:, 0], y0 + sizes[:, 1]], -1)
+    centre = 16.0 * (rect[:, :2] + rect[:, 2:]) / 2
+    means = centre + rng.uniform(-1.0, 1.0, (n, 2)) * 16.0 * sizes
+    sx, sy = np.exp(rng.uniform(np.log(sigma[0]), np.log(sigma[1]), (2, n)))
+    rho = rng.uniform(-rho_max, rho_max, n)
+    a, b, c = sx * sx, rho * sx * sy, sy * sy
+    det = a * c - b * b
+    conic = np.stack([c / det, -b / det, a / det], -1)
+    return rect, means, conic, rng.uniform(0.01, 1.0, n)
+
+
+def _precull_prep(case, dev):
+    rng = np.random.default_rng(90 + PRECULL_CASES.index(case))
+    if case == "bench":
+        return _bench_prep(dev)
+    if case == "edge_rects":
+        shapes = [(1, 1), (8, 8), (64, 1), (1, 60), (65, 1), (13, 5), (5, 13), (9, 8), (33, 2),
+                  (11, 6), (16, 4), (120, 1)]
+        return _rows_prep(dev, *_random_rows(rng, np.repeat(shapes, 48, axis=0)))
+    if case == "full_grid":
+        n = 256
+        rect = np.tile([0, 0, *GRID], (n, 1))
+        means = rng.uniform([-400, -400], [16 * GRID[0] + 400, 16 * GRID[1] + 400], (n, 2))
+        _, _, conic, opac = _random_rows(rng, np.ones((n, 2), int), sigma=(5.0, 900.0))
+        return _rows_prep(dev, rect, means, conic, opac)
+    if case == "rotated":
+        sizes = rng.integers(1, 13, (1024, 2))
+        rect, means, _, opac = _random_rows(rng, sizes)
+        a, c = np.exp(rng.normal(-6.0, 1.5, (2, 1024)))
+        rho = rng.choice([-1, 1], 1024) * (1 - 10.0 ** -rng.uniform(1, 7, 1024))
+        return _rows_prep(dev, rect, means, np.stack([a, rho * np.sqrt(a * c), c], -1), opac)
+    if case == "alpha_edge":
+        # block 0 (the rect's first tile) reaches 1/255 within k ulp, k in -4..4
+        base = 128
+        rect, means, conic, _ = _random_rows(rng, rng.integers(1, 4, (base, 2)), sigma=(4.0, 40.0))
+        prep = _rows_prep(dev, rect, means, conic, np.ones(base))
+        r, m, q = prep.rect, prep.means2d, prep.conic
+        px0, py0 = (r[:, 0] * 16).to(torch.float32), (r[:, 1] * 16).to(torch.float32)
+        qmin = tbin._min_quad_over_box(
+            q[:, 0], q[:, 1], q[:, 2], px0 - m[:, 0], px0 + 15.0 - m[:, 0],
+            py0 - m[:, 1], py0 + 15.0 - m[:, 1])
+        op0 = torch.full_like(qmin, 1.0 / 255.0) / torch.exp(-0.5 * qmin)
+        ops = []
+        for k in range(-4, 5):
+            op, toward = op0.clone(), torch.full_like(op0, np.inf if k > 0 else 0.0)
+            for _ in range(abs(k)):
+                op = torch.nextafter(op, toward)
+            ops.append(op)
+        rep = lambda t: t.repeat(9, *([1] * (t.ndim - 1)))  # noqa: E731
+        return _rows_prep(dev, rep(r).cpu(), rep(m).cpu(), rep(q).cpu(), torch.cat(ops).cpu())
+    if case == "degenerate":
+        n = 2048
+        rect, means, conic, opac = _random_rows(rng, rng.integers(1, 11, (n, 2)))
+        odd = [(0, 0, 0), (np.nan, 0, 1), (1, np.nan, 1), (1, 0, np.nan), (np.inf, 0, 1),
+               (1, 0, np.inf), (1, np.inf, 1), (-np.inf, 0, 1), (-1, 0, -1), (1e-30, 0, 1e-30),
+               (1e38, 0, 1e38), (1, 2, 1), (0, 1, 0)]
+        pick = rng.integers(0, len(odd) + 1, n)  # len(odd): the row's own conic
+        conic = np.where((pick < len(odd))[:, None], np.asarray(odd + [(0, 0, 0)])[pick], conic)
+        means[rng.uniform(size=n) < 0.1] = np.nan
+        means[rng.uniform(size=(n, 2)) < 0.05] = np.inf
+        opac = np.where(rng.uniform(size=n) < 0.1, rng.choice([np.nan, 0.0, 1.0, np.inf], n), opac)
+        tiles = (rect[:, 2] - rect[:, 0]) * (rect[:, 3] - rect[:, 1])
+        tiles[rng.uniform(size=n) < 0.2] = 0  # dead rows with whatever floats
+        return _rows_prep(dev, rect, means, conic, opac, tiles)
+    if case == "strided":
+        prep = _rows_prep(dev, *_random_rows(rng, rng.integers(1, 14, (3000, 2))))
+        p = prep.rect.shape[0]
+
+        def spread(t, width, at):  # t as columns `at` of a wider buffer
+            buf = torch.zeros(p, width, dtype=t.dtype, device=dev)
+            buf[:, at] = t.reshape(buf[:, at].shape)
+            return buf[:, at]
+
+        return prep._replace(
+            rect=spread(prep.rect, 8, slice(0, 8, 2)), tiles_touched=spread(prep.tiles_touched, 2, 1),
+            means2d=spread(prep.means2d, 6, slice(2, 4)), conic=spread(prep.conic, 6, slice(1, 6, 2)),
+            opacity=spread(prep.opacity, 3, 2))
+    assert case == "ragged"
+    return _rows_prep(dev, *_random_rows(rng, rng.integers(1, 12, (1037, 2))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PRECULL_CASES)
+def test_precull_kernel_matches_plain(case):
+    """The pre-cull kernel `torch.equal` to `_precull_masks_plain` on the card
+    in all six outputs, dead rows included; one launch."""
+    dev = _cuda()
+    prep = _precull_prep(case, dev)
+    before = tbin.precull.launches
+    got = tbin._precull_masks(prep, GRID[0])
+    torch.cuda.synchronize()
+    assert tbin.precull.launches == before + 1
+    want = tbin._precull_masks_plain(prep, GRID[0])
+    for name, a, b in zip(PRECULL_OUT, got, want):
+        assert a.dtype == torch.int32 and a.shape == b.shape, name
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    lo, hi, _, sx, sy, _ = got
+    if case == "bench":
+        live = int((prep.tiles_touched > 0).sum())
+        assert prep.rect.shape[0] == 1 << 19 and 0 < live <= 1 << 17
+        assert bool((lo[prep.tiles_touched == 0] == 0).all())
+    if case == "edge_rects":
+        assert bool((sx > 1).any()) and bool((hi != 0).any()) and bool((lo < 0).any())
+    if case == "full_grid":
+        assert bool((sx == 15).all()) and bool((sy == 8).all())
+    if case == "alpha_edge":
+        bit0 = lo & 1
+        assert bool((bit0 == 1).any()) and bool((bit0 == 0).any())
+
+
+@pytest.mark.gpu
+def test_precull_kernel_on_no_rows_launches_nothing():
+    dev = _cuda()
+    prep = _rows_prep(dev, np.zeros((0, 4)), np.zeros((0, 2)), np.zeros((0, 3)), np.zeros(0))
+    before = tbin.precull.launches
+    out = tbin._precull_masks(prep, GRID[0])
+    assert tbin.precull.launches == before
+    assert all(t.shape == (0,) and t.dtype == torch.int32 for t in out)
+
+
+@pytest.mark.gpu
+def test_binning_with_precull_kernel_matches_plain_precull(monkeypatch):
+    """`bin_instances_packed` + `segment_relay` on the card at the training
+    step's shape (P = 524,288, 2^22 slots) with the pre-cull kernel and with
+    its plain version: every output `torch.equal`; one launch."""
+    dev = _cuda()
+    prep = _bench_prep(dev)
+    p = prep.rect.shape[0]
+
+    def run():
+        inst = bin_instances_packed(prep, *GRID, 1 << 22, tile_cull=True)
+        seg = segment_relay(inst.sorted_g, inst.starts, inst.counts, 1 << 22, p, inst.sorted_key)
+        return [t for t in (*inst, *seg) if t is not None]
+
+    before = tbin.precull.launches
+    got = run()
+    assert tbin.precull.launches == before + 1
+    monkeypatch.setattr(tbin, "precull", lambda pr: tbin._precull_masks_plain(pr, GRID[0]))
+    want = run()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[3]) > 0  # instances emitted
+
+
+@pytest.mark.gpu
+def test_render_request_launches_one_precull():
+    """A render request through the production layout runs the pre-cull
+    kernel once."""
+    dev = _cuda()
+    m = GaussianModel.from_numpy(random_model_np(81, 2048, 1500), device=dev)
+    before = tbin.precull.launches
+    with torch.inference_mode():
+        render_model(m, Camera(CameraType.LONLAT, 256, 128), torch.eye(4, device=dev),
+                     torch.zeros(3, device=dev), torch.zeros(3, device=dev), 3,
+                     RasterConfig(max_instances=1 << 14, **PROD_KW))
+    torch.cuda.synchronize()
+    assert tbin.precull.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_guarded_asin_is_autograds_on_the_card():
+    """The lonlat latitude's asin on the card: forward and derivative bit for
+    bit autograd's for |x| < 1, finite at ±1 (where autograd's is inf)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(32)
+    x = torch.rand(1 << 20, device=dev, generator=gen) * 2 - 1
+    x[:3] = torch.tensor([1 - 2**-24, -(1 - 2**-24), 0.0], device=dev)
+    x.requires_grad_(True)
+    up = torch.randn(x.shape, device=dev, generator=gen)
+    (want,) = torch.autograd.grad(torch.asin(x), [x], up)
+    (got,) = torch.autograd.grad(tcam._Asin.apply(x), [x], up)
+    assert torch.equal(got, want) and torch.equal(tcam._Asin.apply(x), torch.asin(x))
+    e = torch.tensor([1.0, -1.0], device=dev, requires_grad=True)
+    (d,) = torch.autograd.grad(tcam._Asin.apply(e).sum(), [e])
+    assert bool(torch.isfinite(d).all())

@@ -226,6 +226,24 @@ def test_trace_line_prints_each_counter_and_wait_site_since_the_last():
     profiling.reset_counters()
 
 
+def test_trace_line_prints_the_step_kernels_launches():
+    """The launches since the last line of each STEP_KERNELS wrapper that
+    launched follow the counters (on the CPU none launches, and the line is
+    the one of before)."""
+    tr = _trainer()
+    tr.trace_line()
+    assert " launches " not in tr.trace_line()
+    binning, loss_ops = ttrainer.binning, ttrainer.loss_ops
+    binning.precull.launches += 3
+    loss_ops.ssim_fwd.launches += 2
+    try:
+        line = tr.trace_line()
+    finally:
+        binning.precull.launches -= 3
+        loss_ops.ssim_fwd.launches -= 2
+    assert " bank_builds=0 launches precull=3 ssim_fwd=2 | replay_queue=" in line, line
+
+
 def test_collectives_count_on_a_mesh_only():
     """A single-device Trainer's window and event iteration run no
     collective: the counters stay 0 and the log line is the one of before;
