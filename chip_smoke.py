@@ -77,7 +77,7 @@ script exits non-zero:
    rtol 1e-5 and its parameters within the gradient bar (rtol 2e-3, atol
    1e-4·max) of the `Trainer`'s, host ms per iteration beside the
    Trainer's, #1/#2 launches. parallel_window — the sharded window
-   (`ParallelTrainer.train_window` through `sharded_train_steps_fused`) on
+   (`ParallelTrainer.train_window` through `train_steps_fused`) on
    that rank, built as window_graph's train Trainer (capacity 524,288,
    iterations 3001–3024, densify every 1000): in "graph" mode, one capture
    and 24 replays of the sharded step `torch.equal` to 24 eager
@@ -85,7 +85,8 @@ script exits non-zero:
    synchronizing call in an iteration (the ones of one `sharded_densify`
    listed), the `Trainer`'s graph window from the same state reported
    bitwise and held at the gradient bar; ms a step of both modes in turns,
-   capture / warm-up ms, pool MB, recaptures, the ground-truth bank, the
+   the first window's ms and reserved MB (its warm-up steps, capture and
+   graph pool), recaptures, the ground-truth bank, the
    busy share under `profiling.trace`, #1/#2 launches. nccl_capture — each
    collective the mesh runs (`all_gather_into_tensor`,
    `reduce_scatter_tensor`, `all_reduce` SUM and MAX), called directly on
@@ -246,7 +247,8 @@ script exits non-zero:
    eager `train_iteration`s on every model field, Adam moment and count,
    the losses and the overflow / truncated totals, with one capture, 24
    replays and #1 / #2 counted once a replay and once a warm-up step; ms a
-   step of both in turns, capture and warm-up ms, the graph pool's MB, and
+   step of both in turns, the first window's ms and the MB it reserved
+   (warm-up, capture, the graph's pool), and
    under `profiling.trace` the card's busy share, kernels, host launch
    calls and graph launches a step of a window and of 24 eager iterations.
 22. pinhole — the render model through a distorted pinhole camera
@@ -964,9 +966,9 @@ def precull_phase(torch, model, camera, pose, cfg, ptxas):
         }
         line = {"phase": "precull", "gx": gx, "ptxas": ptxas}
         for name, prep in preps.items():
-            before = binning.precull.launches
+            before = launch_count("precull")
             got = binning._precull_masks(prep, gx)
-            launches = binning.precull.launches - before
+            launches = launch_count("precull") - before
             want = binning._precull_masks_plain(prep, gx)
             p = prep.rect.shape[0]
             bound_ms, bound_by = _bound(0, PRECULL_BYTES_PER_ROW * p)
@@ -994,8 +996,6 @@ def precull_phase(torch, model, camera, pose, cfg, ptxas):
 
 
 def render_phase(torch, model, camera, pose_list, cfg):
-    from omnigs_torch.ops import binning
-    from omnigs_torch.ops import composite_seg as cs
     from omnigs_torch.train.renderer import render_model
 
     bg = torch.zeros(3, device=model.xyz.device)
@@ -1007,11 +1007,11 @@ def render_phase(torch, model, camera, pose_list, cfg):
             layout.append((int(inst.num_instances), int(seg.live8)))
     images = []
     torch.cuda.reset_peak_memory_stats()
-    cs.composite_seg_fwd.launches = 0
-    culls = binning.precull.launches
+    reset_launches("composite_seg_fwd")
+    culls = launch_count("precull")
     for k, (vm, campos) in enumerate(pose_list):
-        before = cs.composite_seg_fwd.launches
-        cull0 = binning.precull.launches
+        before = launch_count("composite_seg_fwd")
+        cull0 = launch_count("precull")
         t0 = time.perf_counter()
         with torch.inference_mode():
             res = render_model(model, camera, vm, campos, bg, SH_DEGREE, cfg)
@@ -1025,8 +1025,8 @@ def render_phase(torch, model, camera, pose_list, cfg):
             "emitted_instances": layout[k][0],
             "live8": layout[k][1],
             "truncated": int(res.truncated),
-            "kernel_launches": cs.composite_seg_fwd.launches - before,
-            "precull_launches": binning.precull.launches - cull0,
+            "kernel_launches": launch_count("composite_seg_fwd") - before,
+            "precull_launches": launch_count("precull") - cull0,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "image_min": float(img.min()),
             "image_mean": float(img.mean()),
@@ -1039,8 +1039,8 @@ def render_phase(torch, model, camera, pose_list, cfg):
         if tuple(img.shape) != (3, HEIGHT, WIDTH):
             raise RuntimeError(f"request {k}: image shape {tuple(img.shape)}")
         images.append(res)
-    launches = cs.composite_seg_fwd.launches
-    culls = binning.precull.launches - culls
+    launches = launch_count("composite_seg_fwd")
+    culls = launch_count("precull") - culls
     if launches != len(pose_list) or culls != len(pose_list):
         raise RuntimeError(
             f"composite_seg_fwd launched {launches} times and precull {culls} times in "
@@ -1090,8 +1090,6 @@ class Probe:
         self.events[label] = ev
 
     def _wrap(self, fn, label):
-        # functools.wraps also copies a kernel wrapper's launch counter, so
-        # the wrapped function's own `+= 1` finds it
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
             self.mark(label + ":in")
@@ -1162,9 +1160,6 @@ def train_config():
 
 def train_phase(torch, scene, device):
     from omnigs_torch.model import densify as densify_ops
-    from omnigs_torch.ops import binning
-    from omnigs_torch.ops import composite_seg as cs
-    from omnigs_torch.ops import loss as loss_ops
     from omnigs_torch.train.trainer import Trainer
 
     cfg = train_config()
@@ -1191,9 +1186,9 @@ def train_phase(torch, scene, device):
     try:
         reset_launches()
         for _ in range(TRAIN_ITERS):
-            fwd0, bwd0 = cs.composite_seg_fwd.launches, cs.composite_seg_bwd.launches
-            ssim0 = (loss_ops.ssim_fwd.launches, loss_ops.ssim_bwd.launches)
-            cull0 = binning.precull.launches
+            fwd0, bwd0 = launch_count("composite_seg_fwd"), launch_count("composite_seg_bwd")
+            ssim0 = (launch_count("ssim_fwd"), launch_count("ssim_bwd"))
+            cull0 = launch_count("precull")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             aux = tr.train_iteration()
@@ -1206,11 +1201,11 @@ def train_phase(torch, scene, device):
                 "loss": float(aux["loss"]),
                 "num_active": int(tr.model.num_active),
                 "truncated": int(aux["truncated"]),
-                "fwd_launches": cs.composite_seg_fwd.launches - fwd0,
-                "bwd_launches": cs.composite_seg_bwd.launches - bwd0,
-                "ssim_launches": [loss_ops.ssim_fwd.launches - ssim0[0],
-                                  loss_ops.ssim_bwd.launches - ssim0[1]],
-                "precull_launches": binning.precull.launches - cull0,
+                "fwd_launches": launch_count("composite_seg_fwd") - fwd0,
+                "bwd_launches": launch_count("composite_seg_bwd") - bwd0,
+                "ssim_launches": [launch_count("ssim_fwd") - ssim0[0],
+                                  launch_count("ssim_bwd") - ssim0[1]],
+                "precull_launches": launch_count("precull") - cull0,
                 "densified": densified[-1] if tr.iteration % DENSIFY_EVERY == 0
                 and densified else None,
             }
@@ -1259,9 +1254,10 @@ def train_stages(torch, tr, reps=3):
     from omnigs_torch.ops import composite_seg as cs
     from omnigs_torch.ops import loss as loss_ops
     from omnigs_torch.ops import rasterize as rz
+    from omnigs_torch.parallel import shard
 
     targets = [
-        (rz, "preprocess", "preprocess"), (rz, "bin_instances_packed", "binning"),
+        (shard, "preprocess", "preprocess"), (rz, "bin_instances_packed", "binning"),
         (rz, "segment_relay", "relay"), (cs, "_build_inst_seg", "slab"),
         (cs, "composite_seg_fwd", "fwd"), (loss_ops, "l1_loss", "l1"),
         (loss_ops, "ssim", "ssim"), (cs, "composite_seg_bwd", "bwd"),
@@ -1678,13 +1674,11 @@ def tile_stage_phase(torch, model, camera, pose, cfg, reps=3):
 def tile_render_phase(torch, model, camera, pose_list, cfg, seg_renders):
     """Four requests through the tile-major config, each against the
     segmented render of the same pose."""
-    from omnigs_torch.ops import composite_seg as cs
-    from omnigs_torch.ops import composite_tile as ct
     from omnigs_torch.train.renderer import render_model
 
     bg = torch.zeros(3, device=model.xyz.device)
-    cs.composite_seg_fwd.launches = 0
-    ct.composite_tile_fwd.launches = 0
+    reset_launches("composite_seg_fwd")
+    reset_launches("composite_tile_fwd")
     for k, (vm, campos) in enumerate(pose_list):
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -1717,11 +1711,11 @@ def tile_render_phase(torch, model, camera, pose_list, cfg, seg_renders):
                 f"tile request {k}: {d_img:.3g} / {d_t:.3g} from the segmented render "
                 f"(bar {P999_ERR_BAR}) or no n_contrib"
             )
-    launches = ct.composite_tile_fwd.launches
-    if launches != len(pose_list) or cs.composite_seg_fwd.launches != 0:
+    launches = launch_count("composite_tile_fwd")
+    if launches != len(pose_list) or launch_count("composite_seg_fwd") != 0:
         raise RuntimeError(
             f"tile requests launched composite_tile_fwd {launches} and "
-            f"composite_seg_fwd {cs.composite_seg_fwd.launches} times"
+            f"composite_seg_fwd {launch_count("composite_seg_fwd")} times"
         )
     return launches
 
@@ -1729,8 +1723,6 @@ def tile_render_phase(torch, model, camera, pose_list, cfg, seg_renders):
 def tile_train_phase(torch, scene, device, seg_loss):
     """A Trainer on the train phase's scene through the tile-major config."""
     from omnigs_torch.model import densify as densify_ops
-    from omnigs_torch.ops import composite_seg as cs
-    from omnigs_torch.ops import composite_tile as ct
     from omnigs_torch.train.trainer import Trainer
 
     cfg = tile_yaml()
@@ -1751,20 +1743,19 @@ def tile_train_phase(torch, scene, device, seg_loss):
         return densified[-1]
 
     densify_ops.densify_and_prune = counting_densify
-    counters = (ct.composite_tile_fwd, ct.composite_tile_bwd,
-                ct.composite_tile_bwd_fused, cs.composite_seg_fwd, cs.composite_seg_bwd)
+    counters = ("composite_tile_fwd", "composite_tile_bwd", "composite_tile_bwd_fused",
+                "composite_seg_fwd", "composite_seg_bwd")
     lines = []
     try:
-        for c in counters:
-            c.launches = 0
+        reset_launches(*counters)
         for _ in range(TILE_TRAIN_ITERS):
-            before = [c.launches for c in counters]
+            before = [launch_count(c) for c in counters]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             aux = tr.train_iteration()
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3
-            delta = [c.launches - b for c, b in zip(counters, before)]
+            delta = [launch_count(c) - b for c, b in zip(counters, before)]
             line = {
                 "phase": "tile_train",
                 "iteration": tr.iteration,
@@ -1778,7 +1769,7 @@ def tile_train_phase(torch, scene, device, seg_loss):
             }
             emit(line)
             lines.append((line, delta))
-        launches = {c.__name__: c.launches for c in counters}
+        launches = {c: launch_count(c) for c in counters}
     finally:
         densify_ops.densify_and_prune = densify
     finite = all(bool(torch.isfinite(p).all()) for p in tr.model.params().values())
@@ -1807,9 +1798,10 @@ def tile_train_stages(torch, tr, reps=2):
     from omnigs_torch.ops import composite_tile as ct
     from omnigs_torch.ops import loss as loss_ops
     from omnigs_torch.ops import rasterize as rz
+    from omnigs_torch.parallel import shard
 
     targets = [
-        (rz, "preprocess", "preprocess"), (rz, "bin_instances_packed", "binning"),
+        (shard, "preprocess", "preprocess"), (rz, "bin_instances_packed", "binning"),
         (ct, "_build_inst", "slab"), (ct, "composite_tile_fwd", "fwd"),
         (loss_ops, "l1_loss", "l1"), (loss_ops, "ssim", "ssim"),
         (ct, "composite_tile_bwd", "bwd"),
@@ -1878,13 +1870,12 @@ def tile_fused_phase(torch, model, camera, pose_list, cfg):
     for fused in (True, False):
         m = GaussianModel.from_numpy(fields, device=dev)
         st = init_adam(m.params())
-        kernels = (ct.composite_tile_bwd_fused, ct.composite_tile_bwd, ct.composite_tile_fwd)
-        for k in kernels:
-            k.launches = 0
+        kernels = ("composite_tile_bwd_fused", "composite_tile_bwd", "composite_tile_fwd")
+        reset_launches(*kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         aux = train_step(
-            m, st, vm, campos, gt, TRAIN_START + 1, camera=camera,
+            m, st, vm[None], campos[None], gt[None], TRAIN_START + 1, camera=camera,
             sh_degree=SH_DEGREE,
             # no emission payload: the fused route's condition (the 2^22
             # cap demotes the gather reduction anyway)
@@ -1895,7 +1886,7 @@ def tile_fused_phase(torch, model, camera, pose_list, cfg):
         torch.cuda.synchronize()
         steps[fused] = dict(
             host_ms=(time.perf_counter() - t0) * 1e3, loss=float(aux["loss"]),
-            launches=tuple(k.launches for k in kernels),
+            launches=tuple(launch_count(k) for k in kernels),
             mu=st.mu,
         )
     ratios = {
@@ -1955,7 +1946,7 @@ def tile_gather_phase(torch, model, camera, pose_list, cfg):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 aux = train_step(
-                    m, st, vm, campos, gt, TRAIN_START + i + 1, camera=camera,
+                    m, st, vm[None], campos[None], gt[None], TRAIN_START + i + 1, camera=camera,
                     sh_degree=SH_DEGREE, raster_cfg=rcfg, lr_cfg=LRConfig(),
                     spatial_lr_scale=1.0, bg=bg,
                 )
@@ -2004,31 +1995,56 @@ def tile_gather_phase(torch, model, camera, pose_list, cfg):
     return summary
 
 
-def kernel_counters():
-    """Every kernel wrapper of the port, by name (each counts its launches
-    in ``.launches``)."""
-    from omnigs_torch.ops import binning
-    from omnigs_torch.ops import composite_seg as cs
-    from omnigs_torch.ops import composite_tile as ct
-    from omnigs_torch.ops import loss as loss_ops
-    from omnigs_torch.scripts import bucket_emit_bench as be
-    from omnigs_torch.scripts import kernel_ablate as ka
-    from omnigs_torch.scripts import reduce_bench as rb
-
-    fns = (cs.composite_seg_fwd, cs.composite_seg_bwd, ct.composite_tile_fwd,
-           ct.composite_tile_bwd, ct.composite_tile_bwd_fused, rb.reduce_accum,
-           be.bucket_emit, ka.kernel_ablate, loss_ops.ssim_fwd, loss_ops.ssim_bwd,
-           binning.precull)
-    return {f.__name__: f for f in fns}
+# every kernel wrapper of the port, by the name under which it counts its
+# launches in `utils.profiling.counters`
+KERNEL_WRAPPERS = (
+    "composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd", "composite_tile_bwd",
+    "composite_tile_bwd_fused", "reduce_accum", "bucket_emit", "kernel_ablate", "ssim_fwd",
+    "ssim_bwd", "precull",
+)
+# each wrapper's run-wide launches at its last `reset_launches`
+_LAUNCH_BASE = {}
 
 
-def reset_launches():
-    for f in kernel_counters().values():
-        f.launches = 0
+def _run_launches() -> dict:
+    from omnigs_torch.utils import profiling
+
+    return profiling.counters()["launches"]
+
+
+def _replays() -> int:
+    """Graph replays so far (`utils.profiling.counters`)."""
+    from omnigs_torch.utils import profiling
+
+    return profiling.counters()["replays"]
+
+
+def _reserved_mb(torch, release=False) -> float:
+    """The device memory PyTorch's allocator holds, MB, after giving its
+    unused cache back when ``release``: from a released reading before a
+    first window to one after it, the graph's pool, the banks and the
+    window's buffers."""
+    if release:
+        torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2**20
+
+
+def launch_count(name: str) -> int:
+    """Launches of the kernel wrapper ``name`` since its last
+    `reset_launches`."""
+    return _run_launches().get(name, 0) - _LAUNCH_BASE.get(name, 0)
+
+
+def reset_launches(*names):
+    """Count the launches of each wrapper of ``names`` (every one without)
+    from 0 again."""
+    now = _run_launches()
+    for name in names or KERNEL_WRAPPERS:
+        _LAUNCH_BASE[name] = now.get(name, 0)
 
 
 def read_launches():
-    return {name: f.launches for name, f in kernel_counters().items()}
+    return {name: launch_count(name) for name in KERNEL_WRAPPERS}
 
 
 # the loss of one training step (a view): the SSIM's two kernels, once each
@@ -2103,7 +2119,8 @@ def _step(torch, fields, camera, pose_list, gt, rcfg):
     reset_launches()
     t0 = time.perf_counter()
     aux = train_step(
-        m, st, vm, campos, gt, TRAIN_START + 1, camera=camera, sh_degree=SH_DEGREE,
+        m, st, vm[None], campos[None], gt[None], TRAIN_START + 1, camera=camera,
+        sh_degree=SH_DEGREE,
         raster_cfg=rcfg, lr_cfg=LRConfig(), spatial_lr_scale=1.0,
         bg=torch.zeros(3, device=dev, dtype=gt.dtype),
     )
@@ -3945,16 +3962,15 @@ def window_graph_phase(torch, np, make_train_scene):
         ref, (ref_losses, ref_counts) = _window_state(torch, tr), _pending(torch, tr)
         restore()
         g = tr.step_graph
-        captures, replays = g.captures, g.replays
+        captures, replays, reserved = g.captures, _replays(), _reserved_mb(torch, True)
         reset_launches()
         window_first_ms = timed(window)
         window_launches = read_launches()
         got, (losses, counts) = _window_state(torch, tr), _pending(torch, tr)
         unequal = [k for k in ref if not torch.equal(ref[k], got[k])]
         losses_equal = torch.equal(ref_losses, losses)
-        first = {"captures": g.captures - captures, "replays": g.replays - replays,
-                 "capture_ms": g.capture_ms, "warmup_ms": g.warmup_ms,
-                 "pool_mb": g.pool_mb}
+        first = {"captures": g.captures - captures, "replays": _replays() - replays,
+                 "reserved_mb": _reserved_mb(torch) - reserved}
         reset_launches()
         window_ms = timed(window)
         eager_ms = timed(eager)
@@ -4143,8 +4159,8 @@ def parallel_window_phase(torch, np, scene):
     and the overflow / truncated totals, with #1 / #2 once a replay and
     once a warm-up step; the `Trainer`'s 24-step graph window from the same
     state, reported bitwise and held at the gradient bar; ms a step of the
-    graph window and the eager loop in turns; capture and warm-up ms, the
-    pool's MB, recaptures and ground-truth bank growths; under
+    graph window and the eager loop in turns; the first window's ms and
+    reserved MB, recaptures and ground-truth bank growths; under
     `profiling.trace` the card's busy share, kernels and host launch calls
     a step. Returns the #1/#2 launches of the phase."""
     from omnigs_torch.parallel.shard import sharded_densify
@@ -4198,19 +4214,22 @@ def parallel_window_phase(torch, np, scene):
         pt.mesh, pt.model, pt.opt_state, pt.generator, **pt._densify_kwargs(pt.iteration))))
     restore(pt)
     g = pt.step_graph
+    replays, reserved = _replays(), _reserved_mb(torch, True)
     reset_launches()
     window_first_ms = timed(window)
     window_launches = read_launches()
     got, (losses, counts) = _window_state(torch, pt), _pending(torch, pt)
     unequal = [k for k in ref if not torch.equal(ref[k], got[k])]
     losses_equal = torch.equal(ref_losses, losses)
-    first = {"captures": g.captures, "replays": g.replays, "capture_ms": g.capture_ms,
-             "warmup_ms": g.warmup_ms, "pool_mb": g.pool_mb}
+    first = {"captures": g.captures, "replays": _replays() - replays,
+             "reserved_mb": _reserved_mb(torch) - reserved}
 
     # (b) the Trainer's graph window from the same state
     st = Trainer(scene, cfg, seed=SEED, device="cuda")
     restore(st)
+    reserved = _reserved_mb(torch, True)
     window(st)
+    trainer_reserved_mb = _reserved_mb(torch) - reserved
     single, (single_losses, single_counts) = _window_state(torch, st), _pending(torch, st)
     vs_trainer = {
         "bitwise": all(torch.equal(got[k], single[k]) for k in got),
@@ -4219,7 +4238,7 @@ def parallel_window_phase(torch, np, scene):
         "bar_ratio": {k: _bar_ratio(torch, got[k], single[k])
                       for k in got if k.startswith(("model/", "mu/"))
                       and got[k].is_floating_point()},
-        "trainer_pool_mb": st.step_graph.pool_mb,
+        "trainer_reserved_mb": trainer_reserved_mb,
     }
     del st, single
 
@@ -4335,24 +4354,14 @@ def nccl_capture_phase(torch):
 
 class _Capture:
     """Swaps a kernel wrapper of ``module`` for a recorder of its arguments:
-    the last call's are ``args`` / ``kwargs``. The launch count stays the
-    wrapper's own: ``launches`` reads and writes it, so the wrapper's
-    ``+= 1`` (which looks its name up in the module) lands on the real
-    counter when the kernel launches."""
+    the last call's are ``args`` / ``kwargs`` (the wrapper still counts its
+    launches)."""
 
     def __init__(self, module, attr):
         self.module, self.attr = module, attr
         self.fn = getattr(module, attr)
         self.__name__ = self.fn.__name__
         self.args = self.kwargs = None
-
-    @property
-    def launches(self):
-        return self.fn.launches
-
-    @launches.setter
-    def launches(self, n):
-        self.fn.launches = n
 
     def __call__(self, *args, **kwargs):
         self.args, self.kwargs = args, kwargs
@@ -4394,8 +4403,9 @@ def _pair_work(rank, port):
     from omnigs_torch.ops import loss as loss_ops
     from omnigs_torch.parallel.distributed import initialize
     from omnigs_torch.parallel.mesh import GAUSS_AXIS, DATA_AXIS, all_gather, axis_index, make_mesh
-    from omnigs_torch.parallel.shard import sharded_render, sharded_train_step
+    from omnigs_torch.parallel.shard import sharded_render
     from omnigs_torch.train.renderer import render_model
+    from omnigs_torch.train.trainer import train_step
     from omnigs_torch.train.trainer_parallel import ParallelTrainer
 
     torch.cuda.set_device(0)
@@ -4463,9 +4473,9 @@ def _pair_work(rank, port):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with _Capture(cs, "composite_seg_bwd") as bwd_cap:
-                sharded_train_step(
-                    mesh, model, state, vms, cps, torch.stack([gts[k] for k in mine]),
-                    TRAIN_START + 1, camera=camera, sh_degree=SH_DEGREE, raster_cfg=cfg,
+                train_step(
+                    model, state, vms, cps, torch.stack([gts[k] for k in mine]),
+                    TRAIN_START + 1, mesh=mesh, camera=camera, sh_degree=SH_DEGREE, raster_cfg=cfg,
                     lr_cfg=opt_ops.LRConfig(), spatial_lr_scale=1.0, bg=bg,
                 )
             torch.cuda.synchronize()

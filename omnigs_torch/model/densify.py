@@ -16,7 +16,8 @@ explicit `torch.Generator` on the model's device.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -170,16 +171,30 @@ def reset_opacity(model: GaussianModel, opt_state: AdamState) -> None:
 
 @torch.no_grad()
 def add_densification_stats(
-    model: GaussianModel, ndc_grads: torch.Tensor, radii: torch.Tensor
+    model: GaussianModel,
+    ndc_grads: Sequence[torch.Tensor],
+    radii: Sequence[torch.Tensor],
+    reduce: Optional[Callable] = None,
 ) -> None:
-    """Accumulate the screen-space gradient norm and the max screen radius
-    of the visible slots, in place."""
-    visible = radii > 0
-    gnorm = torch.linalg.vector_norm(ndc_grads[:, :2], dim=-1)
-    model.xyz_gradient_accum += torch.where(visible, gnorm, torch.zeros_like(gnorm))
-    model.denom += visible.to(model.denom.dtype)
+    """Accumulate the screen-space gradient norm and the count of each
+    view's visible slots, and the views' max screen radius, in place:
+    ``ndc_grads`` and ``radii`` hold one (P, 2) / (P,) entry a view.
+    ``reduce(accum, count, radius)``, when given, returns the views' totals
+    combined over ranks (the sums summed, the radius the max) before they
+    are added."""
+    visible = [r > 0 for r in radii]
+    gnorm = [torch.linalg.vector_norm(g[:, :2], dim=-1) for g in ndc_grads]
+    accum = functools.reduce(
+        torch.add, [torch.where(m, x, torch.zeros_like(x)) for m, x in zip(visible, gnorm)]
+    )
+    count = functools.reduce(torch.add, [m.to(model.denom.dtype) for m in visible])
+    radius = functools.reduce(torch.maximum, radii)
+    seen = functools.reduce(torch.logical_or, visible)
+    if reduce is not None:
+        accum, count, radius = reduce(accum, count, radius)
+        seen = count > 0
+    model.xyz_gradient_accum += accum
+    model.denom += count
     model.max_radii2d.copy_(
-        torch.where(
-            visible, torch.maximum(model.max_radii2d, radii), model.max_radii2d
-        )
+        torch.where(seen, torch.maximum(model.max_radii2d, radius), model.max_radii2d)
     )

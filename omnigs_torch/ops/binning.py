@@ -18,7 +18,7 @@ Counterpart of `omnigs_tpu/ops/binning.py`, every layout of it:
 
 with the superblock pre-cull (`_precull_masks`) shared by all of them: on
 the card the CUDA kernel `precull` (`csrc/precull.cu`, launches counted in
-``precull.launches``), on the CPU its plain version `_precull_masks_plain`,
+`utils.profiling.counters`), on the CPU its plain version `_precull_masks_plain`,
 bit for bit the same. Every integer output is bitwise identical to the JAX
 functions' (tests/test_torch_binning.py, tests/test_torch_binning_layouts.py).
 
@@ -56,6 +56,7 @@ import torch
 
 from omnigs_torch import cuda_build
 from omnigs_torch.ops.preprocess import TILE, Preprocessed
+from omnigs_torch.utils import profiling
 
 MASK_TILES = 64  # pre-emission survivor bitmask width (2 32-bit words)
 RANK_BITS = 19  # depth-rank bits in the packed sort key (P ≤ 2^19)
@@ -278,11 +279,9 @@ def precull(prep: Preprocessed):
             torch.cuda.current_stream(dev).cuda_stream,
         )
         cuda_build.check(lib, err, "precull launch")
-        precull.launches += 1
+        profiling.count_launch("precull")
     return tuple(out.unbind(0))
 
-
-precull.launches = 0
 
 
 def _kth_set_bit(lo: torch.Tensor, hi: torch.Tensor, k: torch.Tensor):

@@ -7,7 +7,7 @@
 * `composite_seg_fwd` composites it per tile. On a CUDA tensor it launches
   the hand-written Hopper kernel `csrc/composite_seg_fwd.cu` (which
   replaces the TPU kernel `pallas_seg.py::_fwd_seg_kernel`) and counts the
-  launch in ``composite_seg_fwd.launches``; on a CPU tensor it runs the
+  launch (`utils.profiling.count_launch`); on a CPU tensor it runs the
   plain PyTorch version `composite_seg_fwd_plain`, which computes the same
   function with the same operation order.
 * `_walk_fwd_plain` / `_walk_bwd_plain` are the per-tile walk of the
@@ -21,8 +21,7 @@
   that test in plain PyTorch, at the tiles' pixel origins.
 * `composite_seg_bwd` is its backward: nine gradient rows per instance
   lane. On a CUDA tensor it launches `csrc/composite_seg_bwd.cu` (which
-  replaces `pallas_seg.py::_bwd_seg_kernel`) and counts the launch in
-  ``composite_seg_bwd.launches``; on a CPU tensor it runs
+  replaces `pallas_seg.py::_bwd_seg_kernel`) and counts the launch; on a CPU tensor it runs
   `composite_seg_bwd_plain`.
 * `composite_instances_seg` is the JAX custom-VJP function as a
   `torch.autograd.Function` over slab build, compositing and background
@@ -268,11 +267,9 @@ def composite_seg_fwd(
         torch.cuda.current_stream(inst_T8.device).cuda_stream,
     )
     cuda_build.check(lib, err, "composite_seg_fwd launch")
-    composite_seg_fwd.launches += 1
+    profiling.count_launch("composite_seg_fwd")
     return color, final_t
 
-
-composite_seg_fwd.launches = 0
 
 
 def _check_inputs(inst_T8, starts8, counts, num_tiles):
@@ -493,11 +490,9 @@ def composite_seg_bwd(
         torch.cuda.current_stream(inst_T8.device).cuda_stream,
     )
     cuda_build.check(lib, err, "composite_seg_bwd launch")
-    composite_seg_bwd.launches += 1
+    profiling.count_launch("composite_seg_bwd")
     return dinst
 
-
-composite_seg_bwd.launches = 0
 
 
 @contextlib.contextmanager

@@ -10,8 +10,8 @@ contribution counts ``n_contrib``.
   is given; every lane at or past the live high-water mark is zero.
 * `composite_tile_fwd` composites it per tile, with the optional
   ``n_contrib``. On a CUDA tensor it launches `csrc/composite_tile_fwd.cu`
-  (which replaces `pallas_raster.py::_fwd_kernel`) and counts the launch in
-  ``composite_tile_fwd.launches``; on a CPU tensor it runs the plain
+  (which replaces `pallas_raster.py::_fwd_kernel`) and counts the launch
+  (`utils.profiling.count_launch`); on a CPU tensor it runs the plain
   PyTorch version `composite_tile_fwd_plain`.
 * `composite_tile_bwd` is its backward, nine gradient rows per instance
   lane (`csrc/composite_tile_bwd.cu`, replacing `_bwd_kernel`), and
@@ -236,11 +236,9 @@ def composite_tile_fwd(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, err, "composite_tile_fwd launch")
-    composite_tile_fwd.launches += 1
+    profiling.count_launch("composite_tile_fwd")
     return color, final_t, ncontrib
 
-
-composite_tile_fwd.launches = 0
 
 
 def composite_tile_bwd_plain(
@@ -303,11 +301,9 @@ def composite_tile_bwd(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, err, "composite_tile_bwd launch")
-    composite_tile_bwd.launches += 1
+    profiling.count_launch("composite_tile_bwd")
     return dinst
 
-
-composite_tile_bwd.launches = 0
 
 
 def composite_tile_bwd_fused_plain(
@@ -384,11 +380,9 @@ def composite_tile_bwd_fused(
         table.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, err, "composite_tile_bwd_fused launch")
-    composite_tile_bwd_fused.launches += 1
+    profiling.count_launch("composite_tile_bwd_fused")
     return table[:, :NGRAD]
 
-
-composite_tile_bwd_fused.launches = 0
 
 
 def _scatter_reduce(

@@ -8,7 +8,8 @@ with an 11×11 σ = 1.5 Gaussian window over (C, H, W) float32 images
   goes through `_SSIM`, a `torch.autograd.Function` over the hand-written
   kernels of `csrc/ssim.cu`: `ssim_fwd` (the separable window as a stencil,
   the map or the mean, and the map's partials when the input needs a
-  gradient) and `ssim_bwd`, each counting its launches in ``.launches``.
+  gradient) and `ssim_bwd`, each counting its launches
+  (`utils.profiling.count_launch`).
   Any other input (the CPU, float64, another window) runs `ssim_plain`,
   the same Function over the plain versions, which repeat the kernels'
   operations in their order (`_conv_plain`: the shifted slices times the
@@ -36,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from omnigs_torch import cuda_build
+from omnigs_torch.utils import profiling
 
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -271,11 +273,9 @@ def ssim_fwd(img1, img2, size_average: bool, want_partials: bool, row0: int = 0,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, err, "ssim_fwd launch")
-    ssim_fwd.launches += 1
+    profiling.count_launch("ssim_fwd")
     return (mean if size_average else smap), partials
 
-
-ssim_fwd.launches = 0
 
 
 def ssim_bwd(img1, img2, partials, grad, size_average: bool, row0: int = 0) -> torch.Tensor:
@@ -307,11 +307,9 @@ def ssim_bwd(img1, img2, partials, grad, size_average: bool, row0: int = 0) -> t
         gdiv, dx.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, err, "ssim_bwd launch")
-    ssim_bwd.launches += 1
+    profiling.count_launch("ssim_bwd")
     return dx
 
-
-ssim_bwd.launches = 0
 
 
 class _SSIM(torch.autograd.Function):

@@ -14,7 +14,8 @@ device per rank:
 Rank r sits at (r // gauss, r % gauss): the data dim is outermost, so the
 ranks of one data row are consecutive (on one host when a host holds a
 row). A dim of size 1 runs no collective at all: its all-gather, reduce-
-scatter and all-reduce are the identity. Each collective that runs counts
+scatter and all-reduce are the identity. So is every dim of ``mesh=None``,
+one device without a process group: one rank at coordinate 0. Each collective that runs counts
 in `utils.profiling.counters`: one in ``collectives`` and the bytes of the
 tensor this rank hands it in ``allreduce_bytes``, ``gather_bytes`` or
 ``scatter_bytes`` (a captured step's are counted at each replay).
@@ -58,13 +59,14 @@ def make_mesh(
     return init_device_mesh(device_type, (data, gauss), mesh_dim_names=(DATA_AXIS, GAUSS_AXIS))
 
 
-def axis_size(mesh: DeviceMesh, axis: str) -> int:
-    return mesh.size(mesh.mesh_dim_names.index(axis))
+def axis_size(mesh: Optional[DeviceMesh], axis: str) -> int:
+    """The ranks on ``axis`` (1 without a mesh)."""
+    return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index(axis))
 
 
-def axis_index(mesh: DeviceMesh, axis: str) -> int:
-    """This rank's coordinate on ``axis``."""
-    return mesh.get_local_rank(axis)
+def axis_index(mesh: Optional[DeviceMesh], axis: str) -> int:
+    """This rank's coordinate on ``axis`` (0 without a mesh)."""
+    return 0 if mesh is None else mesh.get_local_rank(axis)
 
 
 def _count(kind: str, x: torch.Tensor) -> None:
@@ -72,7 +74,7 @@ def _count(kind: str, x: torch.Tensor) -> None:
     profiling.count(f"{kind}_bytes", x.numel() * x.element_size())
 
 
-def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh: Optional[DeviceMesh], axis: str) -> torch.Tensor:
     """The ranks' ``x`` (same shape on each) stacked along dim 0 in rank
     order of ``axis``."""
     n = axis_size(mesh, axis)
@@ -85,7 +87,7 @@ def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     return out
 
 
-def reduce_scatter(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+def reduce_scatter(x: torch.Tensor, mesh: Optional[DeviceMesh], axis: str) -> torch.Tensor:
     """Sum of the ranks' ``x`` over ``axis``, this rank's 1/n of dim 0."""
     n = axis_size(mesh, axis)
     if n == 1:
@@ -98,7 +100,7 @@ def reduce_scatter(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor
 
 
 def all_reduce(
-    x: torch.Tensor, mesh: DeviceMesh, axis: str, op=dist.ReduceOp.SUM
+    x: torch.Tensor, mesh: Optional[DeviceMesh], axis: str, op=dist.ReduceOp.SUM
 ) -> torch.Tensor:
     """``op`` of the ranks' ``x`` over ``axis`` (a new tensor)."""
     if axis_size(mesh, axis) == 1:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from omnigs_torch import cuda_build
+from omnigs_torch.utils import profiling
 from omnigs_torch.utils.profiling import mean_ms
 
 NROWS = 16
@@ -55,7 +56,7 @@ def bucket_emit(slots: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     block of K rows, ``data`` (R, 16) f32, R a multiple of K.
 
     On a CUDA tensor it launches `csrc/bucket_emit.cu` and counts the
-    launch in ``bucket_emit.launches`` (the output equals the plain
+    launch (`utils.profiling.count_launch`; the output equals the plain
     version's bit for bit); on a CPU tensor it runs `bucket_emit_plain`.
     """
     if data.device.type == "cpu":
@@ -76,11 +77,9 @@ def bucket_emit(slots: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     err = fn(slots.data_ptr(), data.data_ptr(), r, K, out.data_ptr(), dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, err, "bucket_emit launch")
-    bucket_emit.launches += 1
+    profiling.count_launch("bucket_emit")
     return out
 
-
-bucket_emit.launches = 0
 
 
 def make_inputs(r: int, seed: int = 0):

@@ -54,6 +54,7 @@ from omnigs_torch.ops.composite_seg import (
 )
 from omnigs_torch.ops.preprocess import tile_grid
 from omnigs_torch.scripts.example import example_model, preprocess_model
+from omnigs_torch.utils import profiling
 from omnigs_torch.utils.profiling import mean_ms
 
 MODES = ("dma", "alpha", "notrans", "nocumsum", "lowprec", "full")
@@ -181,7 +182,7 @@ def kernel_ablate(mode, inst_T, starts, counts, x0, y0) -> torch.Tensor:
     `csrc/kernel_ablate.cu`'s header).
 
     On a CUDA tensor it launches `csrc/kernel_ablate.cu` and counts the
-    launch in ``kernel_ablate.launches``; on a CPU tensor it runs
+    launch (`utils.profiling.count_launch`); on a CPU tensor it runs
     `kernel_ablate_plain`.
     """
     if mode not in MODES:
@@ -199,11 +200,9 @@ def kernel_ablate(mode, inst_T, starts, counts, x0, y0) -> torch.Tensor:
              counts.data_ptr(), x0.data_ptr(), y0.data_ptr(), num_tiles, out.data_ptr(),
              dev.index, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, err, "kernel_ablate launch")
-    kernel_ablate.launches += 1
+    profiling.count_launch("kernel_ablate")
     return out
 
-
-kernel_ablate.launches = 0
 
 
 def build_slab(device, width=1920, height=960, gaussians=1 << 17,

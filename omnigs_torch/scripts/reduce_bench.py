@@ -29,6 +29,7 @@ import torch
 
 from omnigs_torch import cuda_build
 from omnigs_torch.ops.composite_tile import _scatter_reduce
+from omnigs_torch.utils import profiling
 from omnigs_torch.utils.profiling import mean_ms
 
 NROWS = 16
@@ -55,7 +56,7 @@ def reduce_accum(ids: torch.Tensor, rows: torch.Tensor, p: int) -> torch.Tensor:
 
     On a CUDA tensor it launches `csrc/reduce_accum.cu` (the accumulate
     into a zeroed (P, 16) scratch table and its transpose, counted as one
-    launch in ``reduce_accum.launches``); its float atomics sum in no fixed
+    launch, `utils.profiling.count_launch`); its float atomics sum in no fixed
     order, so the last bits vary from run to run. On a CPU tensor it runs
     `reduce_accum_plain`.
     """
@@ -80,11 +81,9 @@ def reduce_accum(ids: torch.Tensor, rows: torch.Tensor, p: int) -> torch.Tensor:
              scratch.data_ptr(), acc.data_ptr(), dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, err, "reduce_accum launch")
-    reduce_accum.launches += 1
+    profiling.count_launch("reduce_accum")
     return acc
 
-
-reduce_accum.launches = 0
 
 
 def make_inputs(r: int, p: int, device, seed: int = 0):

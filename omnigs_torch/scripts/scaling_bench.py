@@ -4,8 +4,8 @@
 The port's copy of `scripts/scaling_bench.py`: the same arguments and the
 same production config (the segmented kernels, packed binning, the
 retuned caps), on the model of `example.example_model` (P Gaussians,
-all active). First the unsharded `train_step` on one device, then
-`parallel/shard.sharded_train_step` per mesh at the same config and loss,
+all active). First `train.trainer.train_step` on one device, then the
+same step on each mesh (``mesh``) at the same config and loss,
 so the 1x1 mesh's ratio to the unsharded step is the shard tax (what the
 mesh plumbing costs with nothing to share). A mesh of N ranks takes N
 processes, each owning one card under NCCL; a mesh that needs more cards
@@ -74,7 +74,7 @@ def unsharded_s(args, device) -> float:
     camera = Camera(CameraType.LONLAT, args.width, args.height)
     return _per_step_s(
         lambda i: train_step(
-            model, state, vms[0], cps[0], gts[0], i, camera=camera, sh_degree=3,
+            model, state, vms, cps, gts, i, camera=camera, sh_degree=3,
             raster_cfg=PROD_CFG, lr_cfg=opt_ops.LRConfig(), spatial_lr_scale=1.0,
             bg=torch.zeros(3, device=device),
         ),
@@ -91,7 +91,7 @@ def _sharded_rank(rank, world, data, gauss, args, init_method, queue=None):
     data row → seconds per step (on every rank)."""
     from omnigs_torch.parallel.distributed import initialize
     from omnigs_torch.parallel.mesh import GAUSS_AXIS, axis_index, make_mesh
-    from omnigs_torch.parallel.shard import sharded_train_step
+    from omnigs_torch.train.trainer import train_step
 
     device = torch.device("cuda", rank) if args.device == "cuda" else torch.device("cpu")
     if device.type == "cuda":
@@ -110,8 +110,8 @@ def _sharded_rank(rank, world, data, gauss, args, init_method, queue=None):
         vms, cps, gts = _views(args, 1, device)
         camera = Camera(CameraType.LONLAT, args.width, args.height)
         secs = _per_step_s(
-            lambda i: sharded_train_step(
-                mesh, model, state, vms, cps, gts, i, camera=camera, sh_degree=3,
+            lambda i: train_step(
+                model, state, vms, cps, gts, i, mesh=mesh, camera=camera, sh_degree=3,
                 raster_cfg=PROD_CFG, lr_cfg=opt_ops.LRConfig(), spatial_lr_scale=1.0,
                 bg=torch.zeros(3, device=device),
             ),

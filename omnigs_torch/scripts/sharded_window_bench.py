@@ -14,8 +14,10 @@ step, whose collectives cross the ranks for every mesh but 1x1); with
 run "eager" (small sizes; its times are not device numbers). One JSON
 line per mesh: every rank's mode, captures and replays, whether its final
 model, Adam state, losses and counters equal the eager run's bit for bit,
-ms a step of both, the graph's pool; whether the ranks logged the same
-losses. A mesh needs one card per rank; a mesh the host cannot hold is
+ms a step of both, the first window's ms (its warm-up steps, capture and
+replays) and the device memory it reserved (the graph's pool, the banks
+and the window's buffers);
+whether the ranks logged the same losses. A mesh needs one card per rank; a mesh the host cannot hold is
 reported and skipped. Raises on any mismatch.
 
     python -m omnigs_torch.scripts.sharded_window_bench [--meshes 1x2 2x1 2x2]
@@ -108,10 +110,16 @@ def _state(tr):
     return out
 
 
+def _reserved_mb(device) -> float:
+    """The device memory PyTorch's allocator holds, MB (0 off a card)."""
+    return torch.cuda.memory_reserved(device) / 2**20 if device.type == "cuda" else 0.0
+
+
 def _rank(rank, world, data, gauss, args, init_method, queue):
     """One rank: the window run against the eager run → its results."""
     from omnigs_torch.parallel.distributed import initialize
     from omnigs_torch.train.trainer_parallel import ParallelTrainer
+    from omnigs_torch.utils import profiling
 
     faulthandler.dump_traceback_later(RANK_TIMEOUT_S, exit=True)
     try:
@@ -132,12 +140,22 @@ def _rank(rank, world, data, gauss, args, init_method, queue):
             tr.init_from_sfm()
             tr.iteration = args.start
             sync()
+            replays = profiling.counters()["replays"]
             t0 = time.perf_counter()
-            for _ in range(args.windows):
+            for w in range(args.windows):
                 if name == "window":
+                    if w == 0 and device.type == "cuda":
+                        # the first window's growth: its graph's pool, the
+                        # banks and the window's buffers
+                        torch.cuda.empty_cache()
+                    reserved, t1 = _reserved_mb(device), time.perf_counter()
                     took = tr.train_window(args.steps)
                     if took != args.steps:
                         raise RuntimeError(f"a window took {took} steps, not {args.steps}")
+                    if w == 0:
+                        sync()
+                        out.update(first_window_ms=(time.perf_counter() - t1) * 1e3,
+                                   first_window_reserved_mb=_reserved_mb(device) - reserved)
                 else:
                     for _ in range(args.steps):
                         tr.train_iteration()
@@ -148,10 +166,9 @@ def _rank(rank, world, data, gauss, args, init_method, queue):
             counts = [int(sum(int(p[i]) for p in tr._pending_losses)) for i in (1, 2)]
             runs[name] = (_state(tr), losses, counts)
             if name == "window":
-                g = tr.step_graph
-                out.update(mode=tr.window_mode, captures=g.captures, replays=g.replays,
-                           capture_ms=g.capture_ms, warmup_ms=g.warmup_ms,
-                           pool_mb=g.pool_mb, gt_bank_grows=tr.gt_bank_grows)
+                out.update(mode=tr.window_mode, captures=tr.step_graph.captures,
+                           replays=profiling.counters()["replays"] - replays,
+                           gt_bank_grows=tr.gt_bank_grows)
             del tr
         (sw, lw, cw), (se, le, ce) = runs["window"], runs["eager"]
         out["unequal"] = [k for k in sw if not torch.equal(sw[k], se[k])]

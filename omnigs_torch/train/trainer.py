@@ -1,7 +1,8 @@
 """Training orchestration — the `GaussianMapper` analog.
 
 Counterpart of `omnigs_tpu/train/trainer.py` (`train_step`,
-`train_steps_fused` and the `Trainer` loop):
+`train_steps_fused` and the `Trainer` loop) and of the sharded step and
+window of `omnigs_tpu/parallel/shard.py`:
 
 * per iteration: a random keyframe with a times-of-use budget, the SH
   degree raised every 1000 iterations, the log-lerp xyz LR, render →
@@ -15,21 +16,24 @@ Counterpart of `omnigs_tpu/train/trainer.py` (`train_step`,
 * the reference quirks the JAX trainer keeps: a densify iteration skips
   Adam, and a reset iteration zeroes the opacity LR.
 
-`train_step` updates the model's parameters, statistics and the Adam state
-in place (the JAX step returns new ones). Nothing in a step reads a value
-back to the host or builds a tensor from host data: losses and capacity
-counters stay on the device and `drain_losses` folds them in later.
+`train_step` is the one step body, on one device and on a (data, gauss)
+mesh (``mesh``; `parallel/shard.py` holds the mesh's render and loss
+partials and `train/trainer_parallel.py` the `ParallelTrainer`). It
+updates the model's parameters, statistics and the Adam state in place
+(the JAX step returns new ones). Nothing in a step reads a value back to
+the host or builds a tensor from host data: losses and capacity counters
+stay on the device and `drain_losses` folds them in later.
 
 `Trainer.train_window(k)` takes up to k steps between event iterations
 (densify, opacity reset, SH bump, phase boundaries) through
 `train_steps_fused`, JAX's one-program window: the keyframes are sampled
 on the host in the order k `train_iteration` calls would draw them, their
-rows of the pose and ground-truth banks (`Trainer._ensure_banks`) are
+rows of the pose and ground-truth banks (`Trainer._bank_rows`) are
 staged, and on the card the k steps are k replays of one step captured as
-a CUDA graph (`StepGraph`), bitwise the eager steps. On the CPU the window
-runs the k steps eagerly (the plain version). `train`, the live-tunable
-parameters and full-state checkpoints (`train/checkpoint.py`) complete the
-API the training CLI calls.
+a CUDA graph (`StepGraph`), bitwise the eager steps. On the CPU, or on a
+mesh under gloo, the window runs the k steps eagerly (`window_mode`).
+`train`, the live-tunable parameters and full-state checkpoints
+(`train/checkpoint.py`) complete the API the training CLI calls.
 
 Under the coarse-to-fine pyramid (``GausPyramid.do``) each keyframe's
 first ``sub_level_times_of_use`` uses of each sub-level train at
@@ -54,12 +58,13 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import math
 import threading
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,12 +75,11 @@ from omnigs_torch.config import Config, raster_config_from
 from omnigs_torch.model import densify as densify_ops
 from omnigs_torch.model import optimizer as opt_ops
 from omnigs_torch.model.gaussians import FIELD_NAMES, PARAM_NAMES, GaussianModel, from_pcd
-from omnigs_torch.ops import binning, composite_seg, composite_tile
-from omnigs_torch.ops import loss as loss_ops
 from omnigs_torch.ops.knn import mean_sq_knn_dist
 from omnigs_torch.ops.rasterize import RasterConfig
+from omnigs_torch.parallel import shard
+from omnigs_torch.parallel.mesh import DATA_AXIS, GAUSS_AXIS, axis_size
 from omnigs_torch.scene.scene import KeyframeSampler, Scene
-from omnigs_torch.train.renderer import render_model
 from omnigs_torch.utils import profiling
 from omnigs_torch.utils.profiling import PeakMemoryTracker
 
@@ -113,15 +117,24 @@ class FairLock:
         self.release()
 
 
+def _bank_views(bank: torch.Tensor, rows, device=None) -> torch.Tensor:
+    """Rows ``rows`` of a bank as one (V, ...) tensor on ``device`` (the
+    bank's by default): one row of a device bank is a view of it."""
+    if len(rows) == 1:
+        return bank[int(rows[0]) : int(rows[0]) + 1].to(device or bank.device, non_blocking=True)
+    return torch.stack([bank[int(r)].to(device or bank.device, non_blocking=True) for r in rows])
+
+
 def train_step(
     model: GaussianModel,
     opt_state: opt_ops.AdamState,
-    viewmatrix: torch.Tensor,
-    campos: torch.Tensor,
-    gt_image: torch.Tensor,
+    viewmatrices: torch.Tensor,
+    camposes: torch.Tensor,
+    gt_images: torch.Tensor,
     step,
     mask: Optional[torch.Tensor] = None,
     *,
+    mesh=None,
     camera: Camera,
     sh_degree: int,
     raster_cfg: RasterConfig,
@@ -134,80 +147,106 @@ def train_step(
     do_adam: bool = True,
     skip_opacity_update: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """One train iteration in place: render → loss → backward → stats →
-    Adam. ``step`` (int or () tensor) sets the xyz LR. Returns the aux
-    tensors (loss, l1, radii, image, overflow, truncated), on the device.
+    """One training iteration in place over V views, the (V, 4, 4)
+    ``viewmatrices``, (V, 3) ``camposes`` and (V, 3, H, W) ``gt_images``:
+    for each view render → loss → backward, then the densification
+    statistics and Adam with the views' mean gradient. ``step`` (int or ()
+    tensor) sets the xyz LR; the undistort ``mask`` multiplies the rendered
+    images. On a ``mesh`` (`parallel.mesh.make_mesh`) the model is this
+    rank's gauss shard and the views its data row's: the render, the loss
+    and the reductions are `parallel/shard.py`'s, the gradient and the
+    statistics summed over ``data`` and the logged loss and counters over
+    the mesh. Returns the aux tensors on the device: loss, l1, overflow and
+    truncated, the same on every rank, and the last view's image and this
+    shard's radii of it.
 
     The step's stage marks (`utils.profiling.STAGES`) run from
-    ``preprocess`` to ``adam``, the render's ``end`` between
-    ``composite_fwd`` and ``loss``; the caller's next mark closes
-    ``adam``."""
+    ``preprocess`` to ``adam`` for each view; without a mesh the render's
+    ``end`` sits between ``composite_fwd`` and ``loss``, as `render_model`
+    ends every render, and ``adam`` opens before the statistics; on a mesh
+    ``allreduce`` opens before the all-reduces, the statistics' included,
+    and ``adam`` before their in-place updates. The caller's next mark
+    closes ``adam``."""
     dev = model.xyz.device
     params = model.params()
     names = list(params)
-    ndc = torch.zeros(model.capacity, 2, device=dev, requires_grad=True)
-    res = render_model(
-        model, camera, viewmatrix, campos, bg, sh_degree, raster_cfg,
-        means2d_ndc=ndc,
-    )
-    profiling.mark("loss", dev)
-    pred = res.image  # (3, H, W)
-    if mask is not None:
-        # the undistort mask multiplies the RENDERED image only
-        pred = pred * mask
-    gt = gt_image
-    if skip_bottom_px > 0:
-        pred = pred[:, :-skip_bottom_px]
-        gt = gt[:, :-skip_bottom_px]
-    l1 = loss_ops.l1_loss(pred, gt)
-    total = (1.0 - lambda_dssim) * l1 + lambda_dssim * (
-        1.0 - loss_ops.ssim(pred, gt)
-    )
-    *grads, ndc_grad = torch.autograd.grad(
-        total, [params[k] for k in names] + [ndc], allow_unused=True
-    )
-    grads = {
-        k: torch.zeros_like(params[k]) if g is None else g
-        for k, g in zip(names, grads)
-    }
+    n_views = viewmatrices.shape[0]
+    n_data = axis_size(mesh, DATA_AXIS)
+    grads = None
+    parts, ndc_grads, radii = [], [], []
+    for v in range(n_views):
+        ndc = torch.zeros(model.capacity, 2, device=dev, requires_grad=True)
+        image, r, ov, tr = shard.render_view(
+            model, viewmatrices[v], camposes[v], camera, bg, sh_degree, raster_cfg, mesh,
+            means2d_ndc=ndc,
+        )
+        if mesh is None:
+            profiling.mark("end", dev)
+        profiling.mark("loss", dev)
+        pred = image if mask is None else image * mask
+        l1, ssim = shard.view_loss(pred, gt_images[v], skip_bottom_px, mesh)
+        part = (1.0 - lambda_dssim) * l1 + lambda_dssim * (1.0 - ssim)
+        # the view's own loss: its screen-space gradient feeds the
+        # statistics as one single-device iteration's would
+        *g, ndc_grad = torch.autograd.grad(
+            part, [params[k] for k in names] + [ndc], allow_unused=True
+        )
+        g = [torch.zeros_like(params[k]) if x is None else x for k, x in zip(names, g)]
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        parts.append((part.detach(), l1.detach(), ssim.detach()))
+        ndc_grads.append(ndc_grad)
+        radii.append(r.detach())
+        overflow, truncated = (ov, tr) if v == 0 else (overflow + ov, truncated + tr)
 
-    profiling.mark("adam", dev)
-    if update_stats:
-        densify_ops.add_densification_stats(model, ndc_grad, res.radii.detach())
-    if do_adam:
-        if not torch.is_tensor(step):
-            step = torch.full((), step, dtype=torch.int32, device=dev)
-        lrs = opt_ops.group_lrs(lr_cfg, spatial_lr_scale, step)
-        if skip_opacity_update:
-            lrs["opacity"] = 0.0
-        opt_ops.adam_step(params, grads, opt_state, lrs, model.active)
-    return dict(
-        loss=total.detach(),
-        l1=l1.detach(),
-        radii=res.radii.detach(),
-        image=res.image.detach(),
-        overflow=res.overflow,
-        truncated=res.truncated,
-    )
+    profiling.mark("adam" if mesh is None else "allreduce", dev)
+    if n_views == 1 and axis_size(mesh, GAUSS_AXIS) == 1:
+        loss, l1 = parts[0][:2]
+    else:
+        # the partials all-reduced over gauss, then as the single-device
+        # loss, averaged over the views
+        means = shard.all_reduce(torch.stack([torch.stack(p[1:]) for p in parts]), mesh,
+                                 GAUSS_AXIS)
+        l1 = means[:, 0].mean()
+        loss = ((1.0 - lambda_dssim) * means[:, 0] + lambda_dssim * (1.0 - means[:, 1])).mean()
+    if mesh is not None:
+        loss, l1 = (shard.all_reduce(torch.stack([loss, l1]), mesh, DATA_AXIS) / n_data).unbind()
+        counters = torch.stack([overflow, truncated])
+        counters = shard.all_reduce(shard.all_reduce(counters, mesh, GAUSS_AXIS), mesh, DATA_AXIS)
+        overflow, truncated = counters.unbind()
+
+    with torch.no_grad():
+        # the gradient of the mean loss over the views and the data rows
+        if n_views > 1:
+            grads = [x / n_views for x in grads]
+        if n_data > 1:
+            grads = [shard.all_reduce(x, mesh, DATA_AXIS) / n_data for x in grads]
+        if update_stats:
+            densify_ops.add_densification_stats(
+                model, ndc_grads, radii,
+                None if mesh is None else functools.partial(_stats_over_data, mesh),
+            )
+        elif mesh is not None:
+            profiling.mark("adam", dev)
+        if do_adam:
+            if not torch.is_tensor(step):
+                step = torch.full((), step, dtype=torch.int32, device=dev)
+            lrs = opt_ops.group_lrs(lr_cfg, spatial_lr_scale, step)
+            if skip_opacity_update:
+                lrs["opacity"] = 0.0
+            opt_ops.adam_step(params, dict(zip(names, grads)), opt_state, lrs, model.active)
+    return dict(loss=loss, l1=l1, overflow=overflow, truncated=truncated,
+                image=image.detach(), radii=radii[-1])
 
 
-# the kernel wrappers a train step can launch, by module and name (a
-# wrapper's own ``launches += 1`` finds it through its module's globals)
-STEP_KERNELS = (
-    (binning, "precull"),
-    (composite_seg, "composite_seg_fwd"),
-    (composite_seg, "composite_seg_bwd"),
-    (composite_tile, "composite_tile_fwd"),
-    (composite_tile, "composite_tile_bwd"),
-    (composite_tile, "composite_tile_bwd_fused"),
-    (loss_ops, "ssim_fwd"),
-    (loss_ops, "ssim_bwd"),
-)
-
-
-def step_launches() -> Dict[str, int]:
-    """Launches so far of each STEP_KERNELS wrapper, by name."""
-    return {n: getattr(m, n).launches for m, n in STEP_KERNELS}
+def _stats_over_data(mesh, accum, count, radius):
+    """The statistics' reduction on a mesh: the views' totals all-reduced
+    over ``data`` (the radius by its max); then ``adam`` opens for their
+    in-place updates."""
+    accum = shard.all_reduce(accum, mesh, DATA_AXIS)
+    count = shard.all_reduce(count, mesh, DATA_AXIS)
+    radius = shard.all_reduce(radius, mesh, DATA_AXIS, op=dist.ReduceOp.MAX)
+    profiling.mark("adam", accum)
+    return accum, count, radius
 
 
 # eager steps on a side stream before a capture (PyTorch's CUDA-graph
@@ -230,7 +269,7 @@ def _state_tensors(model: GaussianModel, opt_state: opt_ops.AdamState) -> list:
 
 
 def mesh_key(mesh) -> tuple:
-    """What a sharded step bakes in of its `DeviceMesh`: the mesh's shape,
+    """What a step on a mesh bakes in of its `DeviceMesh`: the mesh's shape,
     this rank's coordinates and the ranks of each dim's process group."""
     return (
         tuple(mesh.mesh.shape),
@@ -274,12 +313,13 @@ def capture_key(
 ) -> tuple:
     """What a captured step bakes in: the Python values of its launches
     (camera, SH degree, update_stats, LRs, λ, crop, raster config — the
-    ``static`` keywords of `train_steps_fused`; a sharded step adds its
-    views a rank), the capacity, the address of every tensor it reads or
-    writes in place (model, Adam state, statistics, banks, mask,
-    background), for a sharded step its ``mesh`` (`mesh_key`), and whether
-    the stage marks are on (`utils.profiling.set_marks`). A graph whose key
-    differs is captured again."""
+    ``static`` keywords of `train_steps_fused`), the capacity, the address
+    of every tensor it reads or writes in place (model, Adam state,
+    statistics, banks, mask, background), on a mesh its ``mesh``
+    (`mesh_key`), and whether the stage marks are on
+    (`utils.profiling.set_marks`). A graph whose key differs is captured
+    again; its views a step show in the staged index's width
+    (`StepGraph.reserve`)."""
     tensors = _state_tensors(model, opt_state) + [viewmatrices, camposes, gt_images, bg]
     if mask is not None:
         tensors.append(mask)
@@ -307,16 +347,14 @@ def window_index(pose_rows, gt_rows, step0: int) -> np.ndarray:
 
 class StepGraph:
     """One training step captured as a CUDA graph: the device program of
-    `train_steps_fused` and of `parallel.shard.sharded_train_steps_fused`
-    on the card (JAX's `lax.scan` body).
+    `train_steps_fused` on the card (JAX's `lax.scan` body).
 
-    The captured step reads its row of a (K_max, C) staged index buffer at
-    a device-side cursor — the `Trainer`'s step C = 3 columns (pose row,
-    ground-truth row, step number), a sharded step of V views a rank C =
-    2·V + 1 (V pose rows, V ground-truth rows, the step number) — gathers
-    its inputs from the banks, writes its loss, overflow and truncated at
-    the cursor into (K_max,) buffers, and advances the cursor. A window of
-    k ≤ K_max steps is one host → device copy of its rows and k replays, at
+    The captured step reads its row of a (K_max, 2·V + 1) staged index
+    buffer at a device-side cursor (V pose rows, V ground-truth rows, the
+    step number: the `Trainer`'s one view takes 3 columns), gathers its
+    inputs from the banks, writes its loss, overflow and truncated at the
+    cursor into (K_max,) buffers, and advances the cursor. A window of k ≤
+    K_max steps is one host → device copy of its rows and k replays, at
     most REPLAYS_IN_FLIGHT of them queued at a time; one capture serves
     every k. The graph is captured again when its key (`capture_key`)
     changes, or when the buffers are allocated again; each capture counts
@@ -326,22 +364,16 @@ class StepGraph:
     marks run ``window`` (the row gather), the step's own, ``window``
     again (the output writes) and ``end``.
 
-    Each wrapper in STEP_KERNELS counts its launches where it launches: the
-    capture launches nothing (its counts are taken back) and each replay
-    adds the launches the graph holds; the mesh's collectives
-    (`profiling.COLLECTIVE_NAMES`) are counted the same way."""
+    A capture launches nothing: what its step counts (`utils.profiling`'s
+    kernel launches and collectives) is held back, and each replay counts
+    it again (`profiling.held_counts`, `profiling.add_counts`)."""
 
     def __init__(self):
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.key = None
         self.k_max = 0
         self.captures = 0
-        self.replays = 0
-        self.capture_ms = 0.0  # the last capture, without its warm-up
-        self.warmup_ms = 0.0
-        self.pool_mb = 0.0  # device memory the last capture reserved for its pool
-        self._per_replay: Tuple[tuple, ...] = ()
-        self._collectives_per_replay: Dict[str, int] = {}
+        self._per_replay: Dict[tuple, int] = {}
         self._gt_stage: Optional[torch.Tensor] = None
         self.rows: Optional[torch.Tensor] = None
 
@@ -399,7 +431,6 @@ class StepGraph:
             saved = [t.detach().clone() for t in state]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        t0 = time.perf_counter()
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
                 self.cursor.zero_()
@@ -414,32 +445,16 @@ class StepGraph:
         self.graph = None  # the previous graph's pool goes back first
         gc.collect()
         torch.cuda.synchronize(dev)
-        self.warmup_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        before = [getattr(m, n).launches for m, n in STEP_KERNELS]
-        coll = profiling.collective_counts()
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
         # thread-local: a live viewer's request thread may make CUDA calls
         # of its own while the training thread captures (never into this
         # stream: it renders under the trainer's lock, which the capture
         # holds), and so may the NCCL watchdog
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            step()
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
-        per = []
-        for (m, n), b in zip(STEP_KERNELS, before):
-            fn = getattr(m, n)
-            if fn.launches != b:
-                per.append((m, n, fn.launches - b))
-                fn.launches = b
-        self._per_replay = tuple(per)
-        self._collectives_per_replay = {
-            k: v - coll[k] for k, v in profiling.collective_counts().items() if v != coll[k]}
-        for k, v in self._collectives_per_replay.items():
-            profiling.count(k, -v)
+        with profiling.held_counts() as per_replay:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                step()
+        self._per_replay = per_replay
         self.graph, self.key = graph, key
         self.captures += 1
         profiling.count_capture(reason)
@@ -470,47 +485,23 @@ class StepGraph:
                     queued.popleft().synchronize()
             with lock:
                 self.graph.replay()
-                for m, n, c in self._per_replay:
-                    getattr(m, n).launches += c
-                for name, c in self._collectives_per_replay.items():
-                    profiling.count(name, c)
+                profiling.add_counts(self._per_replay)
                 done = torch.cuda.Event()
                 done.record()
             queued.append(done)
-        self.replays += k
         profiling.count("replays", k)
         return self.loss[:k].clone(), self.overflow[:k].sum(), self.truncated[:k].sum()
 
-    def run(self, model, opt_state, vms, cps, gts, rows, step0: int, mask, lock,
-            kw) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The `Trainer`'s window of k = len(rows) steps as graph replays
-        (captured first if the key changed) → (losses (k,), Σoverflow,
-        Σtruncated)."""
-        dev = model.xyz.device
-        k = len(rows)
-        self.reserve(dev, k, 3)
-        gt_rows = rows
-        if gts.device != dev:
-            gts = self.stage_gt(gts, rows, dev)
-            gt_rows = np.arange(k)
-        idx = window_index(rows, gt_rows, step0)
 
-        def body(r):  # pose row, GT row, step number
-            aux = train_step(
-                model, opt_state,
-                vms.index_select(0, r[0:1])[0],
-                cps.index_select(0, r[0:1])[0],
-                gts.index_select(0, r[1:2])[0],
-                r[2].to(torch.int32),
-                mask,
-                do_adam=True,
-                skip_opacity_update=False,
-                **kw,
-            )
-            return aux["loss"], aux["overflow"], aux["truncated"]
-
-        key = capture_key(model, opt_state, vms, cps, gts, mask, **kw)
-        return self.replay(idx, key, body, _state_tensors(model, opt_state), lock)
+def window_mode(device, mesh=None) -> str:
+    """How `train_steps_fused` runs a window on ``device``: ``"graph"``
+    (replays of one step captured as a CUDA graph) on a CUDA device, on a
+    ``mesh`` only under NCCL, whose collectives a graph can capture;
+    ``"eager"`` (the same step body run step by step) on the CPU, or on a
+    mesh under gloo, which stages through the host."""
+    if torch.device(device).type != "cuda":
+        return "eager"
+    return "graph" if mesh is None or dist.get_backend() == "nccl" else "eager"
 
 
 def train_steps_fused(
@@ -523,6 +514,7 @@ def train_steps_fused(
     mask: Optional[torch.Tensor] = None,
     *,
     rows=None,
+    mesh=None,
     graph: Optional[StepGraph] = None,
     lock=None,
     camera: Camera,
@@ -535,46 +527,75 @@ def train_steps_fused(
     skip_bottom_px: int = 0,
     update_stats: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K train iterations between event iterations, in place (JAX's
-    `train_steps_fused`, one device program). Step i (from 0) takes row
-    ``rows[i]`` of the (V, 4, 4) ``viewmatrices``, the (V, 3) ``camposes``
-    and the (V, 3, H, W) ``gt_images`` and the step number step0 + i + 1, with
-    Adam on and the opacity LR kept: a window ends before every event
-    iteration. Without ``rows`` the banks are the K stacked rows, as in
-    JAX. Returns (losses (K,), Σoverflow, Σtruncated) on the device.
+    """K training iterations between event iterations, in place (JAX's
+    `train_steps_fused` and `make_sharded_train_window`, one device
+    program). ``rows`` (K, 2, V): step i (from 0) takes rows ``rows[i, 0]``
+    of the (N, 4, 4) ``viewmatrices`` and (N, 3) ``camposes`` banks, rows
+    ``rows[i, 1]`` of the (M, 3, H, W) ``gt_images`` bank and the step
+    number step0 + i + 1, as `train_step` on ``mesh`` with Adam on and the
+    opacity LR kept: a window ends before every event iteration. Without
+    ``rows`` the banks are the K stacked rows, one view a step, as in JAX.
+    Returns (losses (K,), Σoverflow, Σtruncated) on the device, totalled
+    over the mesh.
 
-    On CPU tensors the K steps run eagerly (the plain version). On CUDA
-    tensors they are K replays of ``graph`` (a `StepGraph`, captured again
-    when its key changed; a new one when None); a capture or replay that
-    fails raises. ``gt_images`` may then be a pinned host bank, whose K rows
-    are uploaded once. ``lock`` (a context manager) is held for each step."""
+    In `window_mode` "graph" the K steps are K replays of ``graph`` (a
+    `StepGraph`, captured again when its key changed, on a mesh of several
+    ranks when it changed on any rank; a new one when None); a capture or
+    replay that fails raises. In "eager" the same step body runs K times.
+    ``gt_images`` may be a host bank (pinned beside a CUDA device), whose
+    window rows are uploaded once. ``lock`` (a context manager) is held for
+    each step."""
     if rows is None:
-        rows = np.arange(viewmatrices.shape[0])
+        rows = np.repeat(np.arange(viewmatrices.shape[0])[:, None, None], 2, axis=1)
     rows = np.asarray(rows, np.int64)
+    k, _, n_views = rows.shape
+    pose_rows, gt_rows = rows[:, 0], rows[:, 1]
     lock = contextlib.nullcontext() if lock is None else lock
     kw = dict(camera=camera, sh_degree=sh_degree, raster_cfg=raster_cfg, lr_cfg=lr_cfg,
-              spatial_lr_scale=spatial_lr_scale, lambda_dssim=lambda_dssim,
+              spatial_lr_scale=spatial_lr_scale, bg=bg, lambda_dssim=lambda_dssim,
               skip_bottom_px=skip_bottom_px, update_stats=update_stats)
     dev = model.xyz.device
-    if dev.type == "cpu":
+    mode = window_mode(dev, mesh)
+    if mode == "graph":
+        graph = StepGraph() if graph is None else graph
+        graph.reserve(dev, k, 2 * n_views + 1)
+    if gt_images.device != dev:
+        # a host bank: the window's rows uploaded once, row j·V + v
+        if mode == "graph":
+            gt_images = graph.stage_gt(gt_images, gt_rows, dev)
+        else:
+            gt_images = gt_images[torch.from_numpy(gt_rows.reshape(-1))].to(dev)
+        gt_rows = np.arange(k * n_views).reshape(k, n_views)
+    idx = window_index(pose_rows, gt_rows, step0)
+
+    def body(r):  # V pose rows, V ground-truth rows, the step number
+        aux = train_step(
+            model, opt_state,
+            viewmatrices.index_select(0, r[:n_views]),
+            camposes.index_select(0, r[:n_views]),
+            gt_images.index_select(0, r[n_views : 2 * n_views]),
+            r[2 * n_views].to(torch.int32),
+            mask, mesh=mesh, do_adam=True, skip_opacity_update=False, **kw,
+        )
+        return aux["loss"], aux["overflow"], aux["truncated"]
+
+    if mode == "eager":
+        staged = torch.from_numpy(idx).to(dev)
         out = []
-        for i, r in enumerate(rows.tolist()):
+        for i in range(k):
             with lock:
                 profiling.mark("window", dev)
-                aux = train_step(
-                    model, opt_state, viewmatrices[r], camposes[r], gt_images[r],
-                    torch.full((), step0 + i + 1, dtype=torch.int32),
-                    mask, bg=bg, do_adam=True, skip_opacity_update=False, **kw,
-                )
+                out.append(body(staged[i]))
                 profiling.mark("end", dev)
-            out.append((aux["loss"], aux["overflow"], aux["truncated"]))
-        losses, overflow, truncated = zip(*out)
-        return torch.stack(losses), torch.stack(overflow).sum(), torch.stack(truncated).sum()
-    if dev.type != "cuda":
-        raise ValueError(f"train_steps_fused: unsupported device {dev}")
-    graph = StepGraph() if graph is None else graph
-    return graph.run(model, opt_state, viewmatrices, camposes, gt_images, rows, step0, mask,
-                     lock, dict(kw, bg=bg))
+        losses, overflow, truncated = (torch.stack(x) for x in zip(*out))
+        return losses, overflow.sum(), truncated.sum()
+    key = capture_key(model, opt_state, viewmatrices, camposes, gt_images, mask, mesh=mesh, **kw)
+    # every rank captures, or none: a warm-up step runs the mesh's collectives
+    why = None
+    if mesh is not None and mesh.size() > 1 and shard.any_rank(key != graph.key, dev) \
+            and key == graph.key:
+        why = "another_rank"
+    return graph.replay(idx, key, body, _state_tensors(model, opt_state), lock, why)
 
 
 @dataclasses.dataclass
@@ -626,18 +647,24 @@ class Trainer:
         self._gt_cache: Dict[tuple, torch.Tensor] = {}
         self._mask_cache: Dict[tuple, Optional[torch.Tensor]] = {}
         self._pose_cache: Dict[int, tuple] = {}
-        # ({fid: row}, (V, 4, 4) poses, (V, 3) campos, (V, 3, H, W) ground
-        # truths) and the keyframe ids they were built for
-        self._banks = None
-        self._banks_fids = None
-        self.gt_bank_on_device = None
+        # one device: no mesh, one data row (`ParallelTrainer` sets its own)
+        self.mesh = None
+        self.n_data = 1
+        # ({fid: row}, (N, 4, 4) poses, (N, 3) campos) of every keyframe
+        self._poses = None
+        # the ground truths loaded, in the order loaded: ({fid: row}, (rows,
+        # 3, H, W) bank); the keyframes each data row has drawn (`_draw`
+        # records them); times the bank grew
+        self._gt_bank = ({}, None)
+        self._drawn: List[set] = [set()]
+        self.gt_bank_grows = 0
         self.step_graph = StepGraph()  # the window's graph on the card
         self.lock = FairLock()
         # the stage totals `drain_losses` last read (`profiling.stage_totals`)
         # and, at the last `trace_line`: the iteration, those totals and the
         # counters
         self.stage_totals: Dict[str, Tuple[float, int]] = {}
-        self._traced = (self.iteration, {}, profiling.counters(), step_launches())
+        self._traced = (self.iteration, {}, profiling.counters())
 
     # -- setup --
 
@@ -723,45 +750,78 @@ class Trainer:
             self._gt_cache[key] = img.permute(2, 0, 1).contiguous()
         return self._gt_cache[key]
 
-    def _ensure_banks(self):
-        """The (V, ...) pose, campos and ground-truth banks of the keyframes
-        → ({fid: row}, poses, campos, ground truths), built again when the
-        keyframe set changes. The ground-truth bank lives on the device
-        while V·3·H·W·4 bytes fit ``Tpu.gt_bank_mb`` MiB; above that on the
-        host (pinned beside a CUDA device), and a window uploads its rows."""
-        fids = sorted(self.scene.keyframes)
-        if self._banks is not None and self._banks_fids == fids:
-            return self._banks
-        self._banks = None  # the old banks go before the new ones arrive
-        kfs = [self.scene.keyframes[f] for f in fids]
-        dev = torch.device(self.device)
-        vms = torch.as_tensor(np.stack([k.viewmatrix for k in kfs]), device=dev)
-        cps = torch.as_tensor(np.stack([k.campos for k in kfs]), device=dev)
-        # loaders produce HWC; the image convention is channels-first
-        gts = torch.as_tensor(
-            np.stack([np.asarray(k.image) for k in kfs]), dtype=torch.float32
-        ).permute(0, 3, 1, 2).contiguous()
-        self.gt_bank_on_device = gts.numel() * 4 <= self.config.tpu.gt_bank_mb * (1 << 20)
-        if self.gt_bank_on_device:
-            gts = gts.to(dev)
-        elif dev.type == "cuda":
-            gts = gts.pin_memory()
-        self._banks = ({f: i for i, f in enumerate(fids)}, vms, cps, gts)
-        self._banks_fids = fids
-        profiling.count("bank_builds")
-        return self._banks
+    # -- the banks --
 
-    def _bank_row(self, kf):
-        """The keyframe's (viewmatrix, campos, (3, H, W) ground truth) from
-        the banks on the device: views of the device banks, the ground
-        truth uploaded from a host bank."""
-        rows, vms, cps, gts = self._ensure_banks()
-        r = rows[kf.fid]
-        return vms[r], cps[r], gts[r].to(self.device, non_blocking=True)
+    def _pose_bank(self):
+        """({fid: row}, (N, 4, 4) poses, (N, 3) campos) of every keyframe on
+        the device, built again when the keyframe set changes."""
+        fids = sorted(self.scene.keyframes)
+        if self._poses is None or list(self._poses[0]) != fids:
+            kfs = [self.scene.keyframes[f] for f in fids]
+            dev = torch.device(self.device)
+            self._poses = (
+                {f: i for i, f in enumerate(fids)},
+                torch.as_tensor(np.stack([k.viewmatrix for k in kfs]), device=dev),
+                torch.as_tensor(np.stack([k.campos for k in kfs]), device=dev),
+            )
+        return self._poses
+
+    def _bank_rows(self, views: List[list]) -> np.ndarray:
+        """The (k, 2, V) rows of k iterations' views (each step's V pose
+        rows, then its V ground-truth rows). When every keyframe's ground
+        truth fits ``Tpu.gt_bank_mb`` MiB on the device, the bank holds them
+        all, loaded at its first use: it never grows, so a window's graph is
+        never captured again for it. Otherwise a keyframe new to this
+        rank's data row is loaded into the bank when drawn (only this row's
+        images are ever loaded), which holds a data row's share of the
+        keyframes, ⌈N / n_data⌉ rows, and doubles (up to N) when a data row
+        has drawn more: every rank tracks every row's draws, so all grow
+        together and a sharded graph is captured again on all ranks. That
+        bank lives on the device while its rows fit the budget, else on the
+        host (pinned beside a CUDA device), and a window uploads its
+        rows."""
+        fid_row, _, _ = self._pose_bank()
+        rows, bank = self._gt_bank
+        n = len(fid_row)
+        kf = next(iter(self.scene.keyframes.values()))
+        h, w = np.asarray(kf.image).shape[:2]
+        budget = self.config.tpu.gt_bank_mb * (1 << 20)
+        every = n * 3 * h * w * 4 <= budget
+        if every:
+            cap = n
+        else:
+            cap = -(-n // self.n_data) if bank is None else bank.shape[0]
+            need = max(len(d) for d in self._drawn)
+            while cap < need:
+                cap = min(2 * cap, max(n, need))
+        if bank is None or cap != bank.shape[0]:
+            dev = torch.device(self.device)
+            on_device = cap * 3 * h * w * 4 <= budget
+            new = torch.empty((cap, 3, h, w), dtype=torch.float32,
+                              device=dev if on_device else "cpu",
+                              pin_memory=not on_device and dev.type == "cuda")
+            if bank is not None:
+                new[: len(rows)].copy_(bank[: len(rows)])
+                self.gt_bank_grows += 1
+            bank = new
+            profiling.count("bank_builds")
+        load = [self.scene.keyframes[f] for f in fid_row] if every else []
+        for kf in load + [kf for step in views for kf in step]:
+            if kf.fid not in rows:
+                # loaders produce HWC; the image convention is channels-first
+                img = torch.as_tensor(np.asarray(kf.image), dtype=torch.float32)
+                bank[len(rows)].copy_(img.permute(2, 0, 1))
+                rows[kf.fid] = len(rows)
+        self._gt_bank = (rows, bank)
+        return np.array([[[fid_row[kf.fid] for kf in step], [rows[kf.fid] for kf in step]]
+                         for step in views], np.int64)
 
     def _mask(self, camera, level_camera=None) -> Optional[torch.Tensor]:
         """The camera's (H, W) undistort mask on the device at the pyramid
-        level's size (cv2's default interpolation), or None."""
+        level's size (cv2's default interpolation), or None (always on a
+        mesh: the sharded trainer trains without it, as JAX's does)."""
+        if self.mesh is not None:
+            return None
         lc = level_camera or camera
         key = (camera, lc.width, lc.height)
         if key not in self._mask_cache:
@@ -836,43 +896,70 @@ class Trainer:
             update_stats=update_stats,
         )
 
+    def _pyramid_on(self) -> bool:
+        """Whether the coarse-to-fine pyramid trains (never on a mesh, as in
+        the JAX package)."""
+        cfg = self.config.pyramid
+        return bool(cfg.do and cfg.num_sub_levels > 0) and self.mesh is None
+
+    def _level_camera(self, kf):
+        """The camera of this use of ``kf``: under the pyramid, its
+        sub-level's while the level's uses last, else the keyframe's."""
+        cfg = self.config.pyramid
+        camera = kf.camera
+        if not self._pyramid_on():
+            return camera
+        if kf.pyramid_budgets is None:
+            kf.pyramid_budgets = [cfg.sub_level_times_of_use] * cfg.num_sub_levels
+        level = kf.current_pyramid_level(cfg.num_sub_levels)
+        if level < cfg.num_sub_levels:
+            f = cfg.factor(level)
+            camera = dataclasses.replace(
+                camera,
+                width=max(int(camera.width * f), 16),
+                height=max(int(camera.height * f), 16),
+            )
+        return camera
+
+    def _draw(self) -> list:
+        """One iteration's keyframes from the times-of-use sampler → this
+        rank's views: one keyframe on one device."""
+        kf = self.sampler.sample()
+        self._drawn[0].add(kf.fid)
+        return [kf]
+
+    def _densify(self, it: int):
+        densify_ops.densify_and_prune(
+            self.model, self.opt_state, self.generator, **self._densify_kwargs(it)
+        )
+
     def train_iteration(self) -> Dict[str, torch.Tensor]:
         with self.lock:
             cfg = self.config
             self.iteration += 1
             it = self.iteration
-            kf = self.sampler.sample()
+            views = self._draw()
             in_densify_phase, do_densify, do_reset = self._schedule(it)
-
-            # coarse-to-fine pyramid: the level camera of this keyframe's use
-            camera = kf.camera
-            if cfg.pyramid.do and cfg.pyramid.num_sub_levels > 0:
-                if kf.pyramid_budgets is None:
-                    kf.pyramid_budgets = [
-                        cfg.pyramid.sub_level_times_of_use
-                    ] * cfg.pyramid.num_sub_levels
-                level = kf.current_pyramid_level(cfg.pyramid.num_sub_levels)
-                if level < cfg.pyramid.num_sub_levels:
-                    f = cfg.pyramid.factor(level)
-                    camera = dataclasses.replace(
-                        camera,
-                        width=max(int(camera.width * f), 16),
-                        height=max(int(camera.height * f), 16),
-                    )
-            if cfg.pyramid.do and cfg.pyramid.num_sub_levels > 0:
+            kf = views[0]
+            camera = self._level_camera(kf)
+            if self._pyramid_on():
                 vm, campos = self._pose(kf)
-                gt = self._gt(kf, camera)
+                vms, cps, gts = vm[None], campos[None], self._gt(kf, camera)[None]
             else:
-                vm, campos, gt = self._bank_row(kf)
+                pose_rows, gt_rows = self._bank_rows([views])[0]
+                _, vms, cps = self._pose_bank()
+                vms, cps = _bank_views(vms, pose_rows), _bank_views(cps, pose_rows)
+                gts = _bank_views(self._gt_bank[1], gt_rows, self.device)
             aux = train_step(
                 self.model,
                 self.opt_state,
-                vm,
-                campos,
-                gt,
+                vms,
+                cps,
+                gts,
                 # a fill kernel, not a host → device copy
                 torch.full((), it, dtype=torch.int32, device=self.device),
                 self._mask(kf.camera, camera),
+                mesh=self.mesh,
                 # reference quirk: replaced tensors skip their Adam update
                 do_adam=not do_densify and it < cfg.opt.max_num_iterations,
                 skip_opacity_update=do_reset,
@@ -882,10 +969,7 @@ class Trainer:
             dev = self.model.xyz.device
             if do_densify:
                 profiling.mark("densify", dev)
-                densify_ops.densify_and_prune(
-                    self.model, self.opt_state, self.generator,
-                    **self._densify_kwargs(it),
-                )
+                self._densify(it)
             if do_reset:
                 profiling.mark("reset", dev)
                 densify_ops.reset_opacity(self.model, self.opt_state)
@@ -966,43 +1050,35 @@ class Trainer:
     def _window_len(self, max_steps: int) -> int:
         """How many of ``max_steps`` iterations a window takes now: up to the
         next event iteration, none under the pyramid."""
-        cfg = self.config
-        if cfg.pyramid.do and cfg.pyramid.num_sub_levels > 0:
+        if self._pyramid_on():
             return 0
         it = self.iteration
         return max(min(max_steps, self._next_event_iter(it) - 1 - it), 0)
-
-    def _window_inputs(self, k: int):
-        """(banks, mask, keywords) of `train_steps_fused` for a window of
-        ``k`` steps from the current iteration."""
-        _, vms, cps, gts = self._ensure_banks()
-        # a window ends before every event, so none of its steps leaves
-        # the densify phase: its last step's phase is every step's
-        in_densify_phase = self._schedule(self.iteration + k)[0]
-        kw = self._step_kwargs(self.camera, in_densify_phase)
-        return (vms, cps, gts), self._mask(self.camera), kw
 
     def train_window(self, max_steps: int) -> int:
         """Take up to ``max_steps`` iterations before the next event
         iteration through `train_steps_fused` and return how many were
         taken: 0 means the next iteration is an event (call
-        `train_iteration`), or the pyramid is on. The window samples its
-        keyframes as that many `train_iteration` calls would; none of its
-        steps densifies or resets, each steps Adam, and the statistics
-        accumulate as in the JAX trainer's scanned window. On the card the
-        steps are replays of `step_graph`, bitwise the eager iterations;
-        the lock is held for each."""
+        `train_iteration`), or the pyramid is on. The window draws its
+        keyframes as that many `train_iteration` calls would (on a mesh
+        every rank draws them all, so the ranks stay in lock-step); none of
+        its steps densifies or resets, each steps Adam, and the statistics
+        accumulate as in the JAX trainer's scanned window. In `window_mode`
+        "graph" the steps are replays of `step_graph`, bitwise the eager
+        iterations; the lock is held for each."""
         k = self._window_len(max_steps)
         if k == 0:
             return 0
-        (vms, cps, gts), mask, kw = self._window_inputs(k)
-        fid_row = self._banks[0]
         with self.lock:
-            rows = [fid_row[self.sampler.sample().fid] for _ in range(k)]
+            rows = self._bank_rows([self._draw() for _ in range(k)])
+        _, vms, cps = self._pose_bank()
         it = self.iteration
+        # a window ends before every event, so none of its steps leaves
+        # the densify phase: its last step's phase is every step's
+        kw = self._step_kwargs(self.camera, self._schedule(it + k)[0])
         losses, overflow, truncated = train_steps_fused(
-            self.model, self.opt_state, vms, cps, gts, it, mask,
-            rows=rows, graph=self.step_graph, lock=self.lock, **kw,
+            self.model, self.opt_state, vms, cps, self._gt_bank[1], it, self._mask(self.camera),
+            rows=rows, mesh=self.mesh, graph=self.step_graph, lock=self.lock, **kw,
         )
         self.iteration = it + k
         self._pending_losses.append((losses, overflow, truncated))
@@ -1124,9 +1200,9 @@ class Trainer:
         collectives ran, their count and MB a step by kind; the host's
         waits for the replay queue (its back-pressure, expected); and the
         host's waits at each sync point (count / host ms). The launches of
-        each STEP_KERNELS wrapper that launched follow the counters (a replay
+        each kernel wrapper that launched follow the counters (a replay
         counts the launches its graph holds)."""
-        it, seen, before, launched = self._traced
+        it, seen, before = self._traced
         now = profiling.counters()
         steps = max(self.iteration - it, 1)
         stages = " ".join(
@@ -1144,8 +1220,8 @@ class Trainer:
             counts += f" collectives={moved['collectives']} " + " ".join(
                 f"{k[:-len('_bytes')]}={v / steps / 1e6:.1f}MB/step"
                 for k, v in moved.items() if k.endswith("_bytes") and v)
-        kernels = step_launches()
-        ran = {k: v - launched[k] for k, v in kernels.items() if v != launched[k]}
+        ran = {k: v - before["launches"].get(k, 0) for k, v in now["launches"].items()
+               if v != before["launches"].get(k, 0)}
         if ran:
             counts += " launches " + " ".join(f"{k}={v}" for k, v in ran.items())
 
@@ -1156,6 +1232,6 @@ class Trainer:
 
         syncs = " ".join(filter(None, (waits(site) for site in sorted(now["host_waits"])
                                        if site != "replay_queue")))
-        self._traced = (self.iteration, self.stage_totals, now, kernels)
+        self._traced = (self.iteration, self.stage_totals, now)
         return (f"ms/step {stages or '-'} | {counts} | {waits('replay_queue') or 'replay_queue=0'}"
                 f" | syncs {syncs or '-'}")

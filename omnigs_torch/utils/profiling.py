@@ -34,9 +34,11 @@ port's own tracing:
   each with its reason (the field of the capture key that changed),
   warm-up steps and replays of the captured steps, ground-truth bank
   builds, the mesh's collectives and the bytes each kind hands them
-  (`parallel/mesh.py`; a replayed graph counts the collectives it holds,
-  its capture none), and the host's waits at the known sync points (count
-  and host ms by site, each wait timed by `host_wait`).
+  (`parallel/mesh.py`), each hand-written kernel's launches by wrapper
+  (`count_launch`), and the host's waits at the known sync points (count
+  and host ms by site, each wait timed by `host_wait`). A captured graph
+  counts nothing at its capture and, at each replay, what its capture
+  counted (`held_counts`, `add_counts`).
 * `mean_ms` — the mean time of repeated calls: CUDA events on a card
   (device time of back-to-back calls), the host clock on the CPU;
   `stage_ms` adds what the events measured: the card's time, or the
@@ -234,6 +236,7 @@ class _Counters:
 
     def reset(self):
         self.totals = collections.Counter()
+        self.by_kernel = collections.Counter()
         self.capture_reasons = collections.Counter()
         self.waits = collections.Counter()
         self.wait_s = collections.Counter()
@@ -254,6 +257,45 @@ def count(name: str, n: int = 1) -> None:
         raise KeyError(name)
     with _COUNTERS.lock:
         _COUNTERS.totals[name] += n
+
+
+def count_launch(wrapper: str) -> None:
+    """One launch of the hand-written kernel behind ``wrapper`` (the
+    wrapper's name), counted where the wrapper launches it."""
+    with _COUNTERS.lock:
+        _COUNTERS.by_kernel[wrapper] += 1
+
+
+def _table() -> collections.Counter:
+    """Every total of `count` and `count_launch`, by (kind, name)."""
+    table = collections.Counter({("count", k): v for k, v in _COUNTERS.totals.items()})
+    table.update({("launch", k): v for k, v in _COUNTERS.by_kernel.items()})
+    return table
+
+
+def add_counts(counts) -> None:
+    """Add ``counts`` ((kind, name) → n, as `held_counts` yields them) to
+    the totals: a captured graph's replay counts what its capture held."""
+    with _COUNTERS.lock:
+        for (kind, name), n in counts.items():
+            (_COUNTERS.totals if kind == "count" else _COUNTERS.by_kernel)[name] += n
+
+
+@contextlib.contextmanager
+def held_counts():
+    """Count nothing of the enclosed block (a graph's capture, which runs
+    no work): yields a Counter that, after the block, holds what the block
+    counted with `count` and `count_launch`, by (kind, name), and takes it
+    back out of the totals, for `add_counts` to add at each replay."""
+    with _COUNTERS.lock:
+        before = _table()
+    held = collections.Counter()
+    try:
+        yield held
+    finally:
+        with _COUNTERS.lock:
+            held.update(_table() - before)
+        add_counts({k: -n for k, n in held.items()})
 
 
 def count_capture(reason: str) -> None:
@@ -296,10 +338,12 @@ def collective_counts() -> Dict[str, int]:
 def counters() -> dict:
     """Run-wide totals since `reset_counters`: each of COUNTER_NAMES and
     COLLECTIVE_NAMES, ``capture_reasons`` (reason → captures),
-    ``host_waits`` (site → waits) and ``host_wait_ms`` (site → host ms)."""
+    ``launches`` (kernel wrapper → launches), ``host_waits`` (site →
+    waits) and ``host_wait_ms`` (site → host ms)."""
     with _COUNTERS.lock:
         out = {k: _COUNTERS.totals[k] for k in COUNTER_NAMES + COLLECTIVE_NAMES}
         out["capture_reasons"] = dict(_COUNTERS.capture_reasons)
+        out["launches"] = {k: v for k, v in _COUNTERS.by_kernel.items() if v}
         out["host_waits"] = dict(_COUNTERS.waits)
         out["host_wait_ms"] = {k: v * 1e3 for k, v in _COUNTERS.wait_s.items()}
     return out

@@ -20,7 +20,7 @@ from omnigs_tpu.cameras import Camera, CameraType
 from omnigs_tpu.ops import binning as jbin
 from omnigs_tpu.ops import preprocess as jpre
 
-from torch_helpers import random_cloud_np
+from torch_helpers import launches, random_cloud_np
 
 W, H = 128, 64
 GX, GY = W // 16, H // 16
@@ -106,10 +106,10 @@ def test_precull_on_the_cpu_takes_the_plain_version():
     it) and launch nothing, through the binning too; the kernel's wrapper
     refuses them."""
     _, pt = _prep_pair(23, 48, scale_mu=-0.7, spread=1.0, w=256, h=128)
-    before = tbin.precull.launches
+    before = launches("precull")
     got = tbin._precull_masks(pt, 16)
     tbin.bin_instances_packed(pt, 16, 8, 1 << 13, tile_cull=True)
-    assert tbin.precull.launches == before
+    assert launches("precull") == before
     for a, b in zip(got, tbin._precull_masks_plain(pt, 16)):
         assert a.dtype == torch.int32 and torch.equal(a, b)
     with pytest.raises(ValueError, match="pre-cull kernel takes"):

@@ -21,7 +21,7 @@ from omnigs_tpu.ops import binning as jbin
 from omnigs_tpu.ops import pallas_seg as jseg
 from omnigs_tpu.ops import preprocess as jpre
 
-from torch_helpers import random_cloud_np
+from torch_helpers import launches, random_cloud_np
 
 
 def _slab_case(seed, n, w=128, h=64, squeeze=None, max_instances=1 << 12):
@@ -139,7 +139,7 @@ def test_cpu_backprop_and_launch_count():
             lay["num_tiles"], lay["gx"],
         )
 
-    fwd, bwd = tcs.composite_seg_fwd.launches, tcs.composite_seg_bwd.launches
+    fwd, bwd = launches("composite_seg_fwd"), launches("composite_seg_bwd")
     means2d = tg["means2d"].clone().requires_grad_(True)
     color, final_t, ncontrib = run(means2d)
     assert color.requires_grad
@@ -147,8 +147,8 @@ def test_cpu_backprop_and_launch_count():
     assert means2d.grad is not None and bool(torch.isfinite(means2d.grad).all())
     assert float(means2d.grad.abs().max()) > 0
     # plain versions, no kernel
-    assert tcs.composite_seg_fwd.launches == fwd
-    assert tcs.composite_seg_bwd.launches == bwd
+    assert launches("composite_seg_fwd") == fwd
+    assert launches("composite_seg_bwd") == bwd
     plain_c, plain_t, _, _ = tcs.composite_seg_fwd_plain(
         tcs._build_inst_seg(tg["means2d"], tg["conic"], tg["rgb"], tg["opacity"],
                             sorted_g8, perm, ride_d, ride_t),

@@ -24,7 +24,7 @@ from omnigs_tpu.ops import binning as jbin
 from omnigs_tpu.ops import pallas_raster as jpr
 from omnigs_tpu.ops import preprocess as jpre
 
-from torch_helpers import random_cloud_np
+from torch_helpers import launches, random_cloud_np
 
 W, H = 64, 32
 GX, GY = W // 16, H // 16
@@ -170,12 +170,12 @@ def test_fwd_plain_matches_jax(case, want_ncontrib):
         jnp.asarray(d["slab"]), *[jnp.asarray(lay[k]) for k in ("starts", "counts", "x0", "y0")],
         T, interpret=True, want_ncontrib=want_ncontrib,
     ))
-    before = tct.composite_tile_fwd.launches
+    before = launches("composite_tile_fwd")
     gc, gt, gn = tct.composite_tile_fwd(
         torch.from_numpy(d["slab"]), ti["starts"], ti["counts"], ti["x0"], ti["y0"],
         T, want_ncontrib,
     )
-    assert tct.composite_tile_fwd.launches == before  # plain version on the CPU
+    assert launches("composite_tile_fwd") == before  # plain version on the CPU
     np.testing.assert_allclose(gc.numpy(), rc, atol=1e-5)
     np.testing.assert_allclose(gt.numpy(), rt, atol=1e-5)
     assert gn.dtype == torch.int32
@@ -210,9 +210,9 @@ def _torch_args(d):
 def test_bwd_plain_matches_jax(case):
     d = _get(case)
     ref = _jax_bwd(d)
-    before = tct.composite_tile_bwd.launches
+    before = launches("composite_tile_bwd")
     got = tct.composite_tile_bwd(torch.from_numpy(d["slab"]), *_torch_args(d)).numpy()
-    assert tct.composite_tile_bwd.launches == before
+    assert launches("composite_tile_bwd") == before
     assert got.shape == ref.shape == d["slab"].shape
     for r, name in enumerate(("x", "y", "A", "B", "C", "op", "r", "g", "b")):
         _grad_close(got[r], ref[r], name)
@@ -233,11 +233,11 @@ def test_bwd_fused_plain_matches_jax(case):
         jnp.asarray(d["color_full"]), jnp.asarray(d["dcolor"]), T, d["n"],
         interpret=True,
     ))
-    before = tct.composite_tile_bwd_fused.launches
+    before = launches("composite_tile_bwd_fused")
     got = tct.composite_tile_bwd_fused(
         torch.from_numpy(d["slab"]), d["ti"]["sorted_g"], *_torch_args(d), d["n"]
     ).numpy()
-    assert tct.composite_tile_bwd_fused.launches == before
+    assert launches("composite_tile_bwd_fused") == before
     assert got.shape == ref.shape == (d["n"], 9)
     for r in range(9):
         _grad_close(got[:, r], ref[:, r], f"row {r}")

@@ -126,9 +126,10 @@ def test_training_after_eval(setup):
         ts, 1, cfg, torch.zeros(3))
     model = TModel.from_numpy(random_model_np(12, 128, 96, scale_mu=-2.5), device="cpu")
     kf = ts.keyframes[0]
-    aux = train_step(model, topt.init_adam(model.params()), torch.from_numpy(kf.viewmatrix),
-                     torch.from_numpy(kf.campos),
-                     torch.from_numpy(np.ascontiguousarray(kf.image.transpose(2, 0, 1))), 1,
+    aux = train_step(model, topt.init_adam(model.params()), torch.from_numpy(kf.viewmatrix)[None],
+                     torch.from_numpy(kf.campos)[None],
+                     torch.from_numpy(np.ascontiguousarray(kf.image.transpose(2, 0, 1)))[None],
+                     1,
                      camera=kf.camera, sh_degree=1, raster_cfg=cfg, lr_cfg=topt.LRConfig(),
                      spatial_lr_scale=1.0, bg=torch.zeros(3))
     assert np.isfinite(float(aux["loss"]))

@@ -1,5 +1,5 @@
 """PyTorch port vs JAX reference: the one-program training window
-(omnigs_torch/train/trainer.py `train_steps_fused`, `Trainer._ensure_banks`,
+(omnigs_torch/train/trainer.py `train_steps_fused`, `Trainer._bank_rows`,
 `Trainer.train_window`, `Trainer.drain_losses`, `capture_key`) on
 tests/test_torch_trainer.py's tiny scene, the JAX side on the segmented
 path in Pallas interpret mode. On the CPU the window runs its steps
@@ -15,6 +15,7 @@ windows and single steps equal to JAX's EMA and counters on the same
 values; the capture key changing exactly when what a captured step bakes
 in changes."""
 
+import dataclasses
 import types
 
 import jax.numpy as jnp
@@ -35,7 +36,7 @@ from omnigs_tpu.train import trainer as jtrainer
 
 from test_torch_trainer import H, N_GT, W, _trainers
 from test_torch_trainer_window import _assert_equal_states, _port_trainer, _state
-from torch_helpers import random_model_np
+from torch_helpers import random_model_np, window_key
 
 K = 5
 
@@ -67,7 +68,7 @@ def test_train_steps_fused_matches_jax():
         banks = (vms, cps, gts) if banked else (vms[rows], cps[rows], gts[rows])
         tl, tov, ttr = ttrainer.train_steps_fused(
             tm, tstate, *(torch.from_numpy(np.ascontiguousarray(b)) for b in banks), 5,
-            rows=rows if banked else None, camera=TCamera(TCameraType.LONLAT, W, H),
+            rows=np.stack([rows, rows], 1)[:, :, None] if banked else None, camera=TCamera(TCameraType.LONLAT, W, H),
             raster_cfg=tt.raster_cfg, lr_cfg=tt.lr_cfg, bg=torch.zeros(3), **kw,
         )
         out.append((tm, tstate, tl))
@@ -93,7 +94,9 @@ def test_banked_windows_equal_iterations_bitwise(bank):
     """Windows of up to 5 through densify (every 5th iteration from 3) and
     opacity resets (every 8th) until 14, the ground truths from a bank on
     the device or (``Tpu.gt_bank_mb: 0``) on the host, against 16
-    `train_iteration`s; the per-keyframe ground-truth cache stays empty."""
+    `train_iteration`s; the per-keyframe ground-truth cache stays empty.
+    A device bank holds every keyframe from the first window, a host bank
+    the keyframes drawn so far; a new keyframe grows either."""
     opt = dict(densify_from_iter=3, densification_interval=5, densify_until_iter=14,
                opacity_reset_interval=8, max_num_iterations=20, position_lr_max_steps=20)
     a, b = _port_trainer(3, **opt), _port_trainer(3, **opt)
@@ -108,17 +111,24 @@ def test_banked_windows_equal_iterations_bitwise(bank):
     for _ in range(16):
         b.train_iteration()
     assert windows >= 3 and a.iteration == b.iteration == 16
-    assert a.gt_bank_on_device is b.gt_bank_on_device is (bank == "device")
     assert a._gt_cache == b._gt_cache == {}
     assert a.sampler.used_times == b.sampler.used_times
     _assert_equal_states(_state(a), _state(b))
     assert torch.equal(torch.cat([x.reshape(-1) for x, _, _ in a._pending_losses]),
                        torch.stack([x for x, _, _ in b._pending_losses]))
-    # a new keyframe set builds the banks again
-    old = a._banks
-    a.scene.keyframes[7] = a.scene.keyframes[0]
-    assert a._ensure_banks() is not old and len(a._banks[0]) == 4
-    assert a._ensure_banks() is a._banks
+    # a new keyframe set builds the pose bank again and grows the
+    # ground-truth bank by its row
+    old = a._pose_bank()
+    new = dataclasses.replace(a.scene.keyframes[0], fid=7)
+    a.scene.keyframes[7] = new
+    assert a._pose_bank() is not old and len(a._pose_bank()[0]) == 4
+    assert a._pose_bank() is a._pose_bank()
+    assert a.gt_bank_grows == 0
+    a._drawn[0].add(7)  # as `Trainer._draw` records a draw
+    rows = a._bank_rows([[new]])
+    assert a.gt_bank_grows == 1 and a._gt_bank[1].shape[0] == 4
+    assert rows.tolist() == [[[3], [3]]] and sorted(a._gt_bank[0]) == [0, 1, 2, 7]
+    assert torch.equal(a._gt_bank[1][3], a._gt_bank[1][a._gt_bank[0][0]])
 
 
 def test_drain_losses_matches_jax():
@@ -144,8 +154,7 @@ def test_drain_losses_matches_jax():
 
 def _key(tr):
     """The `capture_key` of a window of one step from the trainer's state."""
-    banks, mask, kw = tr._window_inputs(1)
-    return ttrainer.capture_key(tr.model, tr.opt_state, *banks, mask, **kw)
+    return window_key(tr)
 
 
 def test_capture_key_follows_what_a_step_bakes_in(tmp_path):

@@ -68,8 +68,16 @@ from omnigs_torch.scripts import bucket_emit_bench as tbe
 from omnigs_torch.scripts import kernel_ablate as tka
 from omnigs_torch.scripts import reduce_bench as trb
 from omnigs_torch.train.trainer import train_step
+from omnigs_torch.utils import profiling
 
-from torch_helpers import PROD_KW, ablate_slab_np, random_cloud_np, random_model_np, to_torch
+from torch_helpers import (
+    PROD_KW,
+    ablate_slab_np,
+    launches,
+    random_cloud_np,
+    random_model_np,
+    to_torch,
+)
 
 
 def _cuda():
@@ -112,10 +120,10 @@ def test_composite_seg_fwd_kernel_matches_plain(seed, n, squeeze, scale_mu):
     dev = _cuda()
     slab, seg, gx, num_tiles = _slab(seed, n, 256, 128, squeeze, 1 << 14, scale_mu)
     args = [t.to(dev) for t in (slab, seg.starts8, seg.counts, seg.live8)]
-    before = tcs.composite_seg_fwd.launches
+    before = launches("composite_seg_fwd")
     kc, kt = tcs.composite_seg_fwd(*args, num_tiles, gx)
     torch.cuda.synchronize()
-    assert tcs.composite_seg_fwd.launches == before + 1
+    assert launches("composite_seg_fwd") == before + 1
     pc, pt, _, _ = tcs.composite_seg_fwd_plain(
         args[0], args[1], args[2], num_tiles, gx
     )
@@ -213,10 +221,10 @@ def test_composite_seg_bwd_kernel_matches_plain(seed, n, squeeze, scale_mu):
     args, color_full, dcolor, seg, gx, num_tiles = _bwd_inputs(
         dev, seed, n, squeeze, scale_mu
     )
-    before = tcs.composite_seg_bwd.launches
+    before = launches("composite_seg_bwd")
     got = tcs.composite_seg_bwd(*args, color_full, dcolor, num_tiles, gx)
     torch.cuda.synchronize()
-    assert tcs.composite_seg_bwd.launches == before + 1
+    assert launches("composite_seg_bwd") == before + 1
     ref = tcs.composite_seg_bwd_plain(
         args[0], args[1], args[2], color_full, dcolor, num_tiles, gx
     )
@@ -246,8 +254,8 @@ def _step(device, fields, gt, cfg):
     m = GaussianModel.from_numpy(fields, device=device)
     st = init_adam(m.params())
     aux = train_step(
-        m, st, torch.eye(4, device=device), torch.zeros(3, device=device),
-        gt.to(device), 5, camera=Camera(CameraType.LONLAT, 256, 128),
+        m, st, torch.eye(4, device=device)[None], torch.zeros(1, 3, device=device),
+        gt.to(device)[None], 5, camera=Camera(CameraType.LONLAT, 256, 128),
         sh_degree=3, raster_cfg=cfg, lr_cfg=LRConfig(), spatial_lr_scale=2.0,
         bg=torch.zeros(3, device=device), skip_bottom_px=8,
     )
@@ -264,11 +272,11 @@ def test_train_step_on_card_matches_cpu():
     gt = torch.from_numpy(
         np.random.default_rng(45).uniform(size=(3, 128, 256)).astype(np.float32)
     )
-    fwd, bwd = tcs.composite_seg_fwd.launches, tcs.composite_seg_bwd.launches
+    fwd, bwd = launches("composite_seg_fwd"), launches("composite_seg_bwd")
     mc, stc, auxc = _step(dev, fields, gt, cfg)
     torch.cuda.synchronize()
-    assert tcs.composite_seg_fwd.launches == fwd + 1
-    assert tcs.composite_seg_bwd.launches == bwd + 1
+    assert launches("composite_seg_fwd") == fwd + 1
+    assert launches("composite_seg_bwd") == bwd + 1
     mp, stp, auxp = _step("cpu", fields, gt, cfg)
     np.testing.assert_allclose(float(auxc["loss"]), float(auxp["loss"]), rtol=1e-5)
     assert int(auxc["truncated"]) == 0
@@ -317,11 +325,11 @@ TILE_CASES = [(41, 24, (1.0, 1.0, 1.0)), (42, 512, (0.2, 0.2, 1.0))]
 def test_composite_tile_fwd_kernel_matches_plain(seed, n, squeeze):
     dev = _cuda()
     args, _, _ = _tile_inputs(dev, seed, n, squeeze)
-    before = tct.composite_tile_fwd.launches
+    before = launches("composite_tile_fwd")
     kc, kt, kn = tct.composite_tile_fwd(*args, 128)
     k0 = tct.composite_tile_fwd(*args, 128, want_ncontrib=False)
     torch.cuda.synchronize()
-    assert tct.composite_tile_fwd.launches == before + 2
+    assert launches("composite_tile_fwd") == before + 2
     pc, pt, pn, _, _ = tct.composite_tile_fwd_plain(*args, 128)
     assert torch.equal(kc, pc) and torch.equal(kt, pt)
     assert torch.equal(kn, pn) and int(kn.max()) > 0
@@ -345,11 +353,11 @@ def test_composite_tile_bwd_kernels_match_plain(seed, n, squeeze):
     version at max |Δ| ≤ 1e-4·max|plain| per row (its atomics)."""
     dev = _cuda()
     args, ids, color_full, dcolor = _tile_bwd(dev, seed, n, squeeze)
-    before = (tct.composite_tile_bwd.launches, tct.composite_tile_bwd_fused.launches)
+    before = (launches("composite_tile_bwd"), launches("composite_tile_bwd_fused"))
     got = tct.composite_tile_bwd(*args, color_full, dcolor, 128)
     fused = tct.composite_tile_bwd_fused(args[0], ids, *args[1:], color_full, dcolor, 128, n)
     torch.cuda.synchronize()
-    assert (tct.composite_tile_bwd.launches, tct.composite_tile_bwd_fused.launches) == (
+    assert (launches("composite_tile_bwd"), launches("composite_tile_bwd_fused")) == (
         before[0] + 1, before[1] + 1)
     ref = tct.composite_tile_bwd_plain(*args, color_full, dcolor, 128)
     assert torch.equal(got, ref)
@@ -416,10 +424,10 @@ def test_fused_bwd_kernel_matches_plain_on_layouts(layout):
     dcolor = torch.from_numpy(
         np.random.default_rng(52).normal(size=(128, 3, 256)).astype(np.float32)
     ).to(dev)
-    before = tct.composite_tile_bwd_fused.launches
+    before = launches("composite_tile_bwd_fused")
     fused = tct.composite_tile_bwd_fused(args[0], ids, *args[1:], color_full, dcolor, 128, 256)
     torch.cuda.synchronize()
-    assert tct.composite_tile_bwd_fused.launches == before + 1
+    assert launches("composite_tile_bwd_fused") == before + 1
     _fused_close(fused, args, ids, color_full, dcolor, 256)
 
 
@@ -435,11 +443,11 @@ def test_fused_step_launches_the_fused_kernel_only():
     gt = torch.from_numpy(
         np.random.default_rng(53).uniform(size=(3, 128, 256)).astype(np.float32)
     )
-    kernels = (tct.composite_tile_bwd_fused, tct.composite_tile_bwd, tct.composite_tile_fwd)
-    before = [k.launches for k in kernels]
+    kernels = ("composite_tile_bwd_fused", "composite_tile_bwd", "composite_tile_fwd")
+    before = launches(*kernels)
     _, st, aux = _step(dev, fields, gt, cfg)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 0, 1]
+    assert [n - b for n, b in zip(launches(*kernels), before)] == [1, 0, 1]
     assert np.isfinite(float(aux["loss"]))
     assert all(bool(torch.isfinite(v).all()) for v in st.mu.values())
 
@@ -512,10 +520,10 @@ def test_reduce_accum_kernel_matches_float64(ids_kind, p):
         assert int(torch.bincount(ids[:live].long()).max()) > 32 * 64
     else:
         assert int(ids[:live].max()) == p - 1
-    before = trb.reduce_accum.launches
+    before = launches("reduce_accum")
     got = trb.reduce_accum(ids[:live].contiguous(), rows, p)
     torch.cuda.synchronize()
-    assert trb.reduce_accum.launches == before + 1
+    assert launches("reduce_accum") == before + 1
     assert got.shape == (16, p)
     exact = torch.zeros(16, p, dtype=torch.float64, device=dev)
     exact.index_add_(1, ids[:live].to(torch.int64), rows[:, :live].to(torch.float64))
@@ -529,10 +537,10 @@ def test_reduce_accum_kernel_matches_float64(ids_kind, p):
 def test_bucket_emit_kernel_is_bitwise_plain():
     dev = _cuda()
     slots, data, _ = (torch.from_numpy(a).to(dev) for a in tbe.make_inputs(4 * tbe.K, seed=47))
-    before = tbe.bucket_emit.launches
+    before = launches("bucket_emit")
     got = tbe.bucket_emit(slots, data)
     torch.cuda.synchronize()
-    assert tbe.bucket_emit.launches == before + 1
+    assert launches("bucket_emit") == before + 1
     assert torch.equal(got, tbe.bucket_emit_plain(slots, data))
 
 
@@ -561,10 +569,10 @@ def test_kernel_ablate_kernel_matches_plain(mode, slab):
     pairs, whose updates change no value)."""
     dev = _cuda()
     args = [torch.from_numpy(a).to(dev) for a in ABLATE_SLABS[slab]()]
-    before = tka.kernel_ablate.launches
+    before = launches("kernel_ablate")
     got = tka.kernel_ablate(mode, *args)
     torch.cuda.synchronize()
-    assert tka.kernel_ablate.launches == before + 1
+    assert launches("kernel_ablate") == before + 1
     ref = tka.kernel_ablate_plain(mode, *args)[0]
     assert torch.equal(got, ref), (mode, slab, float((got - ref).abs().max()))
 
@@ -618,10 +626,10 @@ def test_pinhole_render_kernel_matches_plain():
     bg = torch.full((3,), 0.1, device=dev)
     args = (m, cam, torch.eye(4, device=dev), torch.zeros(3, device=dev), bg, 3, cfg)
     fp = torch.from_numpy(kf.full_proj).to(dev)
-    before = tcs.composite_seg_fwd.launches
+    before = launches("composite_seg_fwd")
     with torch.inference_mode():
         res = render_model(*args, full_proj=fp)
-    assert tcs.composite_seg_fwd.launches == before + 1
+    assert launches("composite_seg_fwd") == before + 1
     kernel = tcs.composite_seg_fwd
 
     def plain(inst, starts8, counts, live8, num_tiles, gx, tile_lo=0):
@@ -759,22 +767,23 @@ def test_graph_window_equals_eager_iterations(layout):
 
     _cuda()
     a, b = _window_trainer(layout), _window_trainer(layout)
-    fwd = tct.composite_tile_fwd if layout == "tile_major" else tcs.composite_seg_fwd
-    n0 = fwd.launches
-    s0 = (tl.ssim_fwd.launches, tl.ssim_bwd.launches)
-    c0 = tbin.precull.launches
+    fwd = "composite_tile_fwd" if layout == "tile_major" else "composite_seg_fwd"
+    n0 = launches(fwd)
+    s0 = (launches("ssim_fwd"), launches("ssim_bwd"))
+    c0 = launches("precull")
+    r0 = profiling.counters()["replays"]
     for _ in range(2):
         assert a.train_window(5) == 5
         for _ in range(5):
             b.train_iteration()
     torch.cuda.synchronize()
     assert a.iteration == b.iteration == 10
-    assert a.step_graph.captures == 1 and a.step_graph.replays == 10
-    assert fwd.launches - n0 == 10 + WARMUP_STEPS + 10
+    assert a.step_graph.captures == 1 and profiling.counters()["replays"] - r0 == 10
+    assert launches(fwd) - n0 == 10 + WARMUP_STEPS + 10
     # the loss's two kernels, once each in every replay and eager step
-    assert tl.ssim_fwd.launches - s0[0] == tl.ssim_bwd.launches - s0[1] == 10 + WARMUP_STEPS + 10
+    assert launches("ssim_fwd") - s0[0] == launches("ssim_bwd") - s0[1] == 10 + WARMUP_STEPS + 10
     # the binning's pre-cull too: the graph holds its one launch a step
-    assert tbin.precull.launches - c0 == 10 + WARMUP_STEPS + 10
+    assert launches("precull") - c0 == 10 + WARMUP_STEPS + 10
     for k in FIELD_NAMES:
         assert torch.equal(getattr(a.model, k), getattr(b.model, k)), k
     for m in ("mu", "nu"):
@@ -907,15 +916,16 @@ def test_sharded_graph_window_equals_eager_iterations(nccl_rank, layout):
     a = _window_trainer(layout, ParallelTrainer)
     b = _window_trainer(layout, ParallelTrainer)
     assert a.window_mode == "graph"
-    n0 = tcs.composite_seg_fwd.launches
+    n0 = launches("composite_seg_fwd")
+    r0 = profiling.counters()["replays"]
     for _ in range(2):
         assert a.train_window(5) == 5
         for _ in range(5):
             b.train_iteration()
     torch.cuda.synchronize()
     assert a.iteration == b.iteration == 10
-    assert a.step_graph.captures == 1 and a.step_graph.replays == 10
-    assert tcs.composite_seg_fwd.launches - n0 == 10 + WARMUP_STEPS + 10
+    assert a.step_graph.captures == 1 and profiling.counters()["replays"] - r0 == 10
+    assert launches("composite_seg_fwd") - n0 == 10 + WARMUP_STEPS + 10
     assert (a._gt_bank[1].device.type == "cpu") is (layout == "host_bank")
     for k in FIELD_NAMES:
         assert torch.equal(getattr(a.model, k), getattr(b.model, k)), k
@@ -1010,10 +1020,10 @@ def test_ssim_kernels_match_plain(case):
     dev = _cuda()
     pred, gt, cot = _ssim_inputs(dev, case)
     h = SSIM_CASES[case][0][1]
-    f0, b0 = tl.ssim_fwd.launches, tl.ssim_bwd.launches
+    f0, b0 = launches("ssim_fwd"), launches("ssim_bwd")
     got = _ssim_run(tl.ssim, pred, gt, cot, h)
     torch.cuda.synchronize()
-    assert (tl.ssim_fwd.launches - f0, tl.ssim_bwd.launches - b0) == (3, 3)
+    assert (launches("ssim_fwd") - f0, launches("ssim_bwd") - b0) == (3, 3)
     want = _ssim_run(tl.ssim_plain, pred, gt, cot, h)
     names = ["mean", "map", "grad_mean", "grad_map", "grad_broadcast"]
     for name, a, b in zip(names, got, want):
@@ -1047,10 +1057,10 @@ def test_ssim_row_blocks_kernels_match_plain(case, row0, nrows):
     for rows in (tl.ssim_rows, rows_plain):
         full = pred_full.clone().requires_grad_(True)
         pred, gt = full[:, :h], gt_full[:, :h]
-        f0, b0 = tl.ssim_fwd.launches, tl.ssim_bwd.launches
+        f0, b0 = launches("ssim_fwd"), launches("ssim_bwd")
         blk = rows(pred, gt, row0, nrows, h)
         (g,) = torch.autograd.grad((blk[:, :valid] * cot[:, :valid]).sum(), [full])
-        out.append((blk.detach(), g, tl.ssim_fwd.launches - f0, tl.ssim_bwd.launches - b0))
+        out.append((blk.detach(), g, launches("ssim_fwd") - f0, launches("ssim_bwd") - b0))
     (kb, kg, kf, kbw), (pb, pg, pf, pbw) = out
     assert (kf, kbw, pf, pbw) == (1, 1, 0, 0)
     assert torch.equal(kb, pb) and torch.equal(kg, pg), float((kg - pg).abs().max())
@@ -1210,10 +1220,10 @@ def test_precull_kernel_matches_plain(case):
     in all six outputs, dead rows included; one launch."""
     dev = _cuda()
     prep = _precull_prep(case, dev)
-    before = tbin.precull.launches
+    before = launches("precull")
     got = tbin._precull_masks(prep, GRID[0])
     torch.cuda.synchronize()
-    assert tbin.precull.launches == before + 1
+    assert launches("precull") == before + 1
     want = tbin._precull_masks_plain(prep, GRID[0])
     for name, a, b in zip(PRECULL_OUT, got, want):
         assert a.dtype == torch.int32 and a.shape == b.shape, name
@@ -1236,9 +1246,9 @@ def test_precull_kernel_matches_plain(case):
 def test_precull_kernel_on_no_rows_launches_nothing():
     dev = _cuda()
     prep = _rows_prep(dev, np.zeros((0, 4)), np.zeros((0, 2)), np.zeros((0, 3)), np.zeros(0))
-    before = tbin.precull.launches
+    before = launches("precull")
     out = tbin._precull_masks(prep, GRID[0])
-    assert tbin.precull.launches == before
+    assert launches("precull") == before
     assert all(t.shape == (0,) and t.dtype == torch.int32 for t in out)
 
 
@@ -1256,9 +1266,9 @@ def test_binning_with_precull_kernel_matches_plain_precull(monkeypatch):
         seg = segment_relay(inst.sorted_g, inst.starts, inst.counts, 1 << 22, p, inst.sorted_key)
         return [t for t in (*inst, *seg) if t is not None]
 
-    before = tbin.precull.launches
+    before = launches("precull")
     got = run()
-    assert tbin.precull.launches == before + 1
+    assert launches("precull") == before + 1
     monkeypatch.setattr(tbin, "precull", lambda pr: tbin._precull_masks_plain(pr, GRID[0]))
     want = run()
     assert len(got) == len(want)
@@ -1273,13 +1283,13 @@ def test_render_request_launches_one_precull():
     kernel once."""
     dev = _cuda()
     m = GaussianModel.from_numpy(random_model_np(81, 2048, 1500), device=dev)
-    before = tbin.precull.launches
+    before = launches("precull")
     with torch.inference_mode():
         render_model(m, Camera(CameraType.LONLAT, 256, 128), torch.eye(4, device=dev),
                      torch.zeros(3, device=dev), torch.zeros(3, device=dev), 3,
                      RasterConfig(max_instances=1 << 14, **PROD_KW))
     torch.cuda.synchronize()
-    assert tbin.precull.launches == before + 1
+    assert launches("precull") == before + 1
 
 
 @pytest.mark.gpu

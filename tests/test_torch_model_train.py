@@ -195,7 +195,7 @@ def test_reset_opacity_and_stats_match_jax():
     radii = np.where(rng.uniform(size=48) < 0.5, 0, rng.integers(1, 50, 48)).astype(np.float32)
     jm = jdens.add_densification_stats(_jmodel(f), jnp.asarray(ndc), jnp.asarray(radii))
     tm = tgauss.GaussianModel.from_numpy(f, device="cpu")
-    tdens.add_densification_stats(tm, torch.from_numpy(ndc), torch.from_numpy(radii))
+    tdens.add_densification_stats(tm, [torch.from_numpy(ndc)], [torch.from_numpy(radii)])
     got = tm.to_numpy()
     for k in ("xyz_gradient_accum", "denom", "max_radii2d"):
         np.testing.assert_allclose(got[k], np.asarray(getattr(jm, k)), atol=1e-6, err_msg=k)

@@ -1,8 +1,8 @@
 """The reference's factor, on record (ROADMAP queue 3): JAX's sharded
 training step (`omnigs_tpu/parallel/shard.py::make_sharded_train_step`)
 differentiates the psum'd loss on every gauss shard, so its gradients are
-n_gauss times one device's; the port's sharded step
-(`omnigs_torch/parallel/shard.py`) computes one device's. JAX runs here on
+n_gauss times one device's; the port's step on a mesh
+(`omnigs_torch/train/trainer.py::train_step`) computes one device's. JAX runs here on
 the conftest's eight virtual CPU devices, the port on eight gloo ranks.
 """
 

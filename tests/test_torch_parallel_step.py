@@ -1,5 +1,5 @@
-"""PyTorch port vs JAX reference: the sharded training step
-(`omnigs_torch/parallel/shard.py::sharded_train_step`) on gloo ranks.
+"""PyTorch port vs JAX reference: the training step on a mesh
+(`omnigs_torch/train/trainer.py::train_step` with ``mesh``) on gloo ranks.
 
 The port's contract is one device's gradient: the gradient of the mean
 loss over the step's views, whatever the mesh. Each parameter group's

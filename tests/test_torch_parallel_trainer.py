@@ -67,7 +67,8 @@ def _jax_run(jt, plan):
 def test_parallel_trainer_matches_jax(tmp_path, plan):
     """The trajectories agree at the bars above, JAX's single steps or
     scanned windows (`make_sharded_train_window`) against the port's
-    single steps or windows (`sharded_train_steps_fused`, eager on gloo)."""
+    single steps or windows (`train_steps_fused` on the mesh, eager on
+    gloo)."""
     data = scene_np(0, 64, 32, 4)
     cfg = Config()
     cfg.tpu = dataclasses.replace(cfg.tpu, **TPU, mesh_data=2, mesh_gauss=4, fuse_steps=3)
@@ -109,7 +110,7 @@ def test_parallel_trainer_matches_jax(tmp_path, plan):
 @pytest.mark.parametrize("mesh", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
 def test_parallel_train_window_matches_single_steps(tmp_path, mesh):
     """Windows of `train_window` (ending before every event; the cursor-driven
-    step body of `sharded_train_steps_fused`, run eagerly on gloo) log the
+    step body of `train_steps_fused`, run eagerly on gloo) log the
     single steps' losses and leave the same model, bit for bit, across the
     densify at iteration 8; every rank in lock-step."""
     data = scene_np(9, 32, 16, 3)

@@ -307,7 +307,7 @@ def test_port_imports_no_jax():
         "from omnigs_torch.model.optimizer import LRConfig, init_adam\n"
         "from omnigs_torch.train.trainer import train_step\n"
         "st = init_adam(m.params())\n"
-        "aux = train_step(m, st, torch.eye(4), torch.zeros(3), r.image * 0.5, 1,\n"
+        "aux = train_step(m, st, torch.eye(4)[None], torch.zeros(1, 3), r.image[None] * 0.5, 1,\n"
         "                 camera=Camera(CameraType.LONLAT, 64, 32), sh_degree=3,\n"
         "                 raster_cfg=cfg, lr_cfg=LRConfig(), spatial_lr_scale=1.0,\n"
         "                 bg=torch.zeros(3))\n"

@@ -21,10 +21,9 @@ import torch
 
 from omnigs_torch.cameras import Camera as TCamera
 from omnigs_torch.cameras import CameraType as TCameraType
-from omnigs_torch.ops import composite_seg as tcs
-from omnigs_torch.ops import composite_tile as tct
 from omnigs_torch.ops.rasterize import RasterConfig as TRasterConfig
 from omnigs_torch.ops.rasterize import rasterize as trasterize
+from omnigs_torch.utils import profiling
 from omnigs_tpu.cameras import Camera, CameraType
 from omnigs_tpu.ops.rasterize import RasterConfig as JRasterConfig
 from omnigs_tpu.ops.rasterize import rasterize as jrasterize
@@ -91,9 +90,7 @@ def test_rasterize_layout_matches_jax(layout):
         *[jnp.asarray(a) for a in arrays], jnp.asarray(ndc)
     )
     leaves = [torch.from_numpy(np.array(a)).requires_grad_(True) for a in arrays + [ndc]]
-    counters = (tcs.composite_seg_fwd, tcs.composite_seg_bwd, tct.composite_tile_fwd,
-                tct.composite_tile_bwd, tct.composite_tile_bwd_fused)
-    before = [k.launches for k in counters]
+    before = profiling.counters()["launches"]
     res_t = trasterize(
         *leaves[:5], camera=TCamera(TCameraType.LONLAT, W, H),
         viewmatrix=torch.from_numpy(vm), campos=torch.from_numpy(campos),
@@ -102,7 +99,7 @@ def test_rasterize_layout_matches_jax(layout):
     )
     loss = torch.sum(res_t.image * torch.from_numpy(_weights(tuple(res_t.image.shape))))
     grads_t = torch.autograd.grad(loss, leaves)
-    assert [k.launches for k in counters] == before  # CPU: plain versions
+    assert profiling.counters()["launches"] == before  # CPU: plain versions
     np.testing.assert_allclose(res_t.image.detach().numpy(), np.asarray(res_j.image), atol=1e-5)
     np.testing.assert_allclose(res_t.final_T.numpy(), np.asarray(res_j.final_T), atol=1e-5)
     np.testing.assert_array_equal(res_t.n_contrib.numpy(), np.asarray(res_j.n_contrib))

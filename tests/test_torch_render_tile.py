@@ -22,7 +22,6 @@ from omnigs_torch.cameras import Camera as TCamera
 from omnigs_torch.cameras import CameraType as TCameraType
 from omnigs_torch.model import optimizer as topt
 from omnigs_torch.model.gaussians import GaussianModel as TModel
-from omnigs_torch.ops import composite_tile as tct
 from omnigs_torch.ops.rasterize import RasterConfig as TRasterConfig
 from omnigs_torch.ops.rasterize import rasterize as trasterize
 from omnigs_torch.train import trainer as ttrainer
@@ -33,7 +32,7 @@ from omnigs_tpu.ops.rasterize import RasterConfig as JRasterConfig
 from omnigs_tpu.ops.rasterize import rasterize as jrasterize
 from omnigs_tpu.train import trainer as jtrainer
 
-from torch_helpers import PROD_KW, random_cloud_np, random_model_np
+from torch_helpers import PROD_KW, launches, random_cloud_np, random_model_np
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN_DIR = Path(__file__).resolve().parent / "goldens"
@@ -203,13 +202,13 @@ def test_train_step_matches_jax():
         camera=Camera(CameraType.LONLAT, W2, H2), raster_cfg=j_cfg,
         lr_cfg=jopt.LRConfig(), bg=jnp.zeros(3), **kw,
     )
-    before = (tct.composite_tile_fwd.launches, tct.composite_tile_bwd.launches)
+    before = (launches("composite_tile_fwd"), launches("composite_tile_bwd"))
     taux = ttrainer.train_step(
-        tm, tstate, torch.from_numpy(vm), torch.from_numpy(campos),
-        torch.from_numpy(gt), 5, camera=TCamera(TCameraType.LONLAT, W2, H2),
+        tm, tstate, torch.from_numpy(vm)[None], torch.from_numpy(campos)[None],
+        torch.from_numpy(gt)[None], 5, camera=TCamera(TCameraType.LONLAT, W2, H2),
         raster_cfg=t_cfg, lr_cfg=lr_cfg, bg=torch.zeros(3), **kw,
     )
-    assert (tct.composite_tile_fwd.launches, tct.composite_tile_bwd.launches) == before
+    assert (launches("composite_tile_fwd"), launches("composite_tile_bwd")) == before
     np.testing.assert_allclose(float(taux["loss"]), float(jaux["loss"]), rtol=1e-5)
     assert int(taux["truncated"]) == int(jaux["truncated"]) == 0
     ndc_ref = np.asarray(jm.xyz_gradient_accum)

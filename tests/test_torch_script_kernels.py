@@ -36,7 +36,7 @@ from omnigs_torch.scripts import bucket_emit_bench as tbe
 from omnigs_torch.scripts import kernel_ablate as tka
 from omnigs_torch.scripts import reduce_bench as trb
 
-from torch_helpers import ablate_slab_np
+from torch_helpers import ablate_slab_np, launches
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -75,9 +75,9 @@ def test_reduce_accum_plain_matches_tpu_kernel(jscripts):
         ],
         interpret=True,
     )(jnp.asarray(ids[None, :live]), jnp.asarray(rows[:, :live]))
-    before = trb.reduce_accum.launches
+    before = launches("reduce_accum")
     got = trb.reduce_accum(torch.from_numpy(ids[:live]), torch.from_numpy(rows), p)
-    assert trb.reduce_accum.launches == before  # the CPU runs the plain version
+    assert launches("reduce_accum") == before  # the CPU runs the plain version
     assert got.shape == (16, p)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
     exact = np.zeros((16, p))
@@ -215,7 +215,7 @@ def test_kernel_ablate_plain_matches_tpu_kernel(jscripts, mode):
 def test_script_mains_on_cpu():
     """Each script's `main` at a small size with ``--device cpu``: the
     plain versions run (no launch is counted) and the strategies agree."""
-    before = (trb.reduce_accum.launches, tbe.bucket_emit.launches, tka.kernel_ablate.launches)
+    before = (launches("reduce_accum"), launches("bucket_emit"), launches("kernel_ablate"))
     r = trb.main(["4096", "512", "--device", "cpu", "--reps", "1"])
     assert r["live"] == int(4096 * 0.92) // 128 * 128
     assert r["reduce_accum"]["max_abs_err"] <= 1e-5 and r["sort"]["max_abs_err"] <= 1e-4
@@ -225,8 +225,8 @@ def test_script_mains_on_cpu():
                   "--max-instances", "4096", "--cap", "2048", "--reps", "1"])
     assert set(a["ms"]) == set(tka.MODES) and a["instances"] > 0
     assert a["full_vs_tile_fwd_max_abs"] <= 1e-4
-    assert (trb.reduce_accum.launches, tbe.bucket_emit.launches,
-            tka.kernel_ablate.launches) == before
+    assert (launches("reduce_accum"), launches("bucket_emit"),
+            launches("kernel_ablate")) == before
 
 
 def test_new_modules_import_no_jax():

@@ -1,20 +1,27 @@
 """The sharded training window's capture key and the staged index of the
-windows (omnigs_torch/parallel/shard.py `sharded_train_steps_fused`,
-omnigs_torch/train/trainer.py `capture_key`, `window_index`, `StepGraph`).
+windows (omnigs_torch/train/trainer.py `train_steps_fused` on a mesh,
+`capture_key`, `window_index`, `StepGraph`), and the layering of the
+port's multi-device code.
 
 The windows themselves are held against JAX's `ParallelTrainer.train_window`
 and against single steps in tests/test_torch_parallel_trainer.py; on the
 card, the captured window against eager iterations in
 tests/test_torch_kernels_gpu.py. Here: the key of a sharded window changes
-with what a captured sharded step bakes in (its views a rank, the mesh's
-shape, the SH degree, λ, the banks' addresses) and stays through a densify
-and an opacity reset, which write in place; the `Trainer`'s staged index
-keeps its (k, 3) layout and its CPU window captures nothing."""
+with what a captured sharded step bakes in (the mesh's shape, the SH
+degree, λ, the banks' addresses), a step of more views a rank takes new
+buffers, and the key stays through a densify and an opacity reset, which
+write in place; the `Trainer`'s staged index keeps its (k, 3) layout and
+its CPU window captures nothing; `omnigs_torch/parallel/` imports nothing
+of `omnigs_torch/train/`."""
+
+import ast
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from omnigs_torch.train import trainer as ttrainer
+from omnigs_torch.utils import profiling
 
 from test_torch_trainer_window import _port_trainer
 from torch_parallel_workers import capture_key_worker, run_ranks, scene_np
@@ -52,8 +59,32 @@ def test_trainer_cpu_window_captures_nothing():
     empty, and the bank rows it took are the keyframes the sampler drew."""
     tr = _port_trainer(3, densify_from_iter=100, densification_interval=100,
                        densify_until_iter=500, opacity_reset_interval=0)
+    replays = profiling.counters()["replays"]
     assert tr.train_window(4) == 4
     g = tr.step_graph
-    assert g.graph is None and g.rows is None and g.captures == g.replays == 0
+    assert g.graph is None and g.rows is None and g.captures == 0
+    assert profiling.counters()["replays"] == replays
     assert tr._pending_losses[0][0].shape == (4,)
     assert bool(torch.isfinite(tr._pending_losses[0][0]).all())
+
+
+def test_parallel_imports_nothing_of_train():
+    """Every import of every module under omnigs_torch/parallel/ (at any
+    depth of the module) names no module of omnigs_torch.train: the
+    training layer calls the mesh's code, never the other way round."""
+    root = Path(__file__).resolve().parents[1] / "omnigs_torch" / "parallel"
+    found = []
+    for path in sorted(root.glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                # a relative import names its package from omnigs_torch.parallel up
+                pkg = ["omnigs_torch", "parallel"][: 3 - node.level] if node.level else []
+                base = ".".join(pkg + ([node.module] if node.module else []))
+                names = [base] + [f"{base}.{a.name}" for a in node.names]
+            else:
+                continue
+            found += [(path.name, n) for n in names
+                      if n == "omnigs_torch.train" or n.startswith("omnigs_torch.train.")]
+    assert sorted(root.glob("*.py")) and not found, found

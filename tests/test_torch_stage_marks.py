@@ -27,7 +27,7 @@ from omnigs_torch.train import trainer as ttrainer
 from omnigs_torch.train.renderer import render_model
 from omnigs_torch.utils import profiling
 
-from torch_helpers import PROD_KW, random_model_np
+from torch_helpers import PROD_KW, random_model_np, window_key
 
 W, H = 64, 32
 # an eager step's marks: the render's, closed by its end, then the step's
@@ -156,8 +156,7 @@ def test_marks_off_record_nothing_and_change_no_bit():
             assert tr.train_window(2) == 2
             tr.train_iteration()
             totals = profiling.stage_totals()
-            banks, mask, kw = tr._window_inputs(1)
-            key = ttrainer.capture_key(tr.model, tr.opt_state, *banks, mask, **kw)
+            key = window_key(tr)
         finally:
             profiling.set_marks(True)
         losses = torch.cat([x.reshape(-1) for x, _, _ in tr._pending_losses])
@@ -175,8 +174,8 @@ def test_counters_count_bank_builds_waits_and_the_log():
     count's host waits, and the log line's stages and counters."""
     profiling.reset_counters()
     tr = _trainer()
-    tr._ensure_banks()
-    tr._ensure_banks()
+    tr._bank_rows([])
+    tr._bank_rows([])
     assert profiling.counters()["bank_builds"] == 1
     tr.train_window(2)
     tr.train_iteration()
@@ -227,21 +226,46 @@ def test_trace_line_prints_each_counter_and_wait_site_since_the_last():
 
 
 def test_trace_line_prints_the_step_kernels_launches():
-    """The launches since the last line of each STEP_KERNELS wrapper that
+    """The launches since the last line of each kernel wrapper that
     launched follow the counters (on the CPU none launches, and the line is
     the one of before)."""
+    profiling.reset_counters()
     tr = _trainer()
     tr.trace_line()
+    tr.train_window(2)
+    tr.train_iteration()
     assert " launches " not in tr.trace_line()
-    binning, loss_ops = ttrainer.binning, ttrainer.loss_ops
-    binning.precull.launches += 3
-    loss_ops.ssim_fwd.launches += 2
-    try:
-        line = tr.trace_line()
-    finally:
-        binning.precull.launches -= 3
-        loss_ops.ssim_fwd.launches -= 2
+    for name, n in (("precull", 3), ("ssim_fwd", 2)):
+        for _ in range(n):
+            profiling.count_launch(name)
+    line = tr.trace_line()
     assert " bank_builds=0 launches precull=3 ssim_fwd=2 | replay_queue=" in line, line
+    assert profiling.counters()["launches"] == {"precull": 3, "ssim_fwd": 2}
+    profiling.reset_counters()
+
+
+def test_held_counts_are_taken_back_and_added_each_replay():
+    """What a block counts under `held_counts` (launches and collectives
+    alike) leaves the totals, and each `add_counts` adds it again, as a
+    captured graph's capture and replays count."""
+    profiling.reset_counters()
+    profiling.count_launch("precull")
+    with profiling.held_counts() as held:
+        for name in ("precull", "ssim_fwd"):
+            profiling.count_launch(name)
+        profiling.count("collectives", 2)
+        profiling.count("allreduce_bytes", 64)
+    got = profiling.counters()
+    assert got["launches"] == {"precull": 1}
+    assert got["collectives"] == got["allreduce_bytes"] == 0
+    assert dict(held) == {("launch", "precull"): 1, ("launch", "ssim_fwd"): 1,
+                          ("count", "collectives"): 2, ("count", "allreduce_bytes"): 64}
+    for _ in range(3):
+        profiling.add_counts(held)
+    got = profiling.counters()
+    assert got["launches"] == {"precull": 4, "ssim_fwd": 3}
+    assert (got["collectives"], got["allreduce_bytes"]) == (6, 192)
+    profiling.reset_counters()
 
 
 def test_collectives_count_on_a_mesh_only():
@@ -269,8 +293,7 @@ def test_capture_reason_names_the_changed_field(field):
     capture; no change and a key kept across `StepGraph.reserve`'s new
     buffers read as ``buffers``."""
     tr = _trainer()
-    banks, mask, kw = tr._window_inputs(1)
-    key = ttrainer.capture_key(tr.model, tr.opt_state, *banks, mask, **kw)
+    key = window_key(tr)
     changed = key._replace(**{field: ("changed",)})
     assert ttrainer.capture_reason(key, changed) == field
     assert ttrainer.capture_reason(None, changed) == "first"

@@ -138,8 +138,8 @@ def test_train_step_matches_jax():
         lr_cfg=jt.lr_cfg, bg=jnp.zeros(3), **kw,
     )
     taux = ttrainer.train_step(
-        tm, tstate, torch.from_numpy(vm), torch.from_numpy(campos),
-        torch.from_numpy(np.ascontiguousarray(gt)), 5,
+        tm, tstate, torch.from_numpy(vm)[None], torch.from_numpy(campos)[None],
+        torch.from_numpy(np.ascontiguousarray(gt))[None], 5,
         camera=TCamera(TCameraType.LONLAT, W, H), raster_cfg=tt.raster_cfg,
         lr_cfg=tt.lr_cfg, bg=torch.zeros(3), **kw,
     )

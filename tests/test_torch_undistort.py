@@ -142,8 +142,8 @@ def test_train_step_applies_mask():
     def step(m):
         model = TModel.from_numpy(fields, device="cpu")
         return float(ttrainer.train_step(
-            model, topt.init_adam(model.params()), torch.eye(4), torch.zeros(3),
-            torch.from_numpy(gt), 1, None if m is None else torch.from_numpy(m), **kw,
+            model, topt.init_adam(model.params()), torch.eye(4)[None], torch.zeros(1, 3),
+            torch.from_numpy(gt)[None], 1, None if m is None else torch.from_numpy(m), **kw,
         )["loss"])
 
     with torch.inference_mode():

@@ -12,6 +12,31 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from omnigs_torch.utils import profiling
+
+
+def launches(*wrappers):
+    """The launches so far of the kernel behind each of ``wrappers`` (the
+    wrappers' names, `utils.profiling.counters`): a count, or a tuple of
+    them."""
+    got = profiling.counters()["launches"]
+    counts = tuple(got.get(w, 0) for w in wrappers)
+    return counts[0] if len(wrappers) == 1 else counts
+
+
+def window_key(tr, k=1, **changes):
+    """The `capture_key` of a window of ``k`` steps from the trainer's state,
+    as `train_steps_fused` builds it for `Trainer.train_window` (``changes``:
+    keywords of `capture_key` to replace)."""
+    from omnigs_torch.train.trainer import capture_key
+
+    _, vms, cps = tr._pose_bank()
+    tr._bank_rows([])
+    kw = dict(tr._step_kwargs(tr.camera, tr._schedule(tr.iteration + k)[0]), mesh=tr.mesh)
+    kw.update(changes)
+    return capture_key(tr.model, tr.opt_state, vms, cps, tr._gt_bank[1], tr._mask(tr.camera),
+                       **kw)
+
 
 def random_cloud_np(seed, n, spread=4.0, n_sh=16, min_r=1.0, scale_mu=-1.5):
     """Random valid Gaussians around the origin, activated parameters

@@ -166,7 +166,7 @@ def render_worker(rank, data, gauss, fields, wh, vm, campos, bg, sh_degree, cfgs
 
 
 def step_worker(rank, data, gauss, fields, wh, views, cfg_kw, step_kw):
-    """One `sharded_train_step` (Adam on, step 1) of this rank's views
+    """One `train_step` on the mesh (Adam on, step 1) of this rank's views
     ``views[d·V:(d+1)·V]`` → the loss, the gathered Adam first moments
     (0.1 × the gradient) and statistics, on every rank."""
     from omnigs_torch.cameras import Camera, CameraType
@@ -174,7 +174,7 @@ def step_worker(rank, data, gauss, fields, wh, views, cfg_kw, step_kw):
     from omnigs_torch.ops.rasterize import RasterConfig
     from omnigs_torch.parallel.distributed import local_data_rows
     from omnigs_torch.parallel.mesh import make_mesh
-    from omnigs_torch.parallel.shard import sharded_train_step
+    from omnigs_torch.train.trainer import train_step
 
     mesh = make_mesh(data, gauss)
     model = _model(fields, mesh)
@@ -182,8 +182,8 @@ def step_worker(rank, data, gauss, fields, wh, views, cfg_kw, step_kw):
     per = len(views) // data
     mine = [views[d * per + v] for d in local_data_rows(mesh) for v in range(per)]
     vms, cps, gts = (torch.as_tensor(np.stack([v[i] for v in mine])) for i in range(3))
-    aux = sharded_train_step(
-        mesh, model, state, vms, cps, gts, 1,
+    aux = train_step(
+        model, state, vms, cps, gts, 1, mesh=mesh,
         camera=Camera(CameraType.LONLAT, *wh), raster_cfg=RasterConfig(**cfg_kw),
         lr_cfg=opt_ops.LRConfig(), bg=torch.zeros(3), **step_kw,
     )
@@ -303,26 +303,30 @@ def load_worker(rank, scene_np, tpu, opt, ckpt):
 
 def capture_key_worker(rank, scene_np, tpu, opt):
     """The capture key of a (2, 1) `ParallelTrainer`'s sharded window (as
-    `sharded_train_steps_fused` builds it) before and after what a step
-    bakes in changes → which changes moved the key."""
+    `train_steps_fused` builds it) before and after what a step bakes in
+    changes → which changes moved the key; whether a `StepGraph` reserved
+    for a step of one view a rank drops its graph for two."""
     from omnigs_torch.model import densify as densify_ops
     from omnigs_torch.parallel.mesh import make_mesh
     from omnigs_torch.parallel.shard import sharded_densify
-    from omnigs_torch.train.trainer import capture_key
+    from omnigs_torch.train.trainer import StepGraph
     from omnigs_torch.train.trainer_parallel import ParallelTrainer
+
+    from torch_helpers import window_key
 
     tr = ParallelTrainer(_scene(scene_np), _config(tpu, opt), seed=0, device="cpu")
     tr.init_from_sfm()
 
-    def key(mesh=None, views=1):
-        _, vms, cps = tr._pose_bank()
-        kw = tr._step_kwargs(tr.camera, True)
-        return capture_key(tr.model, tr.opt_state, vms, cps, tr._gt_bank[1], None,
-                           mesh=tr.mesh if mesh is None else mesh, views=views, **kw)
+    def key(**changes):
+        return window_key(tr, **changes)
 
     assert tr.train_window(1) == 1
     k0 = key()
-    out = dict(same=key() == k0, views=key(views=2) != k0,
+    g = StepGraph()
+    g.reserve("cpu", 2, 3)
+    g.graph = object()
+    g.reserve("cpu", 2, 5)
+    out = dict(same=key() == k0, views=g.graph is None,
                mesh=key(mesh=make_mesh(1, 2)) != k0)
     it = tr.iteration
     tr.iteration = 1000
@@ -409,7 +413,7 @@ def dp_worker(rank, scene_np, tpu, opt, seed, start, fields):
 
 
 def collective_worker(rank, fields, wh, views, cfg_kw, step_kw):
-    """One `sharded_train_step` on this rank's view of a (world, 1) mesh
+    """One `train_step` on this rank's view of a (world, 1) mesh
     under the counters → the collectives it ran and the bytes by kind."""
     from omnigs_torch.utils import profiling
 

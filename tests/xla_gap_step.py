@@ -101,8 +101,8 @@ def port_step(fields, dtype, camera, vm, campos, gt):
     m = TModel.from_numpy(wide, device="cpu")
     st = topt.init_adam(m.params())
     aux = ttrainer.train_step(
-        m, st, torch.from_numpy(vm).to(dtype), torch.from_numpy(campos).to(dtype),
-        torch.from_numpy(gt).to(dtype), STEP, camera=camera, sh_degree=SH_DEGREE,
+        m, st, torch.from_numpy(vm).to(dtype)[None], torch.from_numpy(campos).to(dtype)[None],
+        torch.from_numpy(gt).to(dtype)[None], STEP, camera=camera, sh_degree=SH_DEGREE,
         raster_cfg=TRasterConfig(max_instances=MAX_INSTANCES, **XLA_KW),
         lr_cfg=topt.LRConfig(), spatial_lr_scale=1.0, bg=torch.zeros(3, dtype=dtype),
     )
