@@ -53,9 +53,12 @@ script exits non-zero:
    `_precull_masks_plain` bit for bit in its six outputs, at the training
    step's P = 524,288 (three quarters of the rows dead) and at the render's
    P = 131,072: ms of the kernel and of the plain version, the bytes bound,
-   the kernel's ptxas report. The render, train, window_graph and
-   parallel_window phases hold it to one launch a request or a step; the
-   `kernels` entry `precull` counts it by phase.
+   the kernel's ptxas report; then, on the same rows and masks, the packed
+   layout's expansion (`csrc/expand_keys.cu`) against `_expand_keys_plain`
+   at the YAML's 2^22 slots: keys bit for bit, ms of both, the bytes bound,
+   ptxas. The render, train, window_graph and parallel_window phases hold
+   each to one launch a request or a step; the `kernels` entries `precull`
+   and `expand_keys` count them by phase.
 5. render — four serving requests through `render_model` with the
    production config of cfg/lonlat/360roam_lonlat.yaml under
    `torch.inference_mode()`, with the launch counters set to 0 just before
@@ -339,6 +342,12 @@ SSIM_OPS_PER_PIXEL = (138 * 42 / 32 + 105 + 33) + (4 * 42 * 42 / 1024 + 63 * 42 
 # and writes (six int32)
 PRECULL_CAPACITY = 1 << 19
 PRECULL_BYTES_PER_ROW = 44 + 24
+# the expansion on those rows: the YAML's instance slots, the key written a
+# slot, and the row an emitting rank reads (offset, perm, rect, the mask's
+# five ints, means2d, conic, opacity)
+EXPAND_SLOTS = 1 << 22
+EXPAND_BYTES_PER_SLOT = 8
+EXPAND_BYTES_PER_ROW = 4 + 4 + 16 + 20 + 8 + 12 + 4
 # reductions of the same rows in another order (tests/test_gather_reduce.py)
 REDUCE_RTOL = 2e-3
 REDUCE_ATOL = 1e-4
@@ -935,13 +944,15 @@ def precull_phase(torch, model, camera, pose, cfg, ptxas):
     version `_precull_masks_plain` on the card, bit for bit in all six
     outputs, at the training step's P = 524,288 (the render model's rows
     live, three quarters dead as a Trainer's empty capacity slots) and at the
-    render's P = 131,072: ms of each, the bytes bound, the rows' make-up, the
-    kernel's ptxas report (registers, no stack or spills)."""
+    render's P = 131,072: ms of each, the bytes bound, the rows' make-up; and
+    the expansion (`csrc/expand_keys.cu`) from those masks at 2^22 slots
+    against `_expand_keys_plain`, keys bit for bit, ms of both, the bytes
+    bound. ``ptxas``: each kernel's report (registers, no stack or spills)."""
     from omnigs_torch.ops import binning
     from omnigs_torch.ops.preprocess import preprocess, tile_grid
 
     vm, campos = pose
-    gx, _ = tile_grid(camera)
+    gx, gy = tile_grid(camera)
     live = model.xyz.shape[0]
     pad = PRECULL_CAPACITY - live
     quat = torch.zeros(pad, 4, device="cuda")
@@ -986,11 +997,34 @@ def precull_phase(torch, model, camera, pose, cfg, ptxas):
                 "bytes": PRECULL_BYTES_PER_ROW * p,
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
+            # the packed layout's expansion of these rows, as bin_instances_packed
+            # runs it: the depth order, the budget and its offsets in that order
+            perm, tiles_d, offsets_d = binning._depth_ranks(prep.depths, got[2])
+            args = (prep, (got[0], got[1], got[3], got[4], got[5]), perm, tiles_d, offsets_d,
+                    EXPAND_SLOTS, gx, gx * gy)
+            before = launch_count("expand_keys")
+            keys = binning._packed_keys(*args)
+            launches = launch_count("expand_keys") - before
+            nbytes = (EXPAND_BYTES_PER_SLOT * EXPAND_SLOTS
+                      + EXPAND_BYTES_PER_ROW * int((tiles_d > 0).sum()))
+            bound_ms, bound_by = _bound(0, nbytes)
+            line[name]["expand"] = {
+                "slots": EXPAND_SLOTS,
+                "emitted": int(offsets_d[-1] + tiles_d[-1]),
+                "kept": int(((keys >> binning.RANK_BITS) < gx * gy).sum()),
+                "launches": launches,
+                "bitwise_equal_plain": bool(torch.equal(keys, binning._expand_keys_plain(*args))),
+                "kernel_ms": time_ms(torch, lambda: binning.expand_keys(*args), reps=50),
+                "plain_ms": time_ms(torch, lambda: binning._expand_keys_plain(*args),
+                                    reps=5, warmup=1),
+                "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+            }
     emit(line)
     bad = [n for n in preps if line[n]["launches"] != 1
-           or not all(line[n]["bitwise_equal_plain"].values())]
+           or not all(line[n]["bitwise_equal_plain"].values())
+           or line[n]["expand"]["launches"] != 1 or not line[n]["expand"]["bitwise_equal_plain"]]
     if bad:
-        raise RuntimeError(f"precull: the kernel off its plain version or not launched once "
+        raise RuntimeError(f"precull: a kernel off its plain version or not launched once "
                            f"in {bad}: {line}")
     return line
 
@@ -1008,10 +1042,10 @@ def render_phase(torch, model, camera, pose_list, cfg):
     images = []
     torch.cuda.reset_peak_memory_stats()
     reset_launches("composite_seg_fwd")
-    culls = launch_count("precull")
+    culls, expands = launch_count("precull"), launch_count("expand_keys")
     for k, (vm, campos) in enumerate(pose_list):
         before = launch_count("composite_seg_fwd")
-        cull0 = launch_count("precull")
+        cull0, expand0 = launch_count("precull"), launch_count("expand_keys")
         t0 = time.perf_counter()
         with torch.inference_mode():
             res = render_model(model, camera, vm, campos, bg, SH_DEGREE, cfg)
@@ -1027,6 +1061,7 @@ def render_phase(torch, model, camera, pose_list, cfg):
             "truncated": int(res.truncated),
             "kernel_launches": launch_count("composite_seg_fwd") - before,
             "precull_launches": launch_count("precull") - cull0,
+            "expand_launches": launch_count("expand_keys") - expand0,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "image_min": float(img.min()),
             "image_mean": float(img.mean()),
@@ -1041,10 +1076,11 @@ def render_phase(torch, model, camera, pose_list, cfg):
         images.append(res)
     launches = launch_count("composite_seg_fwd")
     culls = launch_count("precull") - culls
-    if launches != len(pose_list) or culls != len(pose_list):
+    expands = launch_count("expand_keys") - expands
+    if launches != len(pose_list) or culls != len(pose_list) or expands != len(pose_list):
         raise RuntimeError(
-            f"composite_seg_fwd launched {launches} times and precull {culls} times in "
-            f"{len(pose_list)} requests"
+            f"composite_seg_fwd launched {launches} times, precull {culls} times and "
+            f"expand_keys {expands} times in {len(pose_list)} requests"
         )
     return images, launches
 
@@ -1188,7 +1224,7 @@ def train_phase(torch, scene, device):
         for _ in range(TRAIN_ITERS):
             fwd0, bwd0 = launch_count("composite_seg_fwd"), launch_count("composite_seg_bwd")
             ssim0 = (launch_count("ssim_fwd"), launch_count("ssim_bwd"))
-            cull0 = launch_count("precull")
+            cull0, expand0 = launch_count("precull"), launch_count("expand_keys")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             aux = tr.train_iteration()
@@ -1206,6 +1242,7 @@ def train_phase(torch, scene, device):
                 "ssim_launches": [launch_count("ssim_fwd") - ssim0[0],
                                   launch_count("ssim_bwd") - ssim0[1]],
                 "precull_launches": launch_count("precull") - cull0,
+                "expand_launches": launch_count("expand_keys") - expand0,
                 "densified": densified[-1] if tr.iteration % DENSIFY_EVERY == 0
                 and densified else None,
             }
@@ -1235,7 +1272,7 @@ def train_phase(torch, scene, device):
     if any(x["truncated"] for x in lines) or tr.total_truncated:
         raise RuntimeError("training truncated instances")
     if any(x["bwd_launches"] != 1 or x["fwd_launches"] < 1 or x["ssim_launches"] != [1, 1]
-           or x["precull_launches"] != 1 for x in lines):
+           or x["precull_launches"] != 1 or x["expand_launches"] != 1 for x in lines):
         raise RuntimeError("a training iteration skipped a kernel")
     if launches["composite_seg_bwd"] != TRAIN_ITERS or len(densified) != 3:
         raise RuntimeError(f"launches {launches}, densify ran {len(densified)} times")
@@ -2000,7 +2037,7 @@ def tile_gather_phase(torch, model, camera, pose_list, cfg):
 KERNEL_WRAPPERS = (
     "composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd", "composite_tile_bwd",
     "composite_tile_bwd_fused", "reduce_accum", "bucket_emit", "kernel_ablate", "ssim_fwd",
-    "ssim_bwd", "precull",
+    "ssim_bwd", "precull", "expand_keys",
 )
 # each wrapper's run-wide launches at its last `reset_launches`
 _LAUNCH_BASE = {}
@@ -2054,9 +2091,10 @@ SSIM_STEP = {"ssim_fwd": 1, "ssim_bwd": 1}
 def _only(counts, expected):
     """True when exactly the kernels of ``expected`` launched, that often.
     The binning's pre-cull (``precull``, once wherever a layout bins with
-    the tile cull) is held only where ``expected`` names it."""
+    the tile cull) and the packed layout's expansion (``expand_keys``) are
+    held only where ``expected`` names them."""
     return all(counts[k] == expected.get(k, 0) for k in counts
-               if k != "precull" or k in expected)
+               if k not in ("precull", "expand_keys") or k in expected)
 
 
 def _requests(torch, model, camera, pose_list, cfg, seg_renders, phase, n=None):
@@ -3920,7 +3958,7 @@ def window_graph_phase(torch, np, make_train_scene):
         return tr
 
     total = {k: 0 for k in ("composite_seg_fwd", "composite_seg_bwd", "ssim_fwd", "ssim_bwd",
-                            "precull")}
+                            "precull", "expand_keys")}
     for name, make in (("train", train_trainer), ("cli_full", cli_trainer)):
         tr = make()
         ckpt = CLI_DIR / f"window_graph_{name}.pt"
@@ -3991,7 +4029,7 @@ def window_graph_phase(torch, np, make_train_scene):
                 "live_gaussians": int(tr.model.num_active)}
         emit(line)
         steps = {k: WINDOW_STEPS for k in ("composite_seg_fwd", "composite_seg_bwd",
-                                           "ssim_fwd", "ssim_bwd", "precull")}
+                                           "ssim_fwd", "ssim_bwd", "precull", "expand_keys")}
         warm = {k: WINDOW_STEPS + WARMUP_STEPS for k in steps}
         if syncs:
             raise RuntimeError(f"window_graph {name}: synchronizing calls in a step: {syncs}")
@@ -4271,7 +4309,7 @@ def parallel_window_phase(torch, np, scene):
     }
     emit(line)
     steps = {k: WINDOW_STEPS for k in ("composite_seg_fwd", "composite_seg_bwd",
-                                       "ssim_fwd", "ssim_bwd", "precull")}
+                                       "ssim_fwd", "ssim_bwd", "precull", "expand_keys")}
     warm = {k: WINDOW_STEPS + WARMUP_STEPS for k in steps}
     if syncs:
         raise RuntimeError(f"parallel_window: synchronizing calls in an iteration: {syncs}")
@@ -4791,15 +4829,16 @@ def main() -> int:
 
     sources = ["composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
                "composite_tile_bwd", "reduce_accum", "bucket_emit", "kernel_ablate", "ssim",
-               "precull"]
+               "precull", "expand_keys"]
     t0 = time.perf_counter()
     cuda_build.build(sources)  # one nvcc per source, all in parallel
     report = {k: cuda_build.BUILD_REPORT.get(k, "cached") for k in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "report": report})
     # kernels #1-#4, #5 (which shares #4's source), #6's two kernels, #8's
-    # six modes, the loss's SSIM kernels and the binning's pre-cull
+    # six modes, the loss's SSIM kernels, the binning's pre-cull and expansion
     for k in ("composite_seg_fwd", "composite_seg_bwd", "composite_tile_fwd",
-              "composite_tile_bwd", "reduce_accum", "kernel_ablate", "ssim", "precull"):
+              "composite_tile_bwd", "reduce_accum", "kernel_ablate", "ssim", "precull",
+              "expand_keys"):
         if report[k] != "cached" and not ptxas_clean(report[k]["ptxas"]):
             raise RuntimeError(f"{k}: ptxas reports stack or spills: {report[k]['ptxas']}")
     emit({"phase": "ptxas", **{
@@ -4810,7 +4849,8 @@ def main() -> int:
                           ("reduce_accum", "reduce_transpose_kernel"),
                           ("kernel_ablate", "kernel_ablate_kernel"),
                           ("ssim", "ssim_fwd_kernel"), ("ssim", "ssim_bwd_kernel"),
-                          ("precull", "precull_kernel"))}})
+                          ("precull", "precull_kernel"),
+                          ("expand_keys", "expand_keys_kernel"))}})
 
     cfg = raster_config_from(load_config(CONFIG))
     camera = Camera(CameraType.LONLAT, WIDTH, HEIGHT)
@@ -4822,9 +4862,10 @@ def main() -> int:
     seg_compare_phase(torch, slab_data, kres, gres, grad_inputs)
     del slab_data, grad_inputs
     sres = ssim_phase(torch)
-    pres = precull_phase(torch, model, camera, pose_list[0], cfg,
-                         ptxas_of(report["precull"]["ptxas"], "precull_kernel")
-                         if report["precull"] != "cached" else "cached")
+    pres = precull_phase(torch, model, camera, pose_list[0], cfg, {
+        k: ptxas_of(report[k]["ptxas"], kernel) if report[k] != "cached" else "cached"
+        for k, kernel in (("precull", "precull_kernel"),
+                          ("expand_keys", "expand_keys_kernel"))})
     stage_phase(torch, model, camera, pose_list[0], cfg)
     renders, render_launches = render_phase(torch, model, camera, pose_list, cfg)
     ply_phase(torch, model, camera, pose_list[0], cfg, renders[0].image)
@@ -4954,6 +4995,19 @@ def main() -> int:
         name: d.get("precull", 0) for name, d in (
             ("precull", {"precull": sum(pres[n]["launches"] for n in ("train", "render"))}),
             ("render", {"precull": N_REQUESTS}), ("train", train_launches),
+            ("window_graph", window_launches), ("trace", trace_launches),
+            ("cli", cli_launches), ("pinhole", pinhole_launches),
+            ("pyramid", pyramid_launches), ("live_viewer", live_launches),
+            ("parallel", par_launches), ("parallel_window", pwin_launches),
+            ("parallel_pair", pair_launches), ("scaling", scaling_launches))}
+    # the packed layout's expansion: once a request or a step wherever the
+    # packed layout bins (the production layout of every phase that trains
+    # or renders)
+    expand_by_phase = {
+        name: d.get("expand_keys", 0) for name, d in (
+            ("precull", {"expand_keys": sum(pres[n]["expand"]["launches"]
+                                            for n in ("train", "render"))}),
+            ("render", {"expand_keys": N_REQUESTS}), ("train", train_launches),
             ("window_graph", window_launches), ("trace", trace_launches),
             ("cli", cli_launches), ("pinhole", pinhole_launches),
             ("pyramid", pyramid_launches), ("live_viewer", live_launches),
@@ -5200,6 +5254,28 @@ def main() -> int:
             "bound_ms": pres["train"]["bound_ms"],
             "bound_by": pres["train"]["bound_by"],
             # no single PyTorch call culls a rect's blocks against an ellipse
+            "library_ms": None,
+        },
+        {
+            # expand_keys_kernel: the packed binning's expansion, every
+            # emission slot's sort key, once a training step or a render request
+            "name": "expand_keys",
+            "route": "cuda",
+            "source": "omnigs_torch/csrc/expand_keys.cu",
+            # replaces no TPU kernel: the JAX package expands in XLA inside
+            # chunked while-loops (omnigs_tpu/ops/binning.py::bin_instances_packed)
+            "replaces": None,
+            "tpu_kernel": None,
+            "launches": sum(expand_by_phase.values()),
+            "launches_by_phase": expand_by_phase,
+            "bitwise_plain": {n: pres[n]["expand"]["bitwise_equal_plain"]
+                              for n in ("train", "render")},
+            "ms": pres["train"]["expand"]["kernel_ms"],
+            "ms_render": pres["render"]["expand"]["kernel_ms"],
+            "plain_ms": pres["train"]["expand"]["plain_ms"],
+            "bound_ms": pres["train"]["expand"]["bound_ms"],
+            "bound_by": pres["train"]["expand"]["bound_by"],
+            # no single PyTorch call decodes a Gaussian's emission slots to tiles
             "library_ms": None,
         },
     ]})

@@ -24,15 +24,12 @@
 // capacity rows) get a zero mask, sx = sy = 1 and wb = w, as the plain
 // version gives them.
 //
-// Bit for bit with the plain version on the card. Every float operation is
-// the one PyTorch's elementwise kernel runs, in the plain version's order:
-// q = ((A u) u + ((2 B) u) v) + (C v) v, ((-B) u0) / clamp_min(C, 1e-12),
-// IEEE division, expf without fast math, the Python scalars as float32
-// (1e-12, 1/255, -0.5, 2), and NaN carried as torch.clamp, clamp_min and
-// torch.minimum carry it (the first NaN operand wins; fminf / fmaxf alone
-// would drop it). nvcc runs with --fmad=false, so nothing is contracted.
-// Rect coordinates are the tile grid's (preprocess clips them to
-// [0, grid]), so no integer step wraps and floor division is C's.
+// Bit for bit with the plain version on the card: the block test is
+// alpha_box.cuh's, shared with the expansion (csrc/expand_keys.cu), which
+// repeats PyTorch's elementwise rounding and NaN rules in the plain
+// version's order; nvcc runs with --fmad=false. Rect coordinates are the
+// tile grid's (preprocess clips them to [0, grid]), so no integer step
+// wraps and floor division is C's.
 //
 // Design. Bound by bytes and latency, with little arithmetic: ~68 B a row
 // (rect 16, tiles_touched 4, means2d 8, conic 12, opacity 4 in; 24 out),
@@ -47,6 +44,7 @@
 
 #include <cuda_runtime.h>
 
+#include "alpha_box.cuh"
 #include "cuda_error.cuh"
 
 namespace {
@@ -58,40 +56,11 @@ constexpr unsigned FULL = 0xffffffffu;
 
 static_assert(MASK_TILES == 64, "the mask is two 32-bit ballots");
 
-// PyTorch casts a Python float scalar to the tensor's float32
-constexpr float EPS = static_cast<float>(1e-12);
-constexpr float ALPHA_FLOOR = static_cast<float>(1.0 / 255.0);
-
-// torch.clamp(v, lo, hi) with tensor bounds: the first NaN of (v, lo, hi)
-__device__ __forceinline__ float clamp_t(float v, float lo, float hi) {
-  if (v != v) return v;
-  if (lo != lo) return lo;
-  if (hi != hi) return hi;
-  return fminf(fmaxf(v, lo), hi);
-}
-
-// torch.clamp_min(v, s) with a scalar s: NaN stays NaN
-__device__ __forceinline__ float clamp_min_t(float v, float s) {
-  return v != v ? v : fmaxf(v, s);
-}
-
-// torch.minimum(a, b): the first NaN of (a, b)
-__device__ __forceinline__ float minimum_t(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return fminf(a, b);
-}
-
 // one live row, as every lane of the warp holds it while the warp tests it
 struct Row {
   int x0, y0, sx, sy, wb;
   float mx, my, A, B, C, op;
 };
-
-// q(u, v) = A u^2 + 2 B u v + C v^2 in the plain version's order
-__device__ __forceinline__ float quad(const Row& r, float u, float v) {
-  return (r.A * u * u + 2.0f * r.B * u * v) + r.C * v * v;
-}
 
 // block b of the row: does the max alpha over its pixel box reach 1/255?
 __device__ bool block_survives(const Row& r, int b) {
@@ -100,20 +69,9 @@ __device__ bool block_survives(const Row& r, int b) {
   const float py0 = static_cast<float>((r.y0 + by * r.sy) * TILE);
   const float ex = static_cast<float>(r.sx * TILE - 1);
   const float ey = static_cast<float>(r.sy * TILE - 1);
-  const float u0 = px0 - r.mx, u1 = (px0 + ex) - r.mx;
-  const float v0 = py0 - r.my, v1 = (py0 + ey) - r.my;
-  float qmin = 0.0f;
-  if (!(u0 <= 0.0f && u1 >= 0.0f && v0 <= 0.0f && v1 >= 0.0f)) {
-    const float negb = -r.B;
-    const float ce = clamp_min_t(r.C, EPS), ae = clamp_min_t(r.A, EPS);
-    const float vs0 = clamp_t(negb * u0 / ce, v0, v1);
-    const float vs1 = clamp_t(negb * u1 / ce, v0, v1);
-    const float us0 = clamp_t(negb * v0 / ae, u0, u1);
-    const float us1 = clamp_t(negb * v1 / ae, u0, u1);
-    qmin = minimum_t(minimum_t(quad(r, u0, vs0), quad(r, u1, vs1)),
-                     minimum_t(quad(r, us0, v0), quad(r, us1, v1)));
-  }
-  return r.op * expf(-0.5f * qmin) >= ALPHA_FLOOR;
+  const float qmin = alpha_box::min_quad_over_box(r.A, r.B, r.C, px0 - r.mx, (px0 + ex) - r.mx,
+                                                  py0 - r.my, (py0 + ey) - r.my);
+  return alpha_box::alpha_reaches_min(r.op, qmin);
 }
 
 __device__ __forceinline__ float shfl(float v, int src) { return __shfl_sync(FULL, v, src); }

@@ -19,8 +19,12 @@ Counterpart of `omnigs_tpu/ops/binning.py`, every layout of it:
 with the superblock pre-cull (`_precull_masks`) shared by all of them: on
 the card the CUDA kernel `precull` (`csrc/precull.cu`, launches counted in
 `utils.profiling.counters`), on the CPU its plain version `_precull_masks_plain`,
-bit for bit the same. Every integer output is bitwise identical to the JAX
-functions' (tests/test_torch_binning.py, tests/test_torch_binning_layouts.py).
+bit for bit the same. The packed layout's expansion (`_packed_keys`: every
+emission slot's sort key) is likewise the kernel `expand_keys`
+(`csrc/expand_keys.cu`) on the card and `_expand_keys_plain` on the CPU; the
+other layouts expand eagerly (`_expand`). Every integer output is bitwise
+identical to the JAX functions' (tests/test_torch_binning.py,
+tests/test_torch_binning_layouts.py).
 
 Port notes, where PyTorch differs from `jax.lax`:
 
@@ -329,12 +333,18 @@ def _emission_segments(keep, offsets, tiles, max_instances: int):
     return e, ksum[lo], ksum[hi]
 
 
+def _live_chunks(n_slots: int) -> int:
+    """Full chunks of the JAX functions' live-bound loops over ``n_slots``;
+    0 where they run one full-width pass (a ragged or single chunk)."""
+    n_full = n_slots // _LIVE_CHUNK
+    return n_full if n_full * _LIVE_CHUNK == n_slots and n_full > 1 else 0
+
+
 def _live_chunk_bound(n_slots: int, total: torch.Tensor):
     """Slot count the JAX functions' live-bound chunk loops visit, as a
-    tensor; None where they run one full-width pass (a ragged or single
-    chunk)."""
-    n_full = n_slots // _LIVE_CHUNK
-    if n_full * _LIVE_CHUNK != n_slots or n_full <= 1:
+    tensor; None where they run one full-width pass."""
+    n_full = _live_chunks(n_slots)
+    if not n_full:
         return None
     n_chunks = torch.clamp_max((total + _LIVE_CHUNK - 1) // _LIVE_CHUNK, n_full)
     return n_chunks * _LIVE_CHUNK
@@ -448,6 +458,112 @@ def bin_instances(
     )
 
 
+def _depth_ranks(depths: torch.Tensor, tiles: torch.Tensor):
+    """(perm, tiles_d, offsets_d): the stable depth presort's order (int32
+    Gaussian ids by depth rank; ties keep the original Gaussian order, which
+    with Gaussian-major emission reproduces a stable (tile, depth) sort),
+    the emission budget in that order and its exclusive cumsum."""
+    perm = torch.sort(depths, stable=True).indices.to(_I32)
+    tiles_d = tiles[perm.to(_I64)]
+    return perm, tiles_d, _cumsum32(tiles_d) - tiles_d
+
+
+def _packed_keys(prep, cull, perm, tiles_d, offsets_d, max_instances: int,
+                 grid_x: int, num_tiles: int, tile_lo: int = 0) -> torch.Tensor:
+    """The packed layout's expansion: each of the ``max_instances`` emission
+    slots' int64 sort key ``tile << RANK_BITS | depth_rank`` (the dead
+    sentinel tile ``num_tiles`` where the slot emits nothing), from the ranks'
+    budget ``tiles_d`` and exclusive cumsum ``offsets_d`` in depth order,
+    ``perm`` and the cull masks (or None). From the kernel `expand_keys` on a
+    CUDA device, from `_expand_keys_plain` on the CPU."""
+    if perm.device.type == "cuda":
+        return expand_keys(
+            prep, cull, perm, tiles_d, offsets_d, max_instances, grid_x, num_tiles, tile_lo
+        )
+    return _expand_keys_plain(
+        prep, cull, perm, tiles_d, offsets_d, max_instances, grid_x, num_tiles, tile_lo
+    )
+
+
+def _expand_keys_plain(prep, cull, perm, tiles_d, offsets_d, max_instances: int,
+                       grid_x: int, num_tiles: int, tile_lo: int = 0) -> torch.Tensor:
+    """`_packed_keys` in PyTorch: the owner search, the rows' gathers and
+    `_expand` over every slot, the JAX function's operations in its order."""
+    P = perm.shape[0]
+    total = offsets_d[-1] + tiles_d[-1]
+    j = torch.arange(max_instances, dtype=_I32, device=perm.device)
+    # slot → owning depth rank: (# emission offsets ≤ j) − 1
+    g = torch.searchsorted(offsets_d, j, right=True).to(_I32) - 1
+    g = torch.clamp(g, 0, P - 1)
+    gl = g.to(_I64)
+    tid, _ = _expand(
+        prep, cull, perm.to(_I64)[gl], j - offsets_d[gl], j < total, grid_x, num_tiles,
+        tile_lo,
+    )
+    key = (tid.to(_I64) << RANK_BITS) | g.to(_I64)
+    bound = _live_chunk_bound(max_instances, total)
+    if bound is not None:
+        dead_key = num_tiles << RANK_BITS
+        key = torch.where(j < bound, key, torch.full_like(key, dead_key))
+    return key
+
+
+# omnigs_expand_keys(ptrs[12], strides[15], P, n_slots, grid_x, num_tiles,
+#                    tile_lo, n_full, cull, key, device, stream)
+_EXPAND_ARGTYPES = [
+    _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int, _VP,
+]
+
+
+def expand_keys(prep: Preprocessed, cull, perm, tiles_d, offsets_d, max_instances: int,
+                grid_x: int, num_tiles: int, tile_lo: int = 0) -> torch.Tensor:
+    """The expansion kernel (`csrc/expand_keys.cu`) on CUDA tensors:
+    `_packed_keys`' (max_instances,) int64 keys, bit for bit
+    `_expand_keys_plain`'s, from one pass over the slots (inputs read through
+    their strides; total and the live bound read on the device). The launch
+    runs on the current stream, without a sync."""
+    p = perm.shape[0]
+    f32 = torch.float32
+    want = [("offsets_d", offsets_d, (p,), _I32), ("tiles_d", tiles_d, (p,), _I32),
+            ("perm", perm, (p,), _I32)]
+    rows = prep.rect.shape[0]
+    want += [("rect", prep.rect, (rows, 4), _I32)]
+    if cull is not None:
+        want += [(n, c, (rows,), _I32) for n, c in zip(("lo", "hi", "sx", "sy", "wb"), cull)]
+        want += [("means2d", prep.means2d, (rows, 2), f32), ("conic", prep.conic, (rows, 3), f32),
+                 ("opacity", prep.opacity, (rows,), f32)]
+    bad = [f"{n} {tuple(t.shape)} {t.dtype}" for n, t, s, d in want
+           if tuple(t.shape) != s or t.dtype != d]
+    if bad or p == 0 or not 0 <= max_instances < 1 << 24 or (cull is not None and len(cull) != 5):
+        raise ValueError(
+            "the expansion kernel takes offsets_d, tiles_d and perm (P,) int32 with P >= 1, "
+            "rect (rows, 4) int32, the cull's five (rows,) int32 rows and means2d (rows, 2), "
+            "conic (rows, 3), opacity (rows,) float32, and max_instances below 2^24; got "
+            + (", ".join(bad) or f"P = {p}, max_instances = {max_instances}")
+        )
+    dev = perm.device
+    if dev.type != "cuda" or any(t.device != dev for _, t, _, _ in want):
+        raise ValueError(
+            "the expansion kernel runs on one CUDA device, got "
+            + ", ".join(f"{n} on {t.device}" for n, t, _, _ in want)
+        )
+    key = torch.empty(max_instances, dtype=_I64, device=dev)
+    if max_instances:
+        ts = [t for _, t, _, _ in want]  # the cull's rows and the floats only with it
+        ptrs = [t.data_ptr() for t in ts] + [None] * (12 - len(ts))
+        strides = [s for t in ts for s in t.stride()] + [0] * (15 - sum(t.dim() for t in ts))
+        lib, fn = cuda_build.launcher("expand_keys", "expand_keys", _EXPAND_ARGTYPES)
+        err = fn(
+            (_VP * 12)(*ptrs), (_LL * 15)(*strides), p, max_instances, grid_x, num_tiles,
+            tile_lo, _live_chunks(max_instances), int(cull is not None), key.data_ptr(),
+            dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        cuda_build.check(lib, err, "expand_keys launch")
+        profiling.count_launch("expand_keys")
+    return key
+
+
 def bin_instances_packed(
     prep: Preprocessed,
     grid_x: int,
@@ -483,30 +599,13 @@ def bin_instances_packed(
         raise ValueError("max_instances must stay below 2^24")
 
     tiles, cull = _emission_budget(prep, grid_x, tile_cull)
-    # stable depth presort: ties keep the original gaussian order, which
-    # with gaussian-major emission reproduces a stable (tile, depth) sort
-    perm = torch.sort(prep.depths, stable=True).indices.to(_I32)
+    perm, tiles_d, offsets_d = _depth_ranks(prep.depths, tiles)
     inv_perm = torch.empty_like(perm)
     inv_perm[perm.to(_I64)] = torch.arange(P, dtype=_I32, device=dev)
-    perm_l = perm.to(_I64)
-    tiles_d = tiles[perm_l]
-
-    offsets_d = _cumsum32(tiles_d) - tiles_d
     total = offsets_d[-1] + tiles_d[-1]
-    j = torch.arange(max_instances, dtype=_I32, device=dev)
-    # slot → owning depth rank: (# emission offsets ≤ j) − 1
-    g = torch.searchsorted(offsets_d, j, right=True).to(_I32) - 1
-    g = torch.clamp(g, 0, P - 1)
-    gl = g.to(_I64)
-    tid, _ = _expand(
-        prep, cull, perm_l[gl], j - offsets_d[gl], j < total, grid_x, num_tiles,
-        tile_lo,
+    key = _packed_keys(
+        prep, cull, perm, tiles_d, offsets_d, max_instances, grid_x, num_tiles, tile_lo
     )
-    key = (tid.to(_I64) << RANK_BITS) | g.to(_I64)
-    bound = _live_chunk_bound(max_instances, total)
-    if bound is not None:
-        dead_key = num_tiles << RANK_BITS
-        key = torch.where(j < bound, key, torch.full_like(key, dead_key))
 
     skey, order = torch.sort(key)
     sorted_e = seg_lo = seg_hi = None

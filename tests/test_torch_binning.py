@@ -124,6 +124,79 @@ def test_precull_source_constants_match_the_package(name, value):
     assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
 
 
+def _expand_args(pt, tile_cull, gx=16, gy=8, slots=1 << 13):
+    """The expansion's inputs as `bin_instances_packed` builds them."""
+    tiles, cull = tbin._emission_budget(pt, gx, tile_cull)
+    return pt, cull, *tbin._depth_ranks(pt.depths, tiles), slots, gx, gx * gy
+
+
+@pytest.mark.parametrize("tile_cull", [False, True])
+def test_expand_keys_on_the_cpu_takes_the_plain_version(tile_cull):
+    """CPU tensors take `_expand_keys_plain` (the JAX parity tests hold it)
+    and launch nothing, through the binning too; the kernel's wrapper
+    refuses them."""
+    _, pt = _prep_pair(23, 48, scale_mu=-0.7, spread=1.0, w=256, h=128)
+    args = _expand_args(pt, tile_cull)
+    before = launches("expand_keys")
+    got = tbin._packed_keys(*args)
+    tbin.bin_instances_packed(pt, 16, 8, 1 << 13, tile_cull=tile_cull, with_emission=True)
+    assert launches("expand_keys") == before
+    assert got.dtype == torch.int64 and torch.equal(got, tbin._expand_keys_plain(*args))
+    assert int(((got >> tbin.RANK_BITS) < 128).sum()) > 0
+    with pytest.raises(ValueError, match="runs on one CUDA device"):
+        tbin.expand_keys(*args)
+
+
+@pytest.mark.parametrize("fault", ["perm_int64", "offsets_short", "rect_wide", "cull_four",
+                                   "conic_f64", "no_rows", "slots_2_24"])
+def test_expand_keys_refuses_what_it_does_not_take(fault):
+    """The wrapper checks dtypes, shapes and the slot count before it looks
+    for a card."""
+    _, pt = _prep_pair(23, 48, scale_mu=-0.7, spread=1.0, w=256, h=128)
+    a = list(_expand_args(pt, True))
+    if fault == "perm_int64":
+        a[2] = a[2].long()
+    elif fault == "offsets_short":
+        a[4] = a[4][:-1]
+    elif fault == "rect_wide":
+        a[0] = pt._replace(rect=torch.cat([pt.rect, pt.rect[:, :1]], 1))
+    elif fault == "cull_four":
+        a[1] = a[1][:4]
+    elif fault == "conic_f64":
+        a[0] = pt._replace(conic=pt.conic.double())
+    elif fault == "no_rows":
+        a[2:5] = [t[:0] for t in a[2:5]]
+    else:
+        a[5] = 1 << 24
+    with pytest.raises(ValueError, match="the expansion kernel takes"):
+        tbin.expand_keys(*a)
+
+
+@pytest.mark.parametrize("name,value", [("MASK_TILES", tbin.MASK_TILES), ("TILE", tpre.TILE),
+                                        ("RANK_BITS", tbin.RANK_BITS),
+                                        ("LIVE_CHUNK", tbin._LIVE_CHUNK)])
+def test_expand_keys_source_constants_match_the_package(name, value):
+    """`csrc/expand_keys.cu` states the mask width, the tile edge, the key's
+    rank bits and the live-bound chunk the plain version takes from the
+    package."""
+    src = (Path(tbin.__file__).resolve().parent.parent / "csrc" / "expand_keys.cu").read_text()
+    assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
+
+
+def test_one_alpha_test_header_for_both_binning_kernels():
+    """The pre-cull and the expansion take the ellipse-box alpha test from
+    `csrc/alpha_box.cuh`; neither source writes its own."""
+    csrc = Path(tbin.__file__).resolve().parent.parent / "csrc"
+    header = (csrc / "alpha_box.cuh").read_text()
+    for fn in ("min_quad_over_box", "alpha_reaches_min"):
+        assert re.search(rf"__device__ __forceinline__ \w+ {fn}\(", header), fn
+    for name in ("precull.cu", "expand_keys.cu"):
+        src = (csrc / name).read_text()
+        assert '#include "alpha_box.cuh"' in src, name
+        assert "alpha_box::min_quad_over_box(" in src and "alpha_box::alpha_reaches_min(" in src
+        assert "expf(" not in src and "clamp_t(" not in src, name
+
+
 def test_popcount_and_kth_set_bit():
     rng = np.random.default_rng(24)
     words = rng.integers(-(1 << 31), 1 << 31, size=(2, 400), dtype=np.int64)

@@ -40,7 +40,12 @@ blocks (`ssim_rows`) too; the window's graph counts their launches a
 replay; the binning's pre-cull kernel (`csrc/precull.cu`) bit for bit its
 plain version (`_precull_masks_plain`) on the slabs named at
 PRECULL_CASES, the whole packed binning and relay unchanged by it, and one
-launch of it a render request and a replayed or eager step."""
+launch of it a render request and a replayed or eager step; the packed
+binning's expansion kernel (`csrc/expand_keys.cu`) bit for bit its plain
+version (`_expand_keys_plain`) on the inputs named at EXPAND_CASES, its
+select against `_kth_set_bit` on random masks, every output of
+`bin_instances_packed` unchanged by it, and one launch of it a render
+request and a replayed or eager step."""
 
 import numpy as np
 import pytest
@@ -770,7 +775,7 @@ def test_graph_window_equals_eager_iterations(layout):
     fwd = "composite_tile_fwd" if layout == "tile_major" else "composite_seg_fwd"
     n0 = launches(fwd)
     s0 = (launches("ssim_fwd"), launches("ssim_bwd"))
-    c0 = launches("precull")
+    c0, e0 = launches("precull"), launches("expand_keys")
     r0 = profiling.counters()["replays"]
     for _ in range(2):
         assert a.train_window(5) == 5
@@ -782,8 +787,9 @@ def test_graph_window_equals_eager_iterations(layout):
     assert launches(fwd) - n0 == 10 + WARMUP_STEPS + 10
     # the loss's two kernels, once each in every replay and eager step
     assert launches("ssim_fwd") - s0[0] == launches("ssim_bwd") - s0[1] == 10 + WARMUP_STEPS + 10
-    # the binning's pre-cull too: the graph holds its one launch a step
+    # the binning's pre-cull and expansion too: the graph holds one launch of each a step
     assert launches("precull") - c0 == 10 + WARMUP_STEPS + 10
+    assert launches("expand_keys") - e0 == 10 + WARMUP_STEPS + 10
     for k in FIELD_NAMES:
         assert torch.equal(getattr(a.model, k), getattr(b.model, k)), k
     for m in ("mu", "nu"):
@@ -1280,16 +1286,155 @@ def test_binning_with_precull_kernel_matches_plain_precull(monkeypatch):
 @pytest.mark.gpu
 def test_render_request_launches_one_precull():
     """A render request through the production layout runs the pre-cull
-    kernel once."""
+    kernel once, and the expansion kernel once."""
     dev = _cuda()
     m = GaussianModel.from_numpy(random_model_np(81, 2048, 1500), device=dev)
-    before = launches("precull")
+    before = launches("precull", "expand_keys")
     with torch.inference_mode():
         render_model(m, Camera(CameraType.LONLAT, 256, 128), torch.eye(4, device=dev),
                      torch.zeros(3, device=dev), torch.zeros(3, device=dev), 3,
                      RasterConfig(max_instances=1 << 14, **PROD_KW))
     torch.cuda.synchronize()
-    assert launches("precull") == before + 1
+    assert launches("precull", "expand_keys") == (before[0] + 1, before[1] + 1)
+
+
+# the packed binning's expansion (`csrc/expand_keys.cu`) against its plain
+# version, on inputs built on the card: the benchmark's cloud at the training
+# step's shape (P = 524,288, a quarter live, 2^22 slots, the cull on); its
+# emission truncated at 2^18 slots (live bound) and at 300,001 (none); a slot
+# count that is not a multiple of 2^16 (no live bound) and exactly one chunk;
+# a tile window; the cull off; runs of ranks with no tiles; an owner window
+# wider than a block's stage (one rank in 64 emits); no emission at all; one row
+EXPAND_CASES = {
+    # case: (slots, tile_cull, tile_lo, n_tiles)
+    "bench": (1 << 22, True, 0, None),
+    "truncated": (1 << 18, True, 0, None),
+    "truncated_ragged": (300_001, True, 0, None),
+    "ragged_slots": ((1 << 22) - 12_345, True, 0, None),
+    "one_chunk": (1 << 16, True, 0, None),
+    "tile_window": (1 << 22, True, 1_234, 2_000),
+    "no_cull": (1 << 22, False, 0, None),
+    "zero_runs": (1 << 20, True, 0, None),
+    "wide_window": (1 << 16, True, 0, None),
+    "no_emission": (1 << 22, True, 0, None),
+    "one_row": (1 << 17, True, 0, None),
+}
+
+
+def _expand_inputs(prep, tile_cull, cull=None):
+    """What `bin_instances_packed` hands the expansion: the cull masks (the
+    pre-cull's, or ``cull`` with its budget), the depth order, the budget and
+    its offsets in that order."""
+    if cull is None:
+        tiles, cull = tbin._emission_budget(prep, GRID[0], tile_cull)
+    else:
+        tiles = (tbin._popcount32(cull[0]) + tbin._popcount32(cull[1])) * cull[2] * cull[3]
+    return (cull, *tbin._depth_ranks(prep.depths, tiles))
+
+
+def _expand_prep(case, dev):
+    rng = np.random.default_rng(110 + list(EXPAND_CASES).index(case))
+    if case in ("bench", "truncated", "truncated_ragged", "ragged_slots", "tile_window",
+                "no_cull"):
+        return _bench_prep(dev)
+    if case == "one_chunk":
+        return _rows_prep(dev, *_random_rows(rng, rng.integers(1, 9, (2000, 2))))
+    if case == "zero_runs":
+        # alternating runs of emitting ranks and of ranks with no tiles, 1 to 3,000 long
+        n = 1 << 17
+        prep = _rows_prep(dev, *_random_rows(rng, rng.integers(1, 6, (n, 2))))
+        runs = np.repeat(np.arange(n) % 2, rng.integers(1, 3000, n))[:n]
+        keep = torch.as_tensor(runs, dtype=torch.int32, device=dev)
+        return prep._replace(tiles_touched=prep.tiles_touched * keep)
+    if case == "wide_window":
+        n = 1 << 19
+        rect, means, conic, opac = _random_rows(rng, np.ones((n, 2), int), sigma=(40.0, 80.0))
+        return _rows_prep(dev, rect, means, conic, opac, (np.arange(n) % 64 == 0).astype(int))
+    if case == "no_emission":
+        rect, means, conic, opac = _random_rows(rng, rng.integers(1, 6, (4096, 2)))
+        return _rows_prep(dev, rect, means, conic, opac, np.zeros(4096, int))
+    assert case == "one_row"
+    return _rows_prep(dev, [[40, 20, 52, 29]], [[740.0, 390.0]], [[2e-4, 1e-5, 3e-4]], [0.9])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(EXPAND_CASES))
+def test_expand_keys_kernel_matches_plain(case):
+    """The expansion kernel's keys `torch.equal` to `_expand_keys_plain`'s on
+    the card, dead slots included; one launch."""
+    dev = _cuda()
+    slots, tile_cull, tile_lo, n_tiles = EXPAND_CASES[case]
+    prep = _expand_prep(case, dev)
+    cull, perm, tiles_d, offsets_d = _expand_inputs(prep, tile_cull)
+    args = (prep, cull, perm, tiles_d, offsets_d, slots, GRID[0],
+            n_tiles or GRID[0] * GRID[1], tile_lo)
+    before = launches("expand_keys")
+    got = tbin._packed_keys(*args)
+    torch.cuda.synchronize()
+    assert launches("expand_keys") == before + 1
+    want = tbin._expand_keys_plain(*args)
+    assert got.dtype == torch.int64 and got.shape == want.shape == (slots,)
+    assert torch.equal(got, want), int((got != want).sum())
+    total, live = int(offsets_d[-1] + tiles_d[-1]), int(((want >> tbin.RANK_BITS) < args[7]).sum())
+    if case == "bench":
+        assert prep.rect.shape[0] == 1 << 19 and 0 < total <= slots and live > 0
+    if case.startswith("truncated"):
+        assert total > slots
+    if case in ("one_chunk", "zero_runs", "wide_window", "one_row"):
+        assert 0 < live and total < slots
+    if case == "no_emission":
+        assert total == 0 and bool((want == args[7] << tbin.RANK_BITS).all())
+
+
+@pytest.mark.gpu
+def test_expand_keys_kernel_selects_the_kth_set_bit():
+    """The kernel's block select against `_kth_set_bit` on random masks: 1x1
+    blocks of an 8x8 rect at the grid's corner and alpha 1, so every slot's
+    tile is the block its k-th set bit names, k the slot's index in its row."""
+    dev = _cuda()
+    rng = np.random.default_rng(120)
+    n = 1 << 14
+    words = rng.integers(-(1 << 31), 1 << 31, size=(2, n)).astype(np.int32)
+    words[:, :6] = [[-1, 0, -(1 << 31), 1, 0, -1], [-1, -(1 << 31), 0, 0, 1, 0]]
+    lo, hi = (torch.as_tensor(w, device=dev) for w in words)
+    one = torch.ones(n, dtype=torch.int32, device=dev)
+    prep = _rows_prep(dev, np.tile([0, 0, 8, 8], (n, 1)), np.zeros((n, 2)), np.zeros((n, 3)),
+                      np.ones(n))
+    cull, perm, tiles_d, offsets_d = _expand_inputs(prep, True, (lo, hi, one, one, 8 * one))
+    slots = int(offsets_d[-1] + tiles_d[-1])
+    args = (prep, cull, perm, tiles_d, offsets_d, slots, GRID[0], GRID[0] * GRID[1])
+    key = tbin.expand_keys(*args)
+    assert torch.equal(key, tbin._expand_keys_plain(*args))
+    g = (key & ((1 << tbin.RANK_BITS) - 1)).long()
+    tid = key >> tbin.RANK_BITS
+    block = (tid // GRID[0]) * 8 + tid % GRID[0]
+    k = torch.arange(slots, device=dev) - offsets_d.long()[g]
+    assert torch.equal(block.int(), tbin._kth_set_bit(lo[g], hi[g], k.int()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_emission", [False, True])
+def test_packed_binning_with_expand_kernel_matches_plain(monkeypatch, with_emission):
+    """`bin_instances_packed` at the training step's shape (P = 524,288, 2^22
+    slots, the cull on) with the expansion kernel and with its plain version:
+    every output `torch.equal`, the survivor payload too; one launch."""
+    dev = _cuda()
+    prep = _bench_prep(dev)
+
+    def run():
+        out = bin_instances_packed(prep, *GRID, 1 << 22, tile_cull=True,
+                                   with_emission=with_emission)
+        return [t for t in out if t is not None]
+
+    before = launches("expand_keys")
+    got = run()
+    assert launches("expand_keys") == before + 1
+    monkeypatch.setattr(tbin, "expand_keys", tbin._expand_keys_plain)
+    want = run()
+    assert len(got) == len(want) == (11 if with_emission else 8)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[3]) > 0  # instances emitted
 
 
 @pytest.mark.gpu
